@@ -1,0 +1,294 @@
+"""Gibbs sampler for BMF (port of ``repro.core.gibbs``).
+
+One sweep:
+  1. (optional) resample NW hyperparameters for U and V given current factors
+  2. sample all rows of U | V  (parallel across rows)
+  3. sample all rows of V | U
+
+Running accumulators (post-burn-in): predictive sums on the test entries
+(for RMSE of the posterior-mean predictor), factor means and outer-product
+sums (for Posterior Propagation summarization).
+
+The reference's ``fori_loop`` is a Python loop over sweeps here, and its
+``vmap`` over blocks a leading block axis B that every tensor of the chain
+carries: ``_run_gibbs_impl`` always runs a batch, the kernels take the
+batch directly, ``run_gibbs`` is a batch of one. Random draws come from a
+noise source addressed by (sweep, factor) (``repro_torch.noise``), so
+block b of a stacked chain reproduces ``run_gibbs`` on block b alone.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import bmf as BMF
+from repro_torch.core import posterior as POST
+from repro_torch.core.posterior import RowGaussians
+from repro_torch.data.sparse import PaddedCSR, row_live
+from repro_torch.noise import GeneratorNoise
+
+
+class GibbsAccumulators(NamedTuple):
+    pred_sum: torch.Tensor     # (…, n_test) sum over kept samples of u·v
+    pred_cnt: torch.Tensor     # (…) kept-sample count
+    U_sum: torch.Tensor        # (…, N, K)
+    U_outer: torch.Tensor      # (…, N, K, K)
+    V_sum: torch.Tensor        # (…, D, K)
+    V_outer: torch.Tensor      # (…, D, K, K)
+
+
+class GibbsResult(NamedTuple):
+    U: torch.Tensor
+    V: torch.Tensor
+    acc: GibbsAccumulators
+    U_post: RowGaussians       # summarized per-row posteriors
+    V_post: RowGaussians
+    # chain-health flag (bool; (B,) for a stacked chain): every final
+    # factor, summarized posterior and predictive sum is finite
+    health: Optional[torch.Tensor] = None
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, (tuple, list)):
+        for t in tree:
+            yield from _leaves(t)
+
+
+def tree_map(fn, tree):
+    """Apply ``fn`` to every tensor of a (nested) NamedTuple/tuple or
+    PaddedCSR."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if tree is None:
+        return None
+    if isinstance(tree, PaddedCSR):
+        return PaddedCSR(fn(tree.idx), fn(tree.val), fn(tree.mask),
+                         tree.n_cols)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, t) for t in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, t) for t in tree)
+    return tree
+
+
+def chain_health(*trees, batch_dims: int = 0) -> torch.Tensor:
+    """All-finite reduction over every tensor of ``trees``, keeping the
+    first ``batch_dims`` axes (one flag per block of a stacked chain)."""
+    ok = None
+    for leaf in _leaves(trees):
+        f = torch.isfinite(leaf).reshape(leaf.shape[:batch_dims] + (-1,))
+        f = f.all(-1)
+        ok = f if ok is None else ok & f
+    return ok
+
+
+def _summarize(sum_, outer, cnt, ridge=1e-4):
+    """Per-row Gaussian of the kept draws: moments -> natural params.
+    ``cnt`` has the batch shape of ``sum_`` without its (N, K) axes."""
+    c = cnt.reshape(cnt.shape + (1, 1))
+    mean = sum_ / c
+    cov = outer / c[..., None] - mean[..., :, None] * mean[..., None, :]
+    K = mean.shape[-1]
+    # relative ridge: scaled by the row's largest diagonal and floored at
+    # the absolute value, so O(1)-scale rows see exactly 1e-4 while a row
+    # whose variances sit at 1e4 still gets a nudge that keeps it PD
+    mag = torch.diagonal(cov, dim1=-2, dim2=-1).abs().amax(-1, keepdim=True)
+    row_ridge = ridge * torch.clamp(mag, min=1.0)                 # (…, N, 1)
+    cov = cov + row_ridge[..., None] * torch.eye(K, dtype=cov.dtype,
+                                                 device=cov.device)
+    return POST.from_moments_cov(mean, cov, ridge=0.0)
+
+
+def as_noise(noise, batch: int, device):
+    """A noise source for ``batch`` blocks: an int seed (batch of one), a
+    sequence of per-block seeds, or a ready source."""
+    if isinstance(noise, (int, np.integer)):
+        noise = [int(noise)]
+    if isinstance(noise, (list, tuple)):
+        noise = GeneratorNoise(noise, device)
+    if noise.batch != batch:
+        raise ValueError(f"noise source serves {noise.batch} block(s), "
+                         f"the chain runs {batch}")
+    return noise
+
+
+def _to(x, dev, dtype=None):
+    return None if x is None else torch.as_tensor(x, dtype=dtype, device=dev)
+
+
+def _csr_to(csr: PaddedCSR, dev) -> PaddedCSR:
+    return PaddedCSR(idx=_to(csr.idx, dev, torch.int32),
+                     val=_to(csr.val, dev, torch.float32),
+                     mask=_to(csr.mask, dev, torch.float32),
+                     n_cols=csr.n_cols)
+
+
+def _prior_to(p: Optional[RowGaussians], dev) -> Optional[RowGaussians]:
+    return None if p is None else RowGaussians(
+        eta=_to(p.eta, dev, torch.float32),
+        Lambda=_to(p.Lambda, dev, torch.float32))
+
+
+def _check_indices(csr: PaddedCSR, n_other: int):
+    """Every slot must gather a row of the other factor: the kernels read
+    ``other[idx]`` without bounds checks. One device sync per chain."""
+    if csr.idx.numel() and not (int(csr.idx.min()) >= 0
+                                and int(csr.idx.max()) < n_other):
+        raise ValueError(f"CSR column ids outside [0, {n_other})")
+
+
+def run_gibbs(noise,
+              csr_rows: PaddedCSR,      # R rows:    users x items
+              csr_cols: PaddedCSR,      # R^T rows:  items x users
+              test_rows,                # (n_test,) user ids
+              test_cols,                # (n_test,) item ids
+              cfg: BMF.BMFConfig,
+              U_prior: Optional[RowGaussians] = None,
+              V_prior: Optional[RowGaussians] = None,
+              U0=None, V0=None, device=None) -> GibbsResult:
+    """Run cfg.n_samples sweeps (cfg.burnin of them discarded) on one
+    block. ``noise``: an int seed or a noise source of batch 1.
+
+    U_prior / V_prior: propagated per-row priors (PP phases b/c). When None,
+    the factor gets the NW hierarchical prior resampled each sweep."""
+    dev = resolve_device(device)
+    one = lambda t: tree_map(lambda x: x[None], t)   # noqa: E731
+    rows, cols = one(_csr_to(csr_rows, dev)), one(_csr_to(csr_cols, dev))
+    noise = as_noise(noise, 1, dev)
+    N, D, K = rows.n_rows, cols.n_rows, cfg.K
+    U0_, V0_ = (BMF.init_factors(noise, N, D, K)
+                if U0 is None or V0 is None else (None, None))
+    U0 = U0_ if U0 is None else _to(U0, dev, torch.float32)[None]
+    V0 = V0_ if V0 is None else _to(V0, dev, torch.float32)[None]
+    res = _run_gibbs_impl(noise, rows, cols,
+                          _to(test_rows, dev)[None], _to(test_cols, dev)[None],
+                          cfg, cfg.n_samples, cfg.burnin,
+                          one(_prior_to(U_prior, dev)),
+                          one(_prior_to(V_prior, dev)), U0, V0)
+    return tree_map(lambda x: x[0], res)
+
+
+def run_gibbs_stacked(noise,
+                      csr_rows: PaddedCSR,      # (B, N, M) planes
+                      csr_cols: PaddedCSR,      # (B, D, M_c) planes
+                      test_rows,                # (B, n_test)
+                      test_cols,                # (B, n_test)
+                      cfg: BMF.BMFConfig,
+                      U_prior: Optional[RowGaussians] = None,
+                      V_prior: Optional[RowGaussians] = None,
+                      prior_use: Optional[Sequence] = None,
+                      device=None) -> GibbsResult:
+    """Batched analogue of ``run_gibbs``: B identically-shaped blocks'
+    chains at once. ``noise``: a sequence of B per-block seeds or a noise
+    source of batch B; block b of the result reproduces ``run_gibbs`` with
+    block b's seed.
+
+    ``prior_use``: optional ``(u_use, v_use)`` per-block {0,1} flags (B,).
+    With flags, ``U_prior``/``V_prior`` are full (B, …) tensors and block b
+    uses the fixed prior where its flag is 1 and the resampled NW
+    hyperprior where it is 0."""
+    dev = resolve_device(device)
+    rows, cols = _csr_to(csr_rows, dev), _csr_to(csr_cols, dev)
+    B, N, D, K = rows.idx.shape[0], rows.n_rows, cols.n_rows, cfg.K
+    noise = as_noise(noise, B, dev)
+    U0, V0 = BMF.init_factors(noise, N, D, K)
+    u_use, v_use = (None, None) if prior_use is None else (
+        _to(prior_use[0], dev), _to(prior_use[1], dev))
+    return _run_gibbs_impl(noise, rows, cols, _to(test_rows, dev),
+                           _to(test_cols, dev), cfg, cfg.n_samples,
+                           cfg.burnin, _prior_to(U_prior, dev),
+                           _prior_to(V_prior, dev), U0, V0, u_use, v_use)
+
+
+def _run_gibbs_impl(noise, csr_rows, csr_cols, test_rows, test_cols, cfg,
+                    n_samples, burnin, U_prior, V_prior, U0, V0,
+                    u_use=None, v_use=None,
+                    u_sampler=None, v_sampler=None) -> GibbsResult:
+    """Chain body shared by every executor path; every tensor carries the
+    leading block axis B.
+
+    ``u_sampler`` / ``v_sampler`` are the factor-step seams:
+    ``sampler(z, csr, other, prior) -> factor``, defaulting to
+    ``bmf.sample_factor`` (or the fused sweep under ``cfg.sweep_fused``).
+    Everything else — noise addressing, prior selection, accumulators,
+    summaries — is this code."""
+    N, D, K = csr_rows.n_rows, csr_cols.n_rows, cfg.K
+    dev = csr_rows.idx.device
+    _check_indices(csr_rows, D)
+    _check_indices(csr_cols, N)
+    nw = POST.default_nw(K, device=dev)
+    # per-row live lengths, once per chain: the planes never change, and
+    # the kernels skip each row's all-padding tail with them
+    live_r, live_c = row_live(csr_rows.mask), row_live(csr_cols.mask)
+
+    def default_sampler(live):
+        if cfg.sweep_fused:
+            from repro_torch.kernels.bmf_sweep import ops as SWEEP
+            return lambda z, csr, other, prior: SWEEP.sample_factor_fused(
+                z, csr, other, cfg.tau, prior, dtype=cfg.sweep_dtype,
+                live=live)
+        return lambda z, csr, other, prior: BMF.sample_factor(
+            z, csr, other, cfg.tau, prior, cfg.use_kernel, live=live)
+
+    if u_sampler is None:
+        u_sampler = default_sampler(live_r)
+    if v_sampler is None:
+        v_sampler = default_sampler(live_c)
+
+    B = U0.shape[0]
+    f32 = dict(dtype=torch.float32, device=dev)
+    acc = GibbsAccumulators(
+        pred_sum=torch.zeros(test_rows.shape, **f32),
+        pred_cnt=torch.zeros((B,), **f32),
+        U_sum=torch.zeros((B, N, K), **f32),
+        U_outer=torch.zeros((B, N, K, K), **f32),
+        V_sum=torch.zeros((B, D, K), **f32),
+        V_outer=torch.zeros((B, D, K, K), **f32))
+
+    def pick_prior(fixed, use, sweep, f, X, n):
+        """Prior for one factor this sweep: the fixed prior, the resampled
+        NW hyperprior, or per block one of the two by its ``use`` flag."""
+        if fixed is not None and use is None:
+            return fixed
+        chi2, lower, z = noise.hyper(sweep, f, float(K + n), K)
+        mu, Lam = BMF.sample_hyper_noise(X, nw, chi2, lower, z)
+        hier = POST.broadcast_prior(mu, Lam, n)
+        if fixed is None:
+            return hier
+        flag = use.to(torch.bool)
+        return RowGaussians(
+            eta=torch.where(flag[:, None, None], fixed.eta, hier.eta),
+            Lambda=torch.where(flag[:, None, None, None], fixed.Lambda,
+                               hier.Lambda))
+
+    U, V = U0, V0
+    for i in range(int(n_samples)):
+        u_prior = pick_prior(U_prior, u_use, i, "U", U, N)
+        v_prior = pick_prior(V_prior, v_use, i, "V", V, D)
+        U = u_sampler(noise.factor(i, "U", N, K), csr_rows, V, u_prior)
+        V = v_sampler(noise.factor(i, "V", D, K), csr_cols, U, v_prior)
+        if i >= burnin:
+            acc.pred_sum.add_(BMF.predict(U, V, test_rows, test_cols))
+            acc.pred_cnt.add_(1.0)
+            acc.U_sum.add_(U)
+            acc.U_outer.addcmul_(U[..., :, None], U[..., None, :])
+            acc.V_sum.add_(V)
+            acc.V_outer.addcmul_(V[..., :, None], V[..., None, :])
+
+    cnt = torch.clamp(acc.pred_cnt, min=1.0)
+    U_post = _summarize(acc.U_sum, acc.U_outer, cnt)
+    V_post = _summarize(acc.V_sum, acc.V_outer, cnt)
+    health = chain_health(U, V, U_post, V_post, acc.pred_sum, batch_dims=1)
+    return GibbsResult(U=U, V=V, acc=acc, U_post=U_post, V_post=V_post,
+                       health=health)
+
+
+def rmse_from_acc(acc: GibbsAccumulators, test_vals) -> torch.Tensor:
+    pred = acc.pred_sum / torch.clamp(acc.pred_cnt, min=1.0)[..., None]
+    test_vals = torch.as_tensor(test_vals, device=pred.device)
+    return torch.sqrt(torch.mean((pred - test_vals) ** 2, dim=-1))

@@ -1,0 +1,94 @@
+"""repro_torch.convert: reference state -> port -> numpy round trips, and
+the port's import isolation from JAX and the reference package."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import convert as CV
+from repro_torch.core import gibbs as TG
+from repro_torch.core import posterior as TP
+
+
+def _np(obj):
+    return {k: np.asarray(v) for k, v in obj._asdict().items()}
+
+
+def test_round_trip_of_reference_state():
+    import jax
+    import jax.numpy as jnp
+    from repro.core import bmf as JB
+    from repro.core import gibbs as JG
+    from repro.core import posterior as JP
+    from repro.data import sparse as JSP
+    from repro.data import synthetic as JSYN
+    coo, _ = JSYN.generate("mini", seed=0)
+    jcsr = JSP.coo_to_padded_csr(coo)
+    csr = CV.padded_csr_from_numpy(
+        dict(idx=np.asarray(jcsr.idx), val=np.asarray(jcsr.val),
+             mask=np.asarray(jcsr.mask), n_cols=jcsr.n_cols), device="cpu")
+    assert csr.idx.dtype == torch.int32 and csr.n_cols == jcsr.n_cols
+    back = CV.to_numpy(csr)
+    for f in ("idx", "val", "mask"):
+        np.testing.assert_array_equal(back[f], np.asarray(getattr(jcsr, f)))
+
+    rng = np.random.default_rng(0)
+    g = JP.RowGaussians(jnp.asarray(rng.normal(size=(5, 3)), jnp.float32),
+                        jnp.eye(3)[None].repeat(5, 0))
+    tg = CV.row_gaussians_from_numpy(_np(g), device="cpu")
+    assert isinstance(tg, TP.RowGaussians)
+    for k, v in CV.to_numpy(tg).items():
+        np.testing.assert_array_equal(v, np.asarray(getattr(g, k)))
+
+    nw = JP.default_nw(4)
+    tnw = CV.normal_wishart_from_numpy(_np(nw), device="cpu")
+    for k, v in CV.to_numpy(tnw).items():
+        np.testing.assert_array_equal(v, np.asarray(getattr(nw, k)))
+
+    U, V = JB.init_factors(jax.random.key(0), 6, 4, 3)
+    tU, tV = CV.factors_from_numpy(np.asarray(U), np.asarray(V), "cpu")
+    np.testing.assert_array_equal(CV.to_numpy(tU), np.asarray(U))
+    np.testing.assert_array_equal(CV.to_numpy(tV), np.asarray(V))
+
+    acc = JG.GibbsAccumulators(
+        pred_sum=jnp.arange(4.0), pred_cnt=jnp.asarray(3.0),
+        U_sum=jnp.ones((6, 3)), U_outer=jnp.ones((6, 3, 3)),
+        V_sum=jnp.ones((4, 3)), V_outer=jnp.ones((4, 3, 3)))
+    tacc = CV.accumulators_from_numpy(_np(acc), device="cpu")
+    assert isinstance(tacc, TG.GibbsAccumulators)
+    for k, v in CV.to_numpy(tacc).items():
+        np.testing.assert_array_equal(v, np.asarray(getattr(acc, k)))
+
+    Ua, Va = CV.aggregates_from_numpy(_np(g), _np(g), device="cpu")
+    np.testing.assert_array_equal(CV.to_numpy(Va)["Lambda"],
+                                  np.asarray(g.Lambda))
+
+    cfg = JB.BMFConfig(K=10, sweep_fused=True, sweep_dtype="bf16")
+    tcfg = CV.bmf_config_from_dict(cfg._asdict())
+    assert tcfg._asdict() == cfg._asdict()
+    with pytest.raises(KeyError):
+        CV.bmf_config_from_dict({"K": 3, "bogus": 1})
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    """A fresh interpreter imports the whole port and its CLI module; no
+    ``jax`` or ``repro`` module may be loaded."""
+    src = Path(__file__).resolve().parents[1] / "src"
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.convert, repro_torch.noise\n"
+        "import repro_torch.core.engine, repro_torch.core.pp\n"
+        "import repro_torch.kernels.bmf_sweep.ops\n"
+        "import repro_torch.launch.bmf_train\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=src,
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=str(src)))
+    assert out.returncode == 0, out.stdout + out.stderr

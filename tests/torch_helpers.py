@@ -1,0 +1,92 @@
+"""Shared inputs and fixtures of the port's tests (``test_torch_*.py``).
+
+Inputs are made with numpy from a seed and handed to both packages. JAX
+and ``repro`` are imported inside the functions that need them, so the
+``cuda``-marked legs also run on a machine that has no JAX.
+"""
+import numpy as np
+import pytest
+import torch
+
+
+@pytest.fixture
+def cuda_device():
+    """The GPU for a ``cuda``-marked leg; the leg skips without one (a CUDA
+    kernel has no CPU mode to fall back to)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only there")
+    from repro_torch import resolve_device
+    return resolve_device("cuda")
+
+
+def factor_case(rng, N, M, D, K, empty_rows=(), B=None, scale=1.0):
+    """Random padded-CSR factor-step inputs: left-packed ragged occupancy
+    (so the padded tail holds whole all-padding tiles), rows in
+    ``empty_rows`` with no ratings, PD per-row priors, and noise z.
+    Returns numpy arrays, with a leading block axis when ``B`` is set."""
+    lead = () if B is None else (B,)
+    idx = rng.integers(0, D, lead + (N, M)).astype(np.int32)
+    val = (rng.normal(size=lead + (N, M)) * scale).astype(np.float32)
+    nnz = rng.integers(0, M + 1, lead + (N,))
+    nnz[..., list(empty_rows)] = 0
+    mask = (np.arange(M) < nnz[..., None]).astype(np.float32)
+    other = rng.normal(size=lead + (D, K)).astype(np.float32)
+    pe = (rng.normal(size=lead + (N, K)) * 0.3).astype(np.float32)
+    A = rng.normal(size=lead + (N, K, K)) * 0.2
+    pL = (np.einsum("...ij,...kj->...ik", A, A)
+          + 1.5 * np.eye(K)).astype(np.float32)
+    z = rng.normal(size=lead + (N, K)).astype(np.float32)
+    return dict(idx=idx, val=val, mask=mask, other=other, pe=pe, pL=pL, z=z)
+
+
+def bf16_round(x: np.ndarray) -> np.ndarray:
+    """Round f32 to bf16 (round to nearest even) and back, in numpy."""
+    return torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+
+
+def jax_chain_tape(key, N, D, K, n_samples):
+    """Replay the reference chain's key schedule into a noise tape for
+    ``repro_torch.noise.TapeNoise``: the draws ``repro.core.gibbs.run_gibbs``
+    makes from ``key`` for an (N, D, K) chain of ``n_samples`` sweeps.
+
+      split(key) -> (k0, key); init_factors(k0): split -> normal (N,K)/(D,K)
+      per sweep: split(key, 5) -> key, kh1, kh2, ku, kv
+        sample_nw(kh): split -> (kw, km); sample_wishart(kw): split ->
+          (kg, kn); chi2 = 2·gamma(kg, (ν−i)/2), ν = K + n; normal(kn, (K,K));
+          normal(km, (K,))
+        normal(ku, (N, K)), normal(kv, (D, K))
+
+    Every draw depends only on keys and shapes (the χ² degrees of freedom
+    only on N and K), so the tape is complete before either chain runs.
+    Hyper draws are recorded for both factors whether or not the chain
+    resamples them."""
+    import jax
+    import jax.numpy as jnp
+    f32 = jnp.float32
+    tape = {}
+    k0, key = jax.random.split(key)
+    ku, kv = jax.random.split(k0)
+    tape[("init", "U")] = np.asarray(jax.random.normal(ku, (N, K), f32))
+    tape[("init", "V")] = np.asarray(jax.random.normal(kv, (D, K), f32))
+    for i in range(n_samples):
+        key, kh1, kh2, ku, kv = jax.random.split(key, 5)
+        for f, kh, n in (("U", kh1, N), ("V", kh2, D)):
+            kw, km = jax.random.split(kh)
+            kg, kn = jax.random.split(kw)
+            nu = jnp.asarray(float(K), f32) + n
+            df = (nu - jnp.arange(K, dtype=f32)) / 2.0
+            tape[("hyper", i, f)] = (
+                np.asarray(2.0 * jax.random.gamma(kg, df, dtype=f32)),
+                np.asarray(jax.random.normal(kn, (K, K), f32)),
+                np.asarray(jax.random.normal(km, (K,), f32)))
+        tape[("z", i, "U")] = np.asarray(jax.random.normal(ku, (N, K), f32))
+        tape[("z", i, "V")] = np.asarray(jax.random.normal(kv, (D, K), f32))
+    return tape
+
+
+def assert_rel_close(got, want, rtol):
+    """Elementwise |got - want| <= rtol·|want| + rtol·max(|want|, 1): the
+    port's tolerances are relative to the largest reference value."""
+    got, want = np.asarray(got), np.asarray(want, np.float32)
+    np.testing.assert_allclose(got, want, rtol=rtol,
+                               atol=rtol * max(np.abs(want).max(), 1.0))
