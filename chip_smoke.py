@@ -20,12 +20,31 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      sweep (B2) and once with the sufficient-statistics kernel (B1). Each
      run must give a finite RMSE below the mean predictor and launch its
      kernel;
-  5. summary: one JSON line ``{"kernels": [...]}`` and, last, the
+  5. LLM kernel parity: L1 flash_attention and L3 decode_attention against
+     their plain versions, bf16 and fp32, at the serve path's shapes
+     (Qwen3-4B: H = 32, Hkv = 8, hd = 128, batch 8): L1 causal at the
+     4,000-token prompt, with a 1,024 window, and non-causal at 4,096; L3
+     over a full 4,096-slot cache, a ragged cache with empty slots, and a
+     ring-shuffled cache under a window. L1 is compared on 2 of the 8
+     sequences (the plain version's f32 scores at 8 x 4,000 would take
+     16 GB); every kernel is timed at the full shape, beside its plain
+     version, its bound and one PyTorch call (SDPA) as the library
+     yardstick;
+  6. the LLM serve path at full width: Qwen3-4B, all 36 layers, seeded
+     random bf16 weights made on the card; 8 sequences of 4,096 synthetic
+     tokens; ``make_prefill_step`` consumes 4,000 of them into a
+     4,096-slot cache and ``make_serve_step`` feeds the other 96 one by
+     one (teacher-forced) until the cache is full. Logits must be finite,
+     L1 must launch 36 times and L3 36 x 96 times, and for 2 sequences
+     every step's logits must agree with the port's ``forward`` over all
+     4,096 tokens run through the plain attention versions;
+  7. summary: one JSON line ``{"kernels": [...]}`` and, last, the
      ``{"ok": true, "device": {...}}`` line.
 
 Without a GPU, or without the repository's ``src/repro_torch`` beside it,
 it exits non-zero before printing any result.
 """
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -39,6 +58,7 @@ SRC = ROOT / "src"
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12       # dense tensor-core rate
 
 # kernel vs plain version on the card, relative to the largest plain
 # value: both sum the same f32 products in other orders (up to thousands
@@ -48,6 +68,26 @@ TOL = {"bmf_precision": 1e-4, "bmf_sweep": 1e-4}
 
 # the main path's chain, cut to fit the smoke's time limit
 SAMPLES, BURNIN = 8, 3
+
+# the LLM serve path: Qwen3-4B at full width and depth, 8 sequences, a
+# 4,000-token prompt into a 4,096-slot cache, then 96 decode steps
+LLM_ARCH = "qwen3_4b"
+LLM_BATCH, LLM_PROMPT, LLM_CONTEXT = 8, 4000, 4096
+LLM_CHECK = 2              # sequences held against the plain forward
+# L1/L3 kernel vs plain version on the card, relative to the largest plain
+# value: fp32 differs only in summation order; bf16 results are rounded to
+# bf16 from f32 values that differ in summation order, so they may land one
+# bf16 step (2^-8) apart
+ATTN_TOL = {"fp32": 1e-5, "bf16": 4e-3}
+# serve path vs the port's forward with the plain attention, both bf16:
+# max |d logit| / rms(logits) over the real vocabulary. On the H100 the
+# plain bf16 forward itself sits 0.091 from the f32 forward on the same
+# weights (bf16 roundings through 36 random layers), and the serve path
+# 0.088 from the plain bf16 forward; the limit is about twice that spread.
+LOGIT_TOL = 0.2
+# and the serve path may be at most this much farther from the f32
+# forward than the plain bf16 forward is (measured: 0.94x)
+F32_GAP_TOL = 1.5
 
 TABLE1_MOVIELENS = dict(name="movielens-20m", n_rows=138_493, n_cols=27_278,
                         ratings_per_row=144, scale_lo=1, scale_hi=5, K=10,
@@ -76,8 +116,8 @@ def cuda_ms(fn, reps, warmup=2):
     return statistics.median(times)
 
 
-def bound(n_bytes, flops):
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+def bound(n_bytes, flops, peak=FP32_FLOPS):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -216,18 +256,23 @@ def phase_parity(part, test_p, K, dev):
     return results
 
 
-def reset_counts():
+def _wrappers():
     from repro_torch.kernels.bmf_precision import ops as B1
     from repro_torch.kernels.bmf_sweep import ops as B2
-    B1.precision_accum.launches = 0
-    B2.fused_sweep.launches = 0
+    from repro_torch.kernels.decode_attention import ops as L3
+    from repro_torch.kernels.flash_attention import ops as L1
+    return {"bmf_precision": B1.precision_accum, "bmf_sweep": B2.fused_sweep,
+            "flash_attention": L1.flash_attention,
+            "decode_attention": L3.decode_attention}
+
+
+def reset_counts():
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def read_counts():
-    from repro_torch.kernels.bmf_precision import ops as B1
-    from repro_torch.kernels.bmf_sweep import ops as B2
-    return {"bmf_precision": B1.precision_accum.launches,
-            "bmf_sweep": B2.fused_sweep.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def mean_rmse(train, test):
@@ -287,6 +332,298 @@ def phase_main(train, test, part, cfg, label, kernel, dev):
     return counts
 
 
+def _sdpa_ms(q, k, v, reps, **kw):
+    """The library yardstick: one ``scaled_dot_product_attention`` call on
+    (B, H, S, hd) views of the same tensors, K/V repeated to the query
+    heads before the timing so that every backend takes the call (timed
+    here only; the port never calls it)."""
+    import torch.nn.functional as F
+    group = q.shape[-2] // k.shape[-2]
+    qt = q.transpose(1, 2)
+    kt, vt = (t.repeat_interleave(group, dim=2).transpose(1, 2)
+              for t in (k, v))
+    ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw),
+                 reps)
+    del kt, vt
+    return ms
+
+
+def _attn_line(name, case, dtype, err, scale, tol, ms, pms, bd, lib):
+    ok = err <= tol * scale
+    log(f"[llm-parity] {name} {case} {dtype}: max_abs_err {err:.3e} "
+        f"(tolerance {tol:.0e} x {scale:.3g} = {tol * scale:.3e}) "
+        f"{'ok' if ok else 'FAIL'}; kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+        f"bound {bd[0]:.4f} ms ({bd[1]}), library (SDPA) {lib:.3f} ms")
+    if not ok:
+        raise AssertionError(f"{name} {case} {dtype} disagrees with its "
+                             f"plain version")
+    return dict(case=case, dtype=dtype, max_abs_err=err, ms=ms,
+                plain_ms=pms, bound_ms=bd[0], bound_by=bd[1],
+                library_ms=lib)
+
+
+def phase_llm_parity(dev):
+    """L1 and L3 against their plain versions at the serve path's shapes."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.decode_attention import ops as L3
+    from repro_torch.kernels.decode_attention.ref import slot_valid
+    from repro_torch.kernels.flash_attention import ops as L1
+    cfg = get_config(LLM_ARCH)
+    B, H, Hkv, hd = LLM_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    g = torch.Generator(device=dev).manual_seed(0)
+    results = {"flash_attention": [], "decode_attention": []}
+    peak = {"fp32": FP32_FLOPS, "bf16": BF16_FLOPS}
+    tdt = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+    for case, S, causal, window in (("causal-4000", LLM_PROMPT, True, 0),
+                                    ("window1024-4000", LLM_PROMPT, True,
+                                     1024),
+                                    ("noncausal-4096", LLM_CONTEXT, False,
+                                     0)):
+        i = torch.arange(S, device=dev)[:, None]
+        j = torch.arange(S, device=dev)[None, :]
+        mask = torch.ones((S, S), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= j <= i
+        if window:
+            mask &= j > i - window
+        pairs = int(mask.sum())
+        for dtype in ("bf16", "fp32"):
+            q = torch.randn((B, S, H, hd), generator=g,
+                            device=dev).to(tdt[dtype])
+            k, v = (torch.randn((B, S, Hkv, hd), generator=g,
+                                device=dev).to(tdt[dtype]) for _ in range(2))
+
+            def kern():
+                return L1.flash_attention(q, k, v, causal=causal,
+                                          window=window)
+
+            def plain():
+                return [L1.flash_attention_ref(
+                    q[b:b + LLM_CHECK], k[b:b + LLM_CHECK],
+                    v[b:b + LLM_CHECK], causal=causal,
+                    window=window).to(q.dtype) for b in range(0, B, LLM_CHECK)]
+
+            out = kern()[:LLM_CHECK].float()
+            want = L1.flash_attention_ref(
+                q[:LLM_CHECK], k[:LLM_CHECK], v[:LLM_CHECK], causal=causal,
+                window=window).to(q.dtype).float()
+            err = float((out - want).abs().max())
+            scale = max(float(want.abs().max()), 1.0)
+            del out, want
+            ms, pms = cuda_ms(kern, 3, warmup=1), cuda_ms(plain, 1, warmup=0)
+            torch.cuda.empty_cache()
+            if window:
+                lib = _sdpa_ms(q, k, v, 3, attn_mask=mask)
+            else:
+                lib = _sdpa_ms(q, k, v, 3, is_causal=causal)
+            elt = q.element_size()
+            bd = bound(elt * (2 * q.numel() + k.numel() + v.numel()),
+                       4 * B * H * hd * pairs, peak[dtype])
+            results["flash_attention"].append(_attn_line(
+                "flash_attention", case, dtype, err, scale, ATTN_TOL[dtype],
+                ms, pms, bd, lib))
+            del q, k, v
+            torch.cuda.empty_cache()
+
+    S_full = LLM_CONTEXT
+    for case, S, window in (("full-4096", S_full, 0),
+                            ("empty-ragged-4033", 4033, 0),
+                            ("ring-window1000-4096", S_full, 1000)):
+        if case.startswith("full"):
+            kv_pos, q_pos = torch.arange(S, device=dev), S - 1
+        elif case.startswith("empty"):
+            n = int(0.6 * S)
+            ar = torch.arange(S, device=dev)
+            kv_pos, q_pos = torch.where(ar < n, ar, -1), n - 1
+        else:
+            q_pos = 3 * S + 17
+            p = torch.arange(q_pos - S + 1, q_pos + 1, device=dev)
+            kv_pos = torch.empty(S, dtype=torch.long, device=dev)
+            kv_pos[p % S] = p
+            kv_pos[[(q_pos - 5) % S, (q_pos - S + 3) % S]] = -1
+        kv_pos = kv_pos.to(torch.int32)
+        valid = slot_valid(kv_pos, q_pos, window)
+        n_valid = int(valid.sum())
+        for dtype in ("bf16", "fp32"):
+            q = torch.randn((B, H, hd), generator=g, device=dev).to(tdt[dtype])
+            k, v = (torch.randn((B, S, Hkv, hd), generator=g,
+                                device=dev).to(tdt[dtype]) for _ in range(2))
+
+            def kern():
+                return L3.decode_attention(q, k, v, kv_pos, q_pos,
+                                           window=window)
+
+            def plain():
+                return L3.decode_attention_ref(q, k, v, kv_pos, q_pos,
+                                               window).to(q.dtype)
+
+            out, want = kern().float(), plain().float()
+            err = float((out - want).abs().max())
+            scale = max(float(want.abs().max()), 1.0)
+            ms, pms = cuda_ms(kern, 20), cuda_ms(plain, 5)
+            lib = _sdpa_ms(q[:, None], k, v, 20,
+                           attn_mask=valid[None, None, None, :])
+            elt = q.element_size()
+            bd = bound(2 * B * Hkv * hd * elt * n_valid + 2 * q.numel() * elt
+                       + 4 * S, 4 * B * H * hd * n_valid, peak[dtype])
+            results["decode_attention"].append(_attn_line(
+                "decode_attention", case, dtype, err, scale, ATTN_TOL[dtype],
+                ms, pms, bd, lib))
+            del q, k, v
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_llm_serve(dev):
+    """Qwen3-4B at full width and depth: prefill, 96 decode steps, and the
+    logits of 2 sequences against the plain forward."""
+    import torch
+    from unittest import mock
+    from repro_torch.configs.base import InputShape, get_config
+    from repro_torch.data.tokens import synthetic_token_batches
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models import layers as LY
+    from repro_torch.models import model as LM
+    from repro_torch.models import steps as ST
+    cfg = get_config(LLM_ARCH)
+    t0 = time.time()
+    params = LM.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    t1 = time.time()
+    tokens = next(synthetic_token_batches(cfg, LLM_BATCH, LLM_CONTEXT,
+                                          seed=0, device=dev))["tokens"]
+    log(f"[llm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, vocab "
+        f"{cfg.vocab_size} (padded {cfg.padded_vocab_size}); {n_params} "
+        f"parameters, {w_bytes / 1e9:.2f} GB of weights made in "
+        f"{t1 - t0:.1f}s; tokens {tuple(tokens.shape)} in "
+        f"{time.time() - t1:.1f}s")
+
+    prefill_step = ST.make_prefill_step(
+        cfg, InputShape("serve_4k", LLM_CONTEXT, LLM_BATCH, "prefill"))
+    serve_step = ST.make_serve_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.time()
+    logits, cache = prefill_step(params, {"tokens": tokens[:, :LLM_PROMPT]})
+    torch.cuda.synchronize()
+    prefill_s = time.time() - t0
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in cache["attn"].values())
+    kept = [logits[:LLM_CHECK, 0].clone()]
+    finite = torch.isfinite(logits).all()
+    t0 = time.time()
+    for t in range(LLM_PROMPT, LLM_CONTEXT):
+        logits, cache = serve_step(params, cache, tokens[:, t:t + 1])
+        finite &= torch.isfinite(logits).all()
+        kept.append(logits[:LLM_CHECK, 0].clone())
+    torch.cuda.synchronize()
+    decode_s = time.time() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_steps = LLM_CONTEXT - LLM_PROMPT
+    log(f"[llm-serve] prefill {LLM_BATCH} x {LLM_PROMPT} tokens: "
+        f"{prefill_s:.3f}s, {LLM_BATCH * LLM_PROMPT / prefill_s:.4g} "
+        f"tokens/s; decode {n_steps} steps: {decode_s:.3f}s, "
+        f"{1e3 * decode_s / n_steps:.3f} ms/step, "
+        f"{LLM_BATCH * n_steps / decode_s:.4g} tokens/s; cache "
+        f"{cache_bytes / 1e9:.2f} GB; peak device memory "
+        f"{peak / 1e9:.2f} GB; launches {counts}")
+    assert bool(finite), "non-finite logits on the serve path"
+    assert cache["pos"] == LLM_CONTEXT
+    assert counts["flash_attention"] == cfg.n_layers, counts
+    assert counts["decode_attention"] == cfg.n_layers * n_steps, counts
+    profile_decode(serve_step, params, cache, tokens)
+    del cache, logits
+    torch.cuda.empty_cache()
+
+    def plain_attention(q, k, v, causal=True, window=0):
+        return flash_attention_ref(q, k, v, causal=causal,
+                                   window=window).to(q.dtype)
+
+    # the reference: the port's forward over all 4,096 tokens with the
+    # plain attention, in bf16 as served, and in f32 on the same (bf16)
+    # weights, which shows how far bf16 rounding alone moves the logits
+    V = cfg.vocab_size
+    got = torch.stack(kept, dim=1)[..., :V]
+    refs = {}
+    t0 = time.time()
+    with mock.patch.object(LY, "flash_attention", plain_attention):
+        for name, c in (("bf16", cfg),
+                        ("f32", dataclasses.replace(cfg, dtype="float32"))):
+            full, _ = LM.forward(params, c, {"tokens": tokens[:LLM_CHECK]})
+            refs[name] = full[:, LLM_PROMPT - 1:, :V].clone()
+            del full
+            torch.cuda.empty_cache()
+
+    def compare(a, b):
+        rms = float(b.square().mean().sqrt())
+        per_step = (a - b).abs().amax(dim=(0, 2)) / rms
+        agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+        return float(per_step.max()), per_step, agree, rms
+
+    ratio, per_step, agree, rms = compare(got, refs["bf16"])
+    r_k32, _, a_k32, _ = compare(got, refs["f32"])
+    r_p32, _, a_p32, _ = compare(refs["bf16"], refs["f32"])
+    log(f"[llm-serve] vs the plain forward over {LLM_CONTEXT} tokens "
+        f"({LLM_CHECK} sequences, {time.time() - t0:.1f}s): max |d logit| / "
+        f"rms(logits) {ratio:.4g} (rms {rms:.4g}; limit {LOGIT_TOL}); "
+        f"prefill step {float(per_step[0]):.4g}, decode steps max "
+        f"{float(per_step[1:].max()):.4g} median "
+        f"{float(per_step[1:].median()):.4g}; argmax agreement {agree:.4f}. "
+        f"Against the f32 forward: serve path {r_k32:.4g} (argmax "
+        f"{a_k32:.4f}; limit {F32_GAP_TOL} x the plain bf16 forward's), "
+        f"plain bf16 forward {r_p32:.4g} (argmax {a_p32:.4f})")
+    assert ratio <= LOGIT_TOL, "serve path disagrees with the plain forward"
+    assert r_k32 <= F32_GAP_TOL * r_p32, \
+        "serve path is farther from the f32 forward than bf16 rounding"
+    return counts
+
+
+def profile_decode(serve_step, params, cache, tokens, n=3):
+    """Re-run the last ``n`` decode steps (the cache is rewound; the same
+    tokens rewrite the same slots) under ``torch.profiler``: device time
+    by kernel and the device's busy share of the wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    start = LLM_CONTEXT - n
+    cache["pos"] = start
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for t in range(start, LLM_CONTEXT):
+            serve_step(params, cache, tokens[:, t:t + 1])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    kernels = {}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        kernels[ev.key] = (us, ev.count)
+    busy = sum(us for us, _ in kernels.values()) / 1e3
+    if not kernels:
+        log("[llm-profile] the profiler recorded no device time: device "
+            "busy share not measured")
+        return
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+    log(f"[llm-profile] {n} decode steps under the profiler: wall "
+        f"{1e3 * wall / n:.3f} ms/step, device busy {busy / n:.3f} ms/step "
+        f"({100 * busy / (1e3 * wall):.1f}% of the wall), "
+        f"{sum(c for _, c in kernels.values()) // n} kernels/step; top: "
+        + "; ".join(f"{k[:60]} {us / 1e3 / n:.3f} ms x{c // n}"
+                    for k, (us, c) in top))
+
+
 def main():
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke.py needs the repository's src/repro_torch beside "
@@ -315,6 +652,11 @@ def main():
     launches.update({"bmf_precision": phase_main(
         train, test, part, cfg._replace(use_kernel=True), "use-kernel",
         "bmf_precision", dev)["bmf_precision"]})
+    del train, test, test_p, part
+    torch.cuda.empty_cache()
+    llm_parity = phase_llm_parity(dev)
+    llm_counts = phase_llm_serve(dev)
+    launches.update({n: llm_counts[n] for n in llm_parity})
 
     meta = {
         "bmf_precision": dict(
@@ -334,6 +676,23 @@ def main():
                             bound_ms=fp32["bound_ms"],
                             bound_by=fp32["bound_by"], library_ms=None,
                             bf16=bf16))
+    llm_meta = {
+        "flash_attention": dict(
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention/kernel.py:90"),
+        "decode_attention": dict(
+            source="src/repro_torch/csrc/decode_attention.cu",
+            replaces="src/repro/kernels/decode_attention/kernel.py:70"),
+    }
+    for name, m in llm_meta.items():
+        main_case = llm_parity[name][0]        # the path's shape, in bf16
+        kernels.append(dict(
+            name=name, route="cuda", source=m["source"],
+            replaces=m["replaces"], launches=launches[name],
+            **{k: main_case[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_ms")},
+            case=main_case["case"], cases=llm_parity[name][1:]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

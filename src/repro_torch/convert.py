@@ -6,21 +6,26 @@ The reference's state types are NamedTuples (``RowGaussians``,
 ``*_from_numpy`` functions build the port's objects from a mapping of
 field name to numpy array (e.g. ``{k: np.asarray(v) for k, v in
 jax_obj._asdict().items()}``) on a device; ``to_numpy`` turns any of the
-port's objects back into nested dicts of numpy arrays. Nothing here
-imports JAX.
+port's objects back into nested dicts of numpy arrays. The LLM stack's
+parameters travel as the reference's ``init_params`` pytree of numpy
+arrays (``llm_params_from_numpy`` / ``llm_params_to_numpy``). Nothing
+here imports JAX.
 """
 from __future__ import annotations
 
-from typing import Mapping, Tuple
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.bmf import BMFConfig
 from repro_torch.core.gibbs import GibbsAccumulators
 from repro_torch.core.posterior import NormalWishart, RowGaussians
 from repro_torch.data.sparse import PaddedCSR
+from repro_torch.models import layers as LY
+from repro_torch.models import model as LM
 
 
 def tensor(x, device=None, dtype=None) -> torch.Tensor:
@@ -93,3 +98,85 @@ def to_numpy(obj):
     if isinstance(obj, (tuple, list)):
         return type(obj)(to_numpy(v) for v in obj)
     return obj
+
+
+def _llm_tensor(a, cfg: ArchConfig, device):
+    """The reference's ``_cast_tree`` rule: an f32 array with ndim >= 2 and
+    more than ``CAST_MIN_SIZE`` elements goes to ``cfg.dtype``; everything
+    else stays as it is. Applied to the stacked (L, …) arrays, as the
+    reference applies it, before they are split per layer."""
+    a = np.asarray(a)
+    t = tensor(a, device)
+    if (a.dtype == np.float32 and a.ndim >= 2
+            and a.size > LM.CAST_MIN_SIZE):
+        t = t.to(LM.compute_dtype(cfg))
+    return t
+
+
+def llm_params_from_numpy(tree: Mapping[str, Any], cfg: ArchConfig,
+                          device=None) -> "LM.DenseLM":
+    """The port's ``DenseLM`` from the reference's dense ``init_params``
+    pytree as numpy (``jax.tree.map(np.asarray, params)``), whose
+    ``blocks`` hold stacked (L, …) arrays."""
+    dev = resolve_device(device)
+
+    def get(*path):
+        node = tree
+        for p in path:
+            node = node[p]
+        return _llm_tensor(node, cfg, dev)
+
+    emb = tree["embed"]
+    unembed = get("embed", "unembed") if "unembed" in emb else None
+    stacked = {
+        "ln1": get("blocks", "ln1", "scale"),
+        "ln2": get("blocks", "ln2", "scale"),
+        **{n: get("blocks", "attn", n) for n in ("wq", "wk", "wv", "wo")},
+        **{n: get("blocks", "mlp", n) for n in ("w_gate", "w_up",
+                                                 "w_down")},
+    }
+    if cfg.qk_norm:
+        stacked["q_norm"] = get("blocks", "attn", "q_norm", "scale")
+        stacked["k_norm"] = get("blocks", "attn", "k_norm", "scale")
+    n_layers = stacked["wq"].shape[0]
+    if n_layers != cfg.n_layers:
+        raise ValueError(f"tree has {n_layers} layers, cfg {cfg.n_layers}")
+    blocks = []
+    for i in range(n_layers):
+        w = {n: t[i] for n, t in stacked.items()}
+        attn = LY.Attention(cfg, w["wq"], w["wk"], w["wv"], w["wo"],
+                            w.get("q_norm"), w.get("k_norm"))
+        mlp = LY.SwiGLU(w["w_gate"], w["w_up"], w["w_down"])
+        blocks.append(LM.DenseBlock(cfg, w["ln1"], attn, w["ln2"], mlp))
+    return LM.DenseLM(cfg, get("embed", "table"), unembed,
+                      get("final_norm", "scale"), blocks)
+
+
+def llm_params_to_numpy(params: "LM.DenseLM") -> Dict[str, Any]:
+    """The inverse of ``llm_params_from_numpy``: the reference's pytree
+    layout with stacked (L, …) blocks, as f32 numpy arrays."""
+    def arr(t):
+        return t.detach().float().cpu().numpy()
+
+    def stack(get):
+        return np.stack([arr(get(b)) for b in params.blocks])
+
+    attn = {n: stack(lambda b, n=n: getattr(b.attn, n))
+            for n in ("wq", "wk", "wv", "wo")}
+    if params.cfg.qk_norm:
+        attn["q_norm"] = {"scale": stack(lambda b: b.attn.q_norm.scale)}
+        attn["k_norm"] = {"scale": stack(lambda b: b.attn.k_norm.scale)}
+    embed = {"table": arr(params.table)}
+    if params.unembed is not None:
+        embed["unembed"] = arr(params.unembed)
+    return {
+        "embed": embed,
+        "final_norm": {"scale": arr(params.final_norm.scale)},
+        "blocks": {
+            "ln1": {"scale": stack(lambda b: b.ln1.scale)},
+            "attn": attn,
+            "ln2": {"scale": stack(lambda b: b.ln2.scale)},
+            "mlp": {n: stack(lambda b, n=n: getattr(b.mlp, n))
+                    for n in ("w_gate", "w_up", "w_down")},
+        },
+    }

@@ -1,0 +1,174 @@
+"""Dense-family transformer layers (port of ``repro/models/layers.py``).
+
+Conventions, as in the reference:
+- matmul weights are stored (d_in, d_out) and applied as ``x @ w``, in the
+  compute dtype (``cfg.dtype``); norm scales and other small parameters
+  may stay f32 (``model.CAST_MIN_SIZE``);
+- norms, RoPE, SiLU, softmax statistics and logits are computed in f32
+  and cast back to the activation dtype where the reference casts back.
+
+Attention dispatches to the port's kernels: a prompt with no cache goes
+to ``flash_attention`` (L1), one token against a cache to
+``decode_attention`` (L3). Their plain versions run only through those
+wrappers, for CPU tensors. The matrix products outside the kernels stay
+``torch.matmul``, as the reference leaves them to XLA. Layernorm, GELU,
+cross-attention and the int8 cache wait for the families that use them.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models.kvcache import attn_cache_update
+
+
+def frozen(t: torch.Tensor) -> nn.Parameter:
+    """A parameter without gradient: this slice only serves."""
+    return nn.Parameter(t, requires_grad=False)
+
+
+# ---------------------------------------------------------------------------
+# Norm, RoPE, MLP, embedding
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm(scale, x, eps: float):
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, scale: torch.Tensor, eps: float):
+        super().__init__()
+        self.scale = frozen(scale)
+        self.eps = eps
+
+    def forward(self, x):
+        return rmsnorm(self.scale, x, self.eps)
+
+
+def rope_frequencies(head_dim: int, rope_partial: float, theta: float,
+                     device=None):
+    """(inv_freq (rot_dim / 2,) f32, rot_dim): ChatGLM's partial RoPE
+    rotates only the first ``rope_partial`` of each head."""
+    rot_dim = int(head_dim * rope_partial)
+    rot_dim -= rot_dim % 2
+    exps = torch.arange(0, rot_dim, 2, dtype=torch.float32,
+                        device=device) / rot_dim
+    return 1.0 / (theta ** exps), rot_dim
+
+
+def rope_angles(positions, inv_freq):
+    """cos and sin of positions × inv_freq, each (S, rot_dim / 2) f32;
+    computed once per call and shared by every layer."""
+    angles = positions[:, None].float() * inv_freq
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x, cos, sin, rot_dim: int):
+    """x: (B, S, H, hd); cos/sin: (S, rot_dim / 2) from ``rope_angles``."""
+    if rot_dim == 0:
+        return x
+    x_rot, x_pass = x[..., :rot_dim], x[..., rot_dim:]
+    cos, sin = cos[:, None, :], sin[:, None, :]
+    x1, x2 = x_rot.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return torch.cat([out.to(x.dtype), x_pass], dim=-1)
+
+
+class SwiGLU(nn.Module):
+    def __init__(self, w_gate, w_up, w_down):
+        super().__init__()
+        self.w_gate, self.w_up, self.w_down = (frozen(w_gate), frozen(w_up),
+                                               frozen(w_down))
+
+    def forward(self, x):
+        g = x @ self.w_gate.to(x.dtype)
+        u = x @ self.w_up.to(x.dtype)
+        h = F.silu(g.float()).to(x.dtype) * u
+        return h @ self.w_down.to(x.dtype)
+
+
+def embed(table, tokens, dtype):
+    return F.embedding(tokens, table).to(dtype)
+
+
+def unembed(w, x, cfg: ArchConfig):
+    """x: (B, S, d) @ w (d, Vp) -> f32 logits; the padded vocabulary rows
+    are set to -1e9."""
+    logits = (x @ w.to(x.dtype)).float()
+    if cfg.padded_vocab_size != cfg.vocab_size:
+        logits[..., cfg.vocab_size:] = -1e9
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+LayerCache = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, bool]
+
+
+class Attention(nn.Module):
+    """GQA self-attention with optional qk-norm and (partial) RoPE."""
+
+    def __init__(self, cfg: ArchConfig, wq, wk, wv, wo, q_norm=None,
+                 k_norm=None):
+        super().__init__()
+        self.cfg = cfg
+        self.wq, self.wk, self.wv, self.wo = (frozen(wq), frozen(wk),
+                                              frozen(wv), frozen(wo))
+        self.q_norm = None if q_norm is None else RMSNorm(q_norm,
+                                                          cfg.norm_eps)
+        self.k_norm = None if k_norm is None else RMSNorm(k_norm,
+                                                          cfg.norm_eps)
+
+    def project(self, x, rope, rot_dim: int):
+        """This call's q (B, S, H, hd) and k, v (B, S, Hkv, hd), normed and
+        rotated."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        hd = cfg.resolved_head_dim
+        q = (x @ self.wq.to(x.dtype)).reshape(B, S, cfg.n_heads, hd)
+        k = (x @ self.wk.to(x.dtype)).reshape(B, S, cfg.n_kv_heads, hd)
+        v = (x @ self.wv.to(x.dtype)).reshape(B, S, cfg.n_kv_heads, hd)
+        if self.q_norm is not None:
+            q = self.q_norm(q)
+            k = self.k_norm(k)
+        cos, sin = rope
+        q = apply_rope(q, cos, sin, rot_dim).contiguous()
+        k = apply_rope(k, cos, sin, rot_dim).contiguous()
+        return q, k, v.contiguous()
+
+    def forward(self, x, rope, rot_dim: int, *, pos: int = 0,
+                causal: bool = True, window: int = 0,
+                cache: Optional[LayerCache] = None):
+        """x: (B, S, d) at absolute positions pos … pos + S − 1.
+
+        Without ``cache`` (a prompt): attention over x itself through
+        ``flash_attention``. With ``cache`` = (k, v, kv_pos, ring) of one
+        layer (one token, S == 1): the token's K/V are written into the
+        cache in place, then ``decode_attention`` reads the cache.
+        Returns (out (B, S, d), (k, v) of this call)."""
+        B, S, _ = x.shape
+        q, k, v = self.project(x, rope, rot_dim)
+        if cache is None:
+            o = flash_attention(q, k, v, causal=causal, window=window)
+        else:
+            if S != 1:
+                raise NotImplementedError(
+                    "the cache path takes one token per call (decode)")
+            ck, cv, kv_pos, ring = cache
+            attn_cache_update(ck, cv, kv_pos, k, v, pos, ring)
+            o = decode_attention(q[:, 0], ck, cv, kv_pos, pos,
+                                 window=window)[:, None]
+        out = o.reshape(B, S, -1) @ self.wo.to(x.dtype)
+        return out, (k, v)

@@ -1,0 +1,266 @@
+"""Kernels L1 (flash attention, forward) and L3 (decode attention): the
+port against the JAX reference.
+
+On the CPU each wrapper runs its plain version; it is held against the
+reference's wrapper, which runs its Pallas kernel in interpret mode, and
+against the reference's jnp oracle, on the same numpy inputs. The
+``cuda`` legs hold each CUDA kernel against the plain version on the card,
+over the same cases, and check that the wrappers allocate only their
+outputs (L3: and its split-S partials), with no padded copy of q/k/v or
+of the cache.
+
+Tolerances, relative to the largest reference value (``assert_rel_close``):
+- f32: 1e-5. Both sides compute the same f32 scores and softmax; the
+  Pallas kernel and the CUDA kernel sum online over tiles, the plain
+  versions over the whole row, so only the summation order differs.
+- bf16 inputs: both sides widen the same bf16 values to f32 and compute in
+  f32; the port writes its result in bf16 (the reference's f32 result cast
+  to the input dtype), so the port may sit one bf16 rounding (2^-8
+  relative) from the reference: 4e-3. On the card, kernel and plain
+  version each round an f32 value that differs only in summation order, so
+  they may land one bf16 step apart: the same 4e-3.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.decode_attention import ops as DA
+from repro_torch.kernels.flash_attention import ops as FA
+from torch_helpers import assert_rel_close, cuda_device  # noqa: F401
+
+RTOL = {"f32": 1e-5, "bf16": 4e-3}
+TORCH_DT = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+# (id, B, S, H, Hkv, hd, causal, window, dtype). Sq == Skv as in prefill;
+# the non-causal case is tile-aligned (the reference's wrapper pads k/v
+# without masking them when not causal).
+FLASH_CASES = [
+    ("causal-300-gqa2-f32", 1, 300, 4, 2, 32, True, 0, "f32"),
+    ("causal-300-gqa2-bf16", 1, 300, 4, 2, 64, True, 0, "bf16"),
+    ("window-700-gqa4-f32", 1, 700, 4, 1, 32, True, 128, "f32"),
+    ("window-700-gqa4-bf16", 1, 700, 4, 1, 128, True, 128, "bf16"),
+    ("noncausal-512-f32", 2, 512, 2, 2, 32, False, 0, "f32"),
+]
+
+# (id, B, S, H, Hkv, hd, layout, window, q dtype, cache dtype)
+#   full: slots 0..S-1 hold positions 0..S-1, the query is at S-1
+#   empty: the first 60% of the slots are filled, the rest are -1
+#   ring: a ring of S slots after wrap-around (position p at slot p % S),
+#         with two slots still empty; with a window, part of it is masked
+DECODE_CASES = [
+    ("full-300-gqa2-f32", 2, 300, 4, 2, 32, "full", 0, "f32", "f32"),
+    ("empty-700-gqa4-bf16", 2, 700, 8, 2, 64, "empty", 0, "bf16", "bf16"),
+    ("ring-300-window-f32", 1, 300, 4, 1, 32, "ring", 150, "f32", "f32"),
+    ("ring-700-window-bf16", 2, 700, 4, 2, 128, "ring", 500, "bf16", "bf16"),
+    ("ring-300-f32-query-bf16-cache", 2, 300, 4, 2, 32, "ring", 0, "f32",
+     "bf16"),
+]
+
+
+def _as(x, dt):
+    return torch.from_numpy(x).to(TORCH_DT[dt])
+
+
+def flash_inputs(case, seed=0):
+    _, B, S, H, Hkv, hd, _, _, dt = case
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.normal(size=(B, S, h, hd)).astype(np.float32)
+               for h in (H, Hkv, Hkv))
+    # bf16 cases: round once, so both packages see the same values
+    return tuple(_as(x, dt) for x in (q, k, v))
+
+
+def decode_inputs(case, seed=0):
+    _, B, S, H, Hkv, hd, layout, _, qdt, kvdt = case
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, H, hd)).astype(np.float32)
+    k, v = (rng.normal(size=(B, S, Hkv, hd)).astype(np.float32)
+            for _ in range(2))
+    if layout == "full":
+        kv_pos, q_pos = np.arange(S), S - 1
+    elif layout == "empty":
+        n = int(0.6 * S)
+        kv_pos = np.where(np.arange(S) < n, np.arange(S), -1)
+        q_pos = n - 1
+    else:
+        q_pos = 3 * S + 17
+        p = np.arange(q_pos - S + 1, q_pos + 1)
+        kv_pos = np.empty(S, np.int64)
+        kv_pos[p % S] = p
+        kv_pos[[(q_pos - 5) % S, (q_pos - S + 3) % S]] = -1
+    return (_as(q, qdt), _as(k, kvdt), _as(v, kvdt),
+            torch.from_numpy(kv_pos.astype(np.int32)), int(q_pos))
+
+
+def _np32(t):
+    return t.float().numpy()
+
+
+def _jnp(t):
+    import jax.numpy as jnp
+    if t.dtype == torch.bfloat16:
+        return jnp.asarray(t.float().numpy(), jnp.bfloat16)
+    return jnp.asarray(t.numpy())
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=[c[0] for c in FLASH_CASES])
+def test_flash_plain_matches_reference(case):
+    from repro.kernels.flash_attention import ops as JFA
+    from repro.kernels.flash_attention.ref import flash_attention_ref
+    causal, window, dt = case[6], case[7], case[8]
+    q, k, v = flash_inputs(case)
+    out = FA.flash_attention(q, k, v, causal=causal, window=window)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    jq, jk, jv = _jnp(q), _jnp(k), _jnp(v)
+    pallas = np.asarray(JFA.flash_attention(jq, jk, jv, causal=causal,
+                                            window=window))
+    oracle = np.asarray(flash_attention_ref(jq, jk, jv, causal=causal,
+                                            window=window))
+    assert_rel_close(_np32(out), pallas, RTOL[dt])
+    assert_rel_close(_np32(out), oracle, RTOL[dt])
+
+
+def test_flash_plain_ragged_noncausal_and_empty_rows():
+    """Cases the reference's Pallas wrapper cannot take (it pads k/v
+    without masking them when not causal), against its jnp oracle: a
+    ragged non-causal call with Sq != Skv, and a window of 1 (each row
+    sees only itself)."""
+    from repro.kernels.flash_attention.ref import flash_attention_ref
+    rng = np.random.default_rng(3)
+    q = rng.normal(size=(2, 37, 4, 32)).astype(np.float32)
+    k, v = (rng.normal(size=(2, 53, 2, 32)).astype(np.float32)
+            for _ in range(2))
+    for causal, window in ((False, 0), (True, 1), (False, 20)):
+        out = FA.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                 torch.from_numpy(v), causal=causal,
+                                 window=window)
+        want = np.asarray(flash_attention_ref(q, k, v, causal=causal,
+                                              window=window))
+        assert_rel_close(out.numpy(), want, RTOL["f32"])
+
+
+@pytest.mark.parametrize("case", DECODE_CASES,
+                         ids=[c[0] for c in DECODE_CASES])
+def test_decode_plain_matches_reference(case):
+    from repro.kernels.decode_attention import ops as JDA
+    from repro.kernels.decode_attention.ref import decode_attention_ref
+    window, qdt = case[7], case[8]
+    q, k, v, kv_pos, q_pos = decode_inputs(case)
+    out = DA.decode_attention(q, k, v, kv_pos, q_pos, window=window)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    jargs = (_jnp(q), _jnp(k), _jnp(v), _jnp(kv_pos))
+    pallas = np.asarray(JDA.decode_attention(*jargs, q_pos, window=window))
+    oracle = np.asarray(decode_attention_ref(*jargs, q_pos, window))
+    assert_rel_close(_np32(out), pallas, RTOL[qdt])
+    assert_rel_close(_np32(out), oracle, RTOL[qdt])
+
+
+def test_decode_plain_no_valid_slot_gives_zeros():
+    case = ("x", 1, 40, 4, 2, 32, "full", 0, "f32", "f32")
+    q, k, v, kv_pos, _ = decode_inputs(case)
+    out = DA.decode_attention(q, k, v, torch.full_like(kv_pos, -1), 39)
+    assert float(out.abs().max()) == 0.0
+
+
+def test_wrappers_reject_bad_operands():
+    q, k, v = flash_inputs(FLASH_CASES[0])
+    with pytest.raises(ValueError):
+        FA.flash_attention(q, k[:, :, :1].repeat(1, 1, 3, 1),
+                           v[:, :, :1].repeat(1, 1, 3, 1))   # 4 % 3 != 0
+    with pytest.raises(TypeError):
+        FA.flash_attention(q, k.to(torch.bfloat16), v)
+    dq, dk, dv, kv_pos, q_pos = decode_inputs(DECODE_CASES[0])
+    with pytest.raises(ValueError):
+        DA.decode_attention(dq, dk, dv, kv_pos[:-1], q_pos)
+
+
+# ---------------------------------------------------------------------------
+# On the card: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+def _alloc_peak(fn):
+    """Bytes allocated above the starting point while ``fn`` runs."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def _rounded(n):
+    """The caching allocator's block size for a request of n bytes."""
+    return (n + 511) // 512 * 512
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES, ids=[c[0] for c in FLASH_CASES])
+def test_cuda_flash_kernel_matches_plain(case, cuda_device):
+    causal, window, dt = case[6], case[7], case[8]
+    q, k, v = (t.to(cuda_device) for t in flash_inputs(case))
+    n0 = FA.flash_attention.launches
+    out, peak = _alloc_peak(
+        lambda: FA.flash_attention(q, k, v, causal=causal, window=window))
+    assert FA.flash_attention.launches == n0 + 1
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert peak <= _rounded(out.numel() * out.element_size())
+    want = FA.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert_rel_close(out.float().cpu().numpy(),
+                     want.to(q.dtype).float().cpu().numpy(), RTOL[dt])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Skv,causal,window", [
+    (1000, 1000, True, 0), (77, 1000, False, 0), (1000, 77, False, 300),
+    (129, 129, True, 64), (1, 1, True, 0)])
+def test_cuda_flash_kernel_ragged_shapes(Sq, Skv, causal, window,
+                                         cuda_device):
+    """Ragged edges on both axes, Sq != Skv, tiles that straddle the
+    diagonal and the window edge, and a single row, at hd = 128."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    q = torch.randn((2, Sq, 8, 128), generator=g, device=cuda_device)
+    k, v = (torch.randn((2, Skv, 2, 128), generator=g, device=cuda_device)
+            for _ in range(2))
+    out = FA.flash_attention(q, k, v, causal=causal, window=window)
+    want = FA.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert_rel_close(out.cpu().numpy(), want.cpu().numpy(), RTOL["f32"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DECODE_CASES,
+                         ids=[c[0] for c in DECODE_CASES])
+def test_cuda_decode_kernel_matches_plain(case, cuda_device):
+    window, qdt = case[7], case[8]
+    q, k, v, kv_pos, q_pos = decode_inputs(case)
+    q, k, v, kv_pos = (t.to(cuda_device) for t in (q, k, v, kv_pos))
+    n0 = DA.decode_attention.launches
+    out = DA.decode_attention(q, k, v, kv_pos, q_pos, window=window)
+    assert DA.decode_attention.launches == n0 + 1
+    assert out.dtype == q.dtype and out.shape == q.shape
+    want = DA.decode_attention_ref(q, k, v, kv_pos, q_pos, window)
+    assert_rel_close(out.float().cpu().numpy(),
+                     want.to(q.dtype).float().cpu().numpy(), RTOL[qdt])
+
+
+@pytest.mark.cuda
+def test_cuda_decode_allocates_only_output_and_partials(cuda_device):
+    """A ragged 4,113-slot bf16 cache (8.4 MB per K or V): the call may
+    allocate its (B, H, hd) output and the split-S partials, nothing
+    like a padded copy of the cache."""
+    B, S, H, Hkv, hd = 2, 4113, 16, 4, 128
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    q = torch.randn((B, H, hd), generator=g, device=cuda_device,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn((B, S, Hkv, hd), generator=g, device=cuda_device,
+                        dtype=torch.bfloat16) for _ in range(2))
+    kv_pos = torch.arange(S, dtype=torch.int32, device=cuda_device)
+    out, peak = _alloc_peak(
+        lambda: DA.decode_attention(q, k, v, kv_pos, S - 1))
+    nc = DA.n_chunks(S)
+    allowed = (_rounded(B * H * hd * 2) + _rounded(4 * B * H * nc * hd)
+               + _rounded(4 * B * H * nc * 2))
+    assert peak <= allowed, (peak, allowed)
+    want = DA.decode_attention_ref(q, k, v, kv_pos, S - 1)
+    assert_rel_close(out.float().cpu().numpy(),
+                     want.to(q.dtype).float().cpu().numpy(), RTOL["bf16"])

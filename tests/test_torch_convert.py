@@ -75,15 +75,21 @@ def test_round_trip_of_reference_state():
 
 
 def test_port_imports_neither_jax_nor_the_reference():
-    """A fresh interpreter imports the whole port and its CLI module; no
+    """A fresh interpreter imports every module of the port (walked with
+    ``pkgutil``, so new modules are covered) and the smoke script; no
     ``jax`` or ``repro`` module may be loaded."""
     src = Path(__file__).resolve().parents[1] / "src"
     code = (
-        "import sys\n"
-        "import repro_torch, repro_torch.convert, repro_torch.noise\n"
-        "import repro_torch.core.engine, repro_torch.core.pp\n"
-        "import repro_torch.kernels.bmf_sweep.ops\n"
-        "import repro_torch.launch.bmf_train\n"
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    repro_torch.__path__, 'repro_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "assert 'repro_torch.models.model' in names, names\n"
+        "assert 'repro_torch.kernels.decode_attention.ops' in names, names\n"
+        "sys.path.insert(0, '..')\n"
+        "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
