@@ -38,7 +38,23 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      L1 must launch 36 times and L3 36 x 96 times, and for 2 sequences
      every step's logits must agree with the port's ``forward`` over all
      4,096 tokens run through the plain attention versions;
-  7. summary: one JSON line ``{"kernels": [...]}`` and, last, the
+  7. L2 parity: L2 (flash attention backward) against its plain version
+     on the same (q, k, v, o, do, lse), bf16 and fp32, at the train path's
+     attention shape (B = 2, S = 4,096, H = 32, Hkv = 8, hd = 128): causal,
+     window 1,024 and non-causal, compared on the first sequence (the
+     plain version's f32 (S, S) tiles per head); L1's lse against the
+     plain logsumexp; the autograd Function (L1 + L2) against autograd
+     through the plain attention; every case timed beside its plain
+     version, its bound and SDPA's backward as the library yardstick;
+  8. the LLM train path at full width: Qwen3-4B with its depth cut to 8
+     of 36 layers (AdamW's f32 state for all 36 would take 70.6 GB),
+     seeded random f32 master weights made on the card; first, for one
+     sequence, the loss and gradients through the kernels against the
+     same through the plain attention and against an f32 pass; then 6
+     ``make_train_step`` steps on batches of 4 x 4,096 synthetic tokens in
+     2 microbatches with remat: losses and grad norms finite, L1 launched
+     32 and L2 16 times per step; the last step under ``torch.profiler``;
+  9. summary: one JSON line ``{"kernels": [...]}`` and, last, the
      ``{"ok": true, "device": {...}}`` line.
 
 Without a GPU, or without the repository's ``src/repro_torch`` beside it,
@@ -46,6 +62,7 @@ it exits non-zero before printing any result.
 """
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -88,6 +105,37 @@ LOGIT_TOL = 0.2
 # and the serve path may be at most this much farther from the f32
 # forward than the plain bf16 forward is (measured: 0.94x)
 F32_GAP_TOL = 1.5
+
+# L2 parity at the train path's attention shape; the plain version's f32
+# (S, S) tiles allow L2_CHECK sequences at a time
+L2_BATCH, L2_SEQ, L2_CHECK = 2, 4096, 1
+# L2 vs its plain version. fp32: 1e-4 of the largest plain value; both sum
+# the same f32 products in another order over up to 4,096 terms, and
+# ds = p (dp - D) cancels (each row sums to 0), so the error is relative to
+# the terms, not to the result. bf16: the outputs are rounded from f32
+# values that differ in summation order, so they may land one bf16 step
+# apart: one step of the largest plain value (its ulp, 2^-8 to 2^-7 of it)
+L2_TOL = {"fp32": 1e-4, "bf16": 1}
+# L1's lse vs the plain logsumexp: the same f32 scores, another order
+LSE_TOL = 1e-5
+# the autograd Function (L1 + L2) vs autograd through the plain attention:
+# fp32 as L2 alone; bf16 two bf16 steps of the largest plain value, one for
+# the rounding of the result and one for D = rowsum(do * o), which L2 forms
+# from o as L1 wrote it, rounded to bf16, where the plain path's autograd
+# never rounds o
+E2E_TOL = {"fp32": 1e-4, "bf16": 2}
+# the train path's one-sequence check: the kernels' bf16 loss and gradients
+# against the plain attention's bf16 ones. On the H100 the plain bf16 pass
+# sits 8.1e-4 (loss), 8.9e-5 (1 - cosine of the gradients) and 2.6e-4
+# (gradient norm ratio - 1) from the f32 pass on the same weights, and the
+# kernels' pass 5.3e-5, 5e-6 and 3.6e-5 from the plain bf16 pass; the limits
+# are about twice bf16 rounding's own spread
+TRAIN_LOSS_TOL, TRAIN_COS_TOL, TRAIN_NORM_TOL = 2e-3, 2e-4, 5e-4
+
+# the LLM train path: Qwen3-4B at full width, 8 of its 36 layers; 6 steps
+# of 4 x 4,096 tokens in 2 microbatches (each f32 logits tensor 4.98 GB)
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 8, 4, 4096, 2
+TRAIN_STEPS = 6
 
 TABLE1_MOVIELENS = dict(name="movielens-20m", n_rows=138_493, n_cols=27_278,
                         ratings_per_row=144, scale_lo=1, scale_hi=5, K=10,
@@ -263,6 +311,7 @@ def _wrappers():
     from repro_torch.kernels.flash_attention import ops as L1
     return {"bmf_precision": B1.precision_accum, "bmf_sweep": B2.fused_sweep,
             "flash_attention": L1.flash_attention,
+            "flash_attention_bwd": L1.flash_bwd,
             "decode_attention": L3.decode_attention}
 
 
@@ -348,12 +397,14 @@ def _sdpa_ms(q, k, v, reps, **kw):
     return ms
 
 
-def _attn_line(name, case, dtype, err, scale, tol, ms, pms, bd, lib):
+def _attn_line(name, case, dtype, err, scale, tol, ms, pms, bd, lib,
+               tag="llm-parity"):
     ok = err <= tol * scale
-    log(f"[llm-parity] {name} {case} {dtype}: max_abs_err {err:.3e} "
-        f"(tolerance {tol:.0e} x {scale:.3g} = {tol * scale:.3e}) "
+    log(f"[{tag}] {name} {case} {dtype}: max_abs_err {err:.3e} "
+        f"(tolerance {tol:.3g} x {scale:.3g} = {tol * scale:.3e}) "
         f"{'ok' if ok else 'FAIL'}; kernel {ms:.3f} ms, plain {pms:.3f} ms, "
-        f"bound {bd[0]:.4f} ms ({bd[1]}), library (SDPA) {lib:.3f} ms")
+        f"bound {bd[0]:.4f} ms ({bd[1]}), library (SDPA"
+        f"{' backward' if tag == 'l2-parity' else ''}) {lib:.3f} ms")
     if not ok:
         raise AssertionError(f"{name} {case} {dtype} disagrees with its "
                              f"plain version")
@@ -624,6 +675,348 @@ def profile_decode(serve_step, params, cache, tokens, n=3):
                     for k, (us, c) in top))
 
 
+def _sdpa_bwd_ms(q, k, v, do, reps, **kw):
+    """The library yardstick for L2: the backward of one
+    ``scaled_dot_product_attention`` call on (B, H, S, hd) views of the
+    same tensors, K/V repeated to the query heads before the timing (timed
+    here only; the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+    group = q.shape[-2] // k.shape[-2]
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt, vt = (t.repeat_interleave(group, dim=2).transpose(1, 2).detach()
+              .requires_grad_() for t in (k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, **kw)
+    dout = do.transpose(1, 2)
+    ms = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dout,
+                                             retain_graph=True), reps)
+    del out, qt, kt, vt
+    return ms
+
+
+def _limit(tol, scale, dtype):
+    """The allowed max |error|: ``tol`` bf16 steps of the largest plain
+    value in bf16, ``tol`` x that value in fp32."""
+    if dtype == "bf16":
+        return tol * 2.0 ** (math.floor(math.log2(scale)) - 7)
+    return tol * scale
+
+
+def _rel_err(got, want):
+    """(max |got - want|, max(|want|, 1)) of the worst of several outputs,
+    by the ratio of the two."""
+    worst = (0.0, 1.0)
+    for a, b in zip(got, want):
+        err = float((a.float() - b.float()).abs().max())
+        scale = max(float(b.float().abs().max()), 1.0)
+        if err / scale >= worst[0] / worst[1]:
+            worst = (err, scale)
+    return worst
+
+
+def phase_l2_parity(dev):
+    """L2 against its plain version, L1's lse, and the autograd Function,
+    at the train path's attention shape."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import ops as L1
+    from repro_torch.kernels.flash_attention.ref import (attention_mask,
+                                                         flash_attention_ref,
+                                                         flash_bwd_ref)
+    cfg = get_config(LLM_ARCH)
+    B, S, C = L2_BATCH, L2_SEQ, L2_CHECK
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    g = torch.Generator(device=dev).manual_seed(1)
+    peak = {"fp32": FP32_FLOPS, "bf16": BF16_FLOPS}
+    tdt = {"fp32": torch.float32, "bf16": torch.bfloat16}
+    results = []
+    for case, causal, window in (("causal-4096", True, 0),
+                                 ("window1024-4096", True, 1024),
+                                 ("noncausal-4096", False, 0)):
+        mask = attention_mask(S, S, causal, window, dev)
+        pairs = int(mask.sum())
+        for dtype in ("bf16", "fp32"):
+            q, do = (torch.randn((B, S, H, hd), generator=g, device=dev)
+                     .to(tdt[dtype]) for _ in range(2))
+            k, v = (torch.randn((B, S, Hkv, hd), generator=g, device=dev)
+                    .to(tdt[dtype]) for _ in range(2))
+            o, lse = L1.flash_attention(q, k, v, causal=causal,
+                                        window=window, return_lse=True)
+            _, lse_p = flash_attention_ref(q[:C], k[:C], v[:C],
+                                           causal=causal, window=window,
+                                           return_lse=True)
+            lse_err = float((lse[:C] - lse_p).abs().max())
+            lse_scale = max(float(lse_p.abs().max()), 1.0)
+            del lse_p
+            ok = lse_err <= LSE_TOL * lse_scale
+            log(f"[l2-parity] L1 lse {case} {dtype}: max_abs_err "
+                f"{lse_err:.3e} (tolerance {LSE_TOL:.0e} x {lse_scale:.3g} "
+                f"= {LSE_TOL * lse_scale:.3e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"L1 lse {case} {dtype} disagrees with "
+                                     "the plain logsumexp")
+
+            def kern():
+                return L1.flash_bwd(q, k, v, o, do, lse, causal=causal,
+                                    window=window)
+
+            def plain():
+                return [flash_bwd_ref(q[b:b + C], k[b:b + C], v[b:b + C],
+                                      o[b:b + C], do[b:b + C], lse[b:b + C],
+                                      causal=causal, window=window)
+                        for b in range(0, B, C)]
+
+            got = [t[:C] for t in kern()]
+            want = [t.to(q.dtype) for t in flash_bwd_ref(
+                q[:C], k[:C], v[:C], o[:C], do[:C], lse[:C], causal=causal,
+                window=window)]
+            err, scale = _rel_err(got, want)
+            del got, want
+            ms, pms = cuda_ms(kern, 3, warmup=1), cuda_ms(plain, 1, warmup=0)
+            torch.cuda.empty_cache()
+            if window:
+                lib = _sdpa_bwd_ms(q, k, v, do, 3, attn_mask=mask)
+            else:
+                lib = _sdpa_bwd_ms(q, k, v, do, 3, is_causal=causal)
+            torch.cuda.empty_cache()
+            elt = q.element_size()
+            # q, k, v, o, do, lse and D read once; dq, dk, dv written once;
+            # 10 hd flops per unmasked pair and q-head (five products)
+            n_bytes = (elt * (3 * q.numel() + 2 * k.numel())
+                       + 2 * 4 * lse.numel()
+                       + elt * (q.numel() + 2 * k.numel()))
+            bd = bound(n_bytes, 10 * hd * H * B * pairs, peak[dtype])
+            tol = _limit(L2_TOL[dtype], scale, dtype) / scale
+            results.append(_attn_line(
+                "flash_attention_bwd", case, dtype, err, scale, tol, ms,
+                pms, bd, lib, tag="l2-parity"))
+            del q, k, v, o, do, lse
+            torch.cuda.empty_cache()
+
+    # end to end: L1 forward + L2 backward through the autograd Function
+    # against autograd through the plain attention, one sequence, do fixed
+    for dtype in ("bf16", "fp32"):
+        q = torch.randn((1, S, H, hd), generator=g, device=dev).to(tdt[dtype])
+        k, v = (torch.randn((1, S, Hkv, hd), generator=g, device=dev)
+                .to(tdt[dtype]) for _ in range(2))
+        do = torch.randn((1, S, H, hd), generator=g, device=dev)
+
+        def grads(attend):
+            qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+            (attend(qs, ks, vs).float() * do).sum().backward()
+            return [t.grad for t in (qs, ks, vs)]
+
+        got = grads(lambda a, b, c: L1.flash_attention_trainable(a, b, c))
+        want = grads(lambda a, b, c: flash_attention_ref(a, b, c).to(a.dtype))
+        err, scale = _rel_err(got, want)
+        tol = _limit(E2E_TOL[dtype], scale, dtype) / scale
+        ok = err <= tol * scale
+        log(f"[l2-parity] autograd Function (L1 + L2) vs autograd through "
+            f"the plain attention, causal-4096 {dtype}: max_abs_err "
+            f"{err:.3e} (tolerance {tol:.3g} x {scale:.3g} = "
+            f"{tol * scale:.3e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"autograd Function {dtype} disagrees with "
+                                 "autograd through the plain attention")
+        del q, k, v, do, got, want
+        torch.cuda.empty_cache()
+    return results
+
+
+def _grad_stats(a, b):
+    """(cosine of the flattened gradients a and b, |a| / |b| - 1), summed
+    per tensor in f64."""
+    dot = na = nb = 0.0
+    for x, y in zip(a, b):
+        x, y = x.double(), y.double()
+        dot += float((x * y).sum())
+        na += float((x * x).sum())
+        nb += float((y * y).sum())
+    return dot / (na * nb) ** 0.5, (na / nb) ** 0.5 - 1.0
+
+
+def train_check(params, cfg, tokens):
+    """The loss and gradients of ``loss_fn`` for one sequence, before any
+    update: through the kernels (bf16, as trained), through the plain
+    attention (bf16), and through the plain attention in f32 on the same
+    weights, which shows how far bf16 rounding alone moves them. Fails
+    if the kernels' pass is outside the TRAIN_* limits."""
+    import torch
+    from unittest import mock
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models import layers as LY
+    from repro_torch.models import steps as ST
+
+    def plain(q, k, v, causal=True, window=0):
+        return flash_attention_ref(q, k, v, causal=causal,
+                                   window=window).to(q.dtype)
+
+    def run(c, attend):
+        with mock.patch.object(LY, "flash_attention_trainable", attend):
+            loss, _ = ST.loss_fn(params, c, {"tokens": tokens})
+            loss.backward()
+        grads = [p.grad for p in params.parameters()]
+        for p in params.parameters():
+            p.grad = None
+        return float(loss.detach()), grads
+
+    t0 = time.time()
+    paths = {"kernels": run(cfg, LY.flash_attention_trainable),
+             "plain": run(cfg, plain),
+             "f32": run(dataclasses.replace(cfg, dtype="float32"), plain)}
+    torch.cuda.synchronize()
+    stats = {}
+    for a, b in (("kernels", "plain"), ("kernels", "f32"), ("plain", "f32")):
+        cos, norm = _grad_stats(paths[a][1], paths[b][1])
+        stats[(a, b)] = dict(loss=paths[a][0] - paths[b][0], cos=cos,
+                             norm=norm)
+    log(f"[llm-train-check] one sequence of {tokens.shape[1]} tokens, "
+        f"{time.time() - t0:.1f}s: loss kernels {paths['kernels'][0]:.6f}, "
+        f"plain {paths['plain'][0]:.6f}, f32 {paths['f32'][0]:.6f}; "
+        + "; ".join(f"{a} vs {b}: d loss {st['loss']:.3e}, grad cosine "
+                    f"{st['cos']:.6f}, |g| ratio - 1 {st['norm']:.3e}"
+                    for (a, b), st in stats.items())
+        + f"; limits {TRAIN_LOSS_TOL}, 1 - cosine {TRAIN_COS_TOL}, "
+        f"{TRAIN_NORM_TOL}, and the kernels' 1 - cosine to f32 at most "
+        f"{F32_GAP_TOL} x the plain bf16 pass's")
+    kp = stats[("kernels", "plain")]
+    gap_k = 1.0 - stats[("kernels", "f32")]["cos"]
+    gap_p = 1.0 - stats[("plain", "f32")]["cos"]
+    assert abs(kp["loss"]) <= TRAIN_LOSS_TOL, "train loss: kernels vs plain"
+    assert 1.0 - kp["cos"] <= TRAIN_COS_TOL, "gradients: kernels vs plain"
+    assert abs(kp["norm"]) <= TRAIN_NORM_TOL, "grad norm: kernels vs plain"
+    assert gap_k <= F32_GAP_TOL * gap_p, \
+        "the kernels' gradients are farther from f32 than bf16 rounding"
+
+
+def _train_flops(cfg, batch, seq):
+    """Model FLOPs of one train step, without the remat recompute: 6 per
+    parameter of every matrix product (the unembedding at the padded
+    vocabulary) and token, plus attention's 12 hd per unmasked (query,
+    key) pair and q-head (4 hd forward, 8 hd backward)."""
+    d, hd = cfg.d_model, cfg.head_dim
+    per_layer = (d * cfg.n_heads * hd * 2 + 2 * d * cfg.n_kv_heads * hd
+                 + 3 * d * cfg.d_ff)
+    n_mm = cfg.n_layers * per_layer + d * cfg.padded_vocab_size
+    pairs = seq * (seq + 1) // 2
+    attn = 12 * hd * cfg.n_heads * pairs * cfg.n_layers * batch
+    return 6 * n_mm * batch * seq + attn
+
+
+def phase_llm_train(dev):
+    """Qwen3-4B at full width, 8 layers: the one-sequence check, then 6
+    train steps with remat and 2 microbatches."""
+    import torch
+    from repro_torch.configs.base import TrainConfig, get_config
+    from repro_torch.data.tokens import synthetic_token_batches
+    from repro_torch.models import model as LM
+    from repro_torch.models import steps as ST
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(get_config(LLM_ARCH), n_layers=TRAIN_LAYERS)
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=2,
+                       total_steps=TRAIN_STEPS, remat=True,
+                       microbatches=TRAIN_MICRO)
+    t0 = time.time()
+    params = LM.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev, train=True)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    batches = synthetic_token_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0,
+                                      device=dev)
+    first = next(batches)
+    log(f"[llm-train] {cfg.name}: {cfg.n_layers} of 36 layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} (padded "
+        f"{cfg.padded_vocab_size}); {n_params} f32 parameters "
+        f"({4 * n_params / 1e9:.2f} GB) made in {time.time() - t0:.1f}s; "
+        f"{tcfg}")
+    train_check(params, cfg, first["tokens"][:1])
+    torch.cuda.empty_cache()
+
+    opt = adamw.init(dict(params.named_parameters()))
+    step_fn = ST.make_train_step(cfg, tcfg)
+    flops = _train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    step_s, finite = [], True
+    for i in range(TRAIN_STEPS):
+        batch = first if i == 0 else next(batches)
+        before = read_counts()
+        t1 = time.time()
+        if i == TRAIN_STEPS - 1:
+            params, opt, m = profile_train_step(step_fn, params, opt, batch)
+        else:
+            params, opt, m = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        dt = time.time() - t1
+        step_s.append(dt)
+        after = read_counts()
+        d1 = after["flash_attention"] - before["flash_attention"]
+        d2 = after["flash_attention_bwd"] - before["flash_attention_bwd"]
+        loss, gn, lr = (float(m[k]) for k in ("loss", "grad_norm", "lr"))
+        finite &= all(math.isfinite(x) for x in (loss, gn))
+        log(f"[llm-train] step {i + 1}: {dt:.3f}s, "
+            f"{tokens_per_step / dt:.4g} tokens/s, loss {loss:.6f}, grad "
+            f"norm {gn:.6f}, lr {lr:.4e}; L1 {d1} / L2 {d2} launches"
+            + (" (under the profiler)" if i == TRAIN_STEPS - 1 else ""))
+        if (d1 != 2 * cfg.n_layers * TRAIN_MICRO
+                or d2 != cfg.n_layers * TRAIN_MICRO):
+            raise AssertionError(f"step {i + 1}: L1 {d1} and L2 {d2} "
+                                 "launches, expected forward + recompute "
+                                 "and one backward per layer and microbatch")
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steady = step_s[1:-1]
+    mean_s = sum(steady) / len(steady)
+    log(f"[llm-train] {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"tokens ({TRAIN_MICRO} microbatches, remat): steps 2-"
+        f"{TRAIN_STEPS - 1} {mean_s:.3f} s/step, "
+        f"{tokens_per_step / mean_s:.4g} tokens/s; model FLOPs "
+        f"{flops / 1e12:.2f} TFLOP/step (6 per matmul parameter and token, "
+        f"12 hd per causal pair and head, no recompute) = "
+        f"{100 * flops / mean_s / BF16_FLOPS:.2f}% of the 989 TFLOP/s bf16 "
+        f"peak; peak device memory {peak / 1e9:.2f} GB; launches {counts}")
+    assert finite, "non-finite loss or grad norm on the train path"
+    return counts
+
+
+def profile_train_step(step_fn, params, opt, batch):
+    """One train step under ``torch.profiler``: device time by kernel and
+    the device's busy share of the wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        out = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    kernels = {}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        kernels[ev.key] = (us, ev.count)
+    if not kernels:
+        log("[llm-train-profile] the profiler recorded no device time: "
+            "device busy share not measured")
+        return out
+    busy = sum(us for us, _ in kernels.values()) / 1e3
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
+    log(f"[llm-train-profile] one step under the profiler: wall "
+        f"{1e3 * wall:.1f} ms, device busy {busy:.1f} ms "
+        f"({100 * busy / (1e3 * wall):.1f}% of the wall), "
+        f"{sum(c for _, c in kernels.values())} kernels; top: "
+        + "; ".join(f"{k[:60]} {us / 1e3:.1f} ms x{c}"
+                    for k, (us, c) in top))
+    return out
+
+
 def main():
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke.py needs the repository's src/repro_torch beside "
@@ -657,6 +1050,14 @@ def main():
     llm_parity = phase_llm_parity(dev)
     llm_counts = phase_llm_serve(dev)
     launches.update({n: llm_counts[n] for n in llm_parity})
+    llm_parity["flash_attention_bwd"] = phase_l2_parity(dev)
+    train_counts = phase_llm_train(dev)
+    launches["flash_attention_bwd"] = train_counts["flash_attention_bwd"]
+    by_path = {"flash_attention": {
+                   "serve": llm_counts["flash_attention"],
+                   "train": train_counts["flash_attention"]},
+               "flash_attention_bwd": {
+                   "train": train_counts["flash_attention_bwd"]}}
 
     meta = {
         "bmf_precision": dict(
@@ -680,6 +1081,9 @@ def main():
         "flash_attention": dict(
             source="src/repro_torch/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention/kernel.py:90"),
+        "flash_attention_bwd": dict(
+            source="src/repro_torch/csrc/flash_attention_bwd.cu",
+            replaces="src/repro/kernels/flash_attention/kernel_bwd.py:108"),
         "decode_attention": dict(
             source="src/repro_torch/csrc/decode_attention.cu",
             replaces="src/repro/kernels/decode_attention/kernel.py:70"),
@@ -692,7 +1096,9 @@ def main():
             **{k: main_case[k] for k in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by",
                                          "library_ms")},
-            case=main_case["case"], cases=llm_parity[name][1:]))
+            case=main_case["case"], cases=llm_parity[name][1:],
+            **({"launches_by_path": by_path[name]} if name in by_path
+               else {})))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,9 @@
 """Architecture and input-shape configs of the LLM stack, and their registry.
 
 The port's own copy of the reference's ``repro/configs/base.py``
-(``ArchConfig``, ``InputShape``, ``smoke_variant``, the analytic
-parameter count), so that the port imports nothing of ``repro``. Every
-architecture lives in its own module (``configs/<id>.py``) exporting
+(``ArchConfig``, ``InputShape``, ``TrainConfig``, ``smoke_variant``, the
+analytic parameter count), so that the port imports nothing of
+``repro``. Every architecture lives in its own module (``configs/<id>.py``) exporting
 ``CONFIG``. ``get_config`` resolves the dense family, the one whose
 serving path the port runs; the other families raise
 ``NotImplementedError`` naming the ROADMAP step that ports them.
@@ -179,6 +179,23 @@ class InputShape:
     seq_len: int
     global_batch: int
     kind: str  # "train" | "prefill" | "decode"
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Hyper-parameters of LLM training (``launch/train.py``)."""
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    grad_clip: float = 1.0
+    seed: int = 0
+    remat: bool = True                # activation checkpointing per layer
+    remat_policy: str = "full"        # full | dots (save matmul outputs)
+    microbatches: int = 1             # grad-accumulation steps per update
 
 
 # ---------------------------------------------------------------------------

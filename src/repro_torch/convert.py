@@ -8,8 +8,11 @@ field name to numpy array (e.g. ``{k: np.asarray(v) for k, v in
 jax_obj._asdict().items()}``) on a device; ``to_numpy`` turns any of the
 port's objects back into nested dicts of numpy arrays. The LLM stack's
 parameters travel as the reference's ``init_params`` pytree of numpy
-arrays (``llm_params_from_numpy`` / ``llm_params_to_numpy``). Nothing
-here imports JAX.
+arrays (``llm_params_from_numpy`` / ``llm_params_to_numpy``), in the
+serving layout (the ``_cast_tree`` rule) or the f32 training layout, and
+so does AdamW's state (``adamw_state_from_numpy`` / ``adamw_state_to_numpy``:
+``step``, ``mu``, ``nu`` with ``mu``/``nu`` in the parameters' tree).
+Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from repro_torch.core.posterior import NormalWishart, RowGaussians
 from repro_torch.data.sparse import PaddedCSR
 from repro_torch.models import layers as LY
 from repro_torch.models import model as LM
+from repro_torch.optim import adamw as ADAMW
 
 
 def tensor(x, device=None, dtype=None) -> torch.Tensor:
@@ -100,31 +104,35 @@ def to_numpy(obj):
     return obj
 
 
-def _llm_tensor(a, cfg: ArchConfig, device):
-    """The reference's ``_cast_tree`` rule: an f32 array with ndim >= 2 and
-    more than ``CAST_MIN_SIZE`` elements goes to ``cfg.dtype``; everything
-    else stays as it is. Applied to the stacked (L, …) arrays, as the
-    reference applies it, before they are split per layer."""
+def _llm_tensor(a, cfg: ArchConfig, device, train: bool):
+    """Serving (``train=False``): the reference's ``_cast_tree`` rule, an
+    f32 array with ndim >= 2 and more than ``CAST_MIN_SIZE`` elements goes
+    to ``cfg.dtype`` and everything else stays as it is; applied to the
+    stacked (L, …) arrays, as the reference applies it, before they are
+    split per layer. Training: every array stays as it is (f32)."""
     a = np.asarray(a)
     t = tensor(a, device)
-    if (a.dtype == np.float32 and a.ndim >= 2
+    if (not train and a.dtype == np.float32 and a.ndim >= 2
             and a.size > LM.CAST_MIN_SIZE):
         t = t.to(LM.compute_dtype(cfg))
     return t
 
 
 def llm_params_from_numpy(tree: Mapping[str, Any], cfg: ArchConfig,
-                          device=None) -> "LM.DenseLM":
+                          device=None, *, train: bool = False
+                          ) -> "LM.DenseLM":
     """The port's ``DenseLM`` from the reference's dense ``init_params``
     pytree as numpy (``jax.tree.map(np.asarray, params)``), whose
-    ``blocks`` hold stacked (L, …) arrays."""
+    ``blocks`` hold stacked (L, …) arrays. ``train`` picks the storage as
+    ``model.init_params`` does: f32 with gradient, or the serving cast
+    without."""
     dev = resolve_device(device)
 
     def get(*path):
         node = tree
         for p in path:
             node = node[p]
-        return _llm_tensor(node, cfg, dev)
+        return _llm_tensor(node, cfg, dev, train)
 
     emb = tree["embed"]
     unembed = get("embed", "unembed") if "unembed" in emb else None
@@ -149,34 +157,71 @@ def llm_params_from_numpy(tree: Mapping[str, Any], cfg: ArchConfig,
         mlp = LY.SwiGLU(w["w_gate"], w["w_up"], w["w_down"])
         blocks.append(LM.DenseBlock(cfg, w["ln1"], attn, w["ln2"], mlp))
     return LM.DenseLM(cfg, get("embed", "table"), unembed,
-                      get("final_norm", "scale"), blocks)
+                      get("final_norm", "scale"), blocks).requires_grad_(train)
+
+
+def _llm_tree(named: Mapping[str, torch.Tensor], cfg: ArchConfig,
+              n_layers: int) -> Dict[str, Any]:
+    """The reference's pytree layout, with stacked (L, …) blocks, of one
+    tensor per ``DenseLM`` parameter name, as f32 numpy arrays."""
+    def arr(name):
+        return named[name].detach().float().cpu().numpy()
+
+    def stack(name):
+        return np.stack([arr(f"blocks.{i}.{name}") for i in range(n_layers)])
+
+    attn = {n: stack(f"attn.{n}") for n in ("wq", "wk", "wv", "wo")}
+    if cfg.qk_norm:
+        attn["q_norm"] = {"scale": stack("attn.q_norm.scale")}
+        attn["k_norm"] = {"scale": stack("attn.k_norm.scale")}
+    embed = {"table": arr("table")}
+    if "unembed" in named:
+        embed["unembed"] = arr("unembed")
+    return {
+        "embed": embed,
+        "final_norm": {"scale": arr("final_norm.scale")},
+        "blocks": {
+            "ln1": {"scale": stack("ln1.scale")},
+            "attn": attn,
+            "ln2": {"scale": stack("ln2.scale")},
+            "mlp": {n: stack(f"mlp.{n}") for n in ("w_gate", "w_up",
+                                                    "w_down")},
+        },
+    }
 
 
 def llm_params_to_numpy(params: "LM.DenseLM") -> Dict[str, Any]:
     """The inverse of ``llm_params_from_numpy``: the reference's pytree
     layout with stacked (L, …) blocks, as f32 numpy arrays."""
-    def arr(t):
-        return t.detach().float().cpu().numpy()
+    return _llm_tree(dict(params.named_parameters()), params.cfg,
+                     len(params.blocks))
 
-    def stack(get):
-        return np.stack([arr(get(b)) for b in params.blocks])
 
-    attn = {n: stack(lambda b, n=n: getattr(b.attn, n))
-            for n in ("wq", "wk", "wv", "wo")}
-    if params.cfg.qk_norm:
-        attn["q_norm"] = {"scale": stack(lambda b: b.attn.q_norm.scale)}
-        attn["k_norm"] = {"scale": stack(lambda b: b.attn.k_norm.scale)}
-    embed = {"table": arr(params.table)}
-    if params.unembed is not None:
-        embed["unembed"] = arr(params.unembed)
-    return {
-        "embed": embed,
-        "final_norm": {"scale": arr(params.final_norm.scale)},
-        "blocks": {
-            "ln1": {"scale": stack(lambda b: b.ln1.scale)},
-            "attn": attn,
-            "ln2": {"scale": stack(lambda b: b.ln2.scale)},
-            "mlp": {n: stack(lambda b, n=n: getattr(b.mlp, n))
-                    for n in ("w_gate", "w_up", "w_down")},
-        },
-    }
+def adamw_state_from_numpy(fields: Mapping[str, Any],
+                           params: "LM.DenseLM") -> "ADAMW.AdamWState":
+    """The port's ``AdamWState`` for ``params`` from the reference's
+    ``AdamWState`` as numpy (``step`` and the ``mu``/``nu`` pytrees, each in
+    the parameters' layout), f32 on the parameters' device."""
+    dev = params.table.device
+
+    def named(tree):
+        m = llm_params_from_numpy(tree, params.cfg, dev, train=True)
+        return {n: t.detach() for n, t in m.named_parameters()}
+
+    mu, nu = named(fields["mu"]), named(fields["nu"])
+    names = [n for n, _ in params.named_parameters()]
+    if list(mu) != names:
+        raise KeyError(f"state names {list(mu)} differ from the "
+                       f"parameters' {names}")
+    return ADAMW.AdamWState(step=int(np.asarray(fields["step"])), mu=mu,
+                            nu=nu)
+
+
+def adamw_state_to_numpy(state: "ADAMW.AdamWState",
+                         params: "LM.DenseLM") -> Dict[str, Any]:
+    """The inverse of ``adamw_state_from_numpy``: ``step`` (int32) and
+    ``mu``/``nu`` in the reference's pytree layout, as f32 numpy."""
+    n_layers = len(params.blocks)
+    return {"step": np.int32(state.step),
+            "mu": _llm_tree(state.mu, params.cfg, n_layers),
+            "nu": _llm_tree(state.nu, params.cfg, n_layers)}

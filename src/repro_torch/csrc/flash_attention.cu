@@ -8,6 +8,10 @@
 //   (!causal || j <= i) && (window == 0 || j > i - window) && j < Skv,
 // with softmax(q k^T / sqrt(hd)) v computed in f32 by an online softmax and
 // written in the input dtype (JAX's f32 result cast to the input dtype).
+// When asked (lse != nullptr, the training forward), it also writes each
+// row's logsumexp m + log(max(l, 1e-30)), with m := 0 for a row that saw
+// no key, in f32 (B, Sq, H): the reference's _finalize with return_lse.
+// Serving passes nullptr and does no extra work.
 //
 // Bound on Hopper: operations. At the serve path's prefill shape (B = 8,
 // S = 4000, H = 32, Hkv = 8, hd = 128, causal) the call does 1.05 TFLOP for
@@ -108,8 +112,9 @@ __host__ __device__ constexpr int kt_floats() {
 template <int HD, typename T>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int Sq, int Skv,
-                 int H, int Hkv, int causal, int window, float scale) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int Sq, int Skv, int H, int Hkv,
+                 int causal, int window, float scale) {
   constexpr int LDQ = HD + 4;   // q and k rows
   constexpr int LDP = kBK + 4;  // probabilities, in the k tile's space
   constexpr int NJ = HD / 8;    // output columns per thread
@@ -260,6 +265,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
       orow[tx + 8 * j] = from_f32<T>(acc[i][j] / denom);
+    if (lse != nullptr && tx == 0)
+      lse[((int64_t)b * Sq + qp) * H + h] =
+          (isinf(m[i]) ? 0.f : m[i]) + logf(denom);
   }
 }
 
@@ -269,9 +277,9 @@ constexpr int smem_bytes() {
 }
 
 template <int HD, typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
-                   int Sq, int Skv, int H, int Hkv, int causal, int window,
-                   cudaStream_t st) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int B, int Sq, int Skv, int H, int Hkv,
+                   int causal, int window, cudaStream_t st) {
   auto kern = flash_fwd_kernel<HD, T>;
   constexpr int bytes = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -280,22 +288,25 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid(H, (Sq + kBQ - 1) / kBQ, B);
   kern<<<grid, kThreads, bytes, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, H, Hkv, causal,
-      window, 1.0f / sqrtf((float)HD));
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Skv, H, Hkv,
+      causal, window, 1.0f / sqrtf((float)HD));
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(int hd, const void* q, const void* k, const void* v,
-                     void* o, int B, int Sq, int Skv, int H, int Hkv,
-                     int causal, int window, cudaStream_t st) {
+                     void* o, float* lse, int B, int Sq, int Skv, int H,
+                     int Hkv, int causal, int window, cudaStream_t st) {
   switch (hd) {
     case 32:
-      return launch<32, T>(q, k, v, o, B, Sq, Skv, H, Hkv, causal, window, st);
+      return launch<32, T>(q, k, v, o, lse, B, Sq, Skv, H, Hkv, causal,
+                           window, st);
     case 64:
-      return launch<64, T>(q, k, v, o, B, Sq, Skv, H, Hkv, causal, window, st);
+      return launch<64, T>(q, k, v, o, lse, B, Sq, Skv, H, Hkv, causal,
+                           window, st);
     case 128:
-      return launch<128, T>(q, k, v, o, B, Sq, Skv, H, Hkv, causal, window, st);
+      return launch<128, T>(q, k, v, o, lse, B, Sq, Skv, H, Hkv, causal,
+                            window, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -304,21 +315,23 @@ cudaError_t dispatch(int hd, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q: (B, Sq, H, hd); k, v: (B, Skv, Hkv, hd); o: (B, Sq, H, hd), all of one
-// dtype (bf16 when is_bf16, else f32), contiguous. Returns a cudaError_t.
+// dtype (bf16 when is_bf16, else f32), contiguous; lse: f32 (B, Sq, H) or
+// nullptr. Returns a cudaError_t.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int is_bf16,
-                                      int B, int Sq, int Skv, int H, int Hkv,
-                                      int hd, int causal, int window,
-                                      void* stream) {
+                                      const void* v, void* o, void* lse,
+                                      int is_bf16, int B, int Sq, int Skv,
+                                      int H, int Hkv, int hd, int causal,
+                                      int window, void* stream) {
   if (B < 0 || Sq < 0 || Skv < 0 || H < 1 || Hkv < 1 || H % Hkv != 0 ||
       window < 0 || Sq > 65535 * kBQ || B > 65535)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   cudaError_t err =
-      is_bf16 ? dispatch<__nv_bfloat16>(hd, q, k, v, o, B, Sq, Skv, H, Hkv,
-                                        causal, window, st)
-              : dispatch<float>(hd, q, k, v, o, B, Sq, Skv, H, Hkv, causal,
+      is_bf16 ? dispatch<__nv_bfloat16>(hd, q, k, v, o, l, B, Sq, Skv, H,
+                                        Hkv, causal, window, st)
+              : dispatch<float>(hd, q, k, v, o, l, B, Sq, Skv, H, Hkv, causal,
                                 window, st);
   return (int)err;
 }

@@ -7,11 +7,19 @@ Conventions, as in the reference:
 - norms, RoPE, SiLU, softmax statistics and logits are computed in f32
   and cast back to the activation dtype where the reference casts back.
 
+Parameters are plain ``nn.Parameter``s: training keeps them in f32 and
+casts the matrices at use (``w.to(x.dtype)``), so autograd returns f32
+gradients through the cast, as the reference's ``_cast_tree`` does;
+serving stores them in ``cfg.dtype`` without gradient
+(``model.init_params``).
+
 Attention dispatches to the port's kernels: a prompt with no cache goes
-to ``flash_attention`` (L1), one token against a cache to
-``decode_attention`` (L3). Their plain versions run only through those
-wrappers, for CPU tensors. The matrix products outside the kernels stay
-``torch.matmul``, as the reference leaves them to XLA. Layernorm, GELU,
+to ``flash_attention`` (L1) or, when a gradient is needed, to
+``flash_attention_trainable`` (L1 with its lse, backward L2); one token
+against a cache goes to ``decode_attention`` (L3). Their plain versions
+run only through those wrappers, for CPU tensors. The matrix products
+outside the kernels stay ``torch.matmul``, as the reference leaves them
+to XLA. Layernorm, GELU,
 cross-attention and the int8 cache wait for the families that use them.
 """
 from __future__ import annotations
@@ -24,13 +32,9 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.decode_attention.ops import decode_attention
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import (
+    flash_attention, flash_attention_trainable)
 from repro_torch.models.kvcache import attn_cache_update
-
-
-def frozen(t: torch.Tensor) -> nn.Parameter:
-    """A parameter without gradient: this slice only serves."""
-    return nn.Parameter(t, requires_grad=False)
 
 
 # ---------------------------------------------------------------------------
@@ -48,7 +52,7 @@ def rmsnorm(scale, x, eps: float):
 class RMSNorm(nn.Module):
     def __init__(self, scale: torch.Tensor, eps: float):
         super().__init__()
-        self.scale = frozen(scale)
+        self.scale = nn.Parameter(scale)
         self.eps = eps
 
     def forward(self, x):
@@ -87,8 +91,8 @@ def apply_rope(x, cos, sin, rot_dim: int):
 class SwiGLU(nn.Module):
     def __init__(self, w_gate, w_up, w_down):
         super().__init__()
-        self.w_gate, self.w_up, self.w_down = (frozen(w_gate), frozen(w_up),
-                                               frozen(w_down))
+        self.w_gate, self.w_up, self.w_down = (
+            nn.Parameter(w_gate), nn.Parameter(w_up), nn.Parameter(w_down))
 
     def forward(self, x):
         g = x @ self.w_gate.to(x.dtype)
@@ -124,8 +128,9 @@ class Attention(nn.Module):
                  k_norm=None):
         super().__init__()
         self.cfg = cfg
-        self.wq, self.wk, self.wv, self.wo = (frozen(wq), frozen(wk),
-                                              frozen(wv), frozen(wo))
+        self.wq, self.wk, self.wv, self.wo = (
+            nn.Parameter(wq), nn.Parameter(wk), nn.Parameter(wv),
+            nn.Parameter(wo))
         self.q_norm = None if q_norm is None else RMSNorm(q_norm,
                                                           cfg.norm_eps)
         self.k_norm = None if k_norm is None else RMSNorm(k_norm,
@@ -154,14 +159,19 @@ class Attention(nn.Module):
         """x: (B, S, d) at absolute positions pos … pos + S − 1.
 
         Without ``cache`` (a prompt): attention over x itself through
-        ``flash_attention``. With ``cache`` = (k, v, kv_pos, ring) of one
-        layer (one token, S == 1): the token's K/V are written into the
-        cache in place, then ``decode_attention`` reads the cache.
+        ``flash_attention``, or ``flash_attention_trainable`` when autograd
+        records a graph that needs q/k/v's gradient. With ``cache`` =
+        (k, v, kv_pos, ring) of one layer (one token, S == 1): the token's
+        K/V are written into the cache in place, then ``decode_attention``
+        reads the cache.
         Returns (out (B, S, d), (k, v) of this call)."""
         B, S, _ = x.shape
         q, k, v = self.project(x, rope, rot_dim)
         if cache is None:
-            o = flash_attention(q, k, v, causal=causal, window=window)
+            trainable = torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v))
+            attend = flash_attention_trainable if trainable else flash_attention
+            o = attend(q, k, v, causal=causal, window=window)
         else:
             if S != 1:
                 raise NotImplementedError(

@@ -1,5 +1,5 @@
-"""Dense-family model: init, forward, prefill and decode (port of
-``repro/models/model.py``, dense branch).
+"""Dense-family model: init, forward (with gradient and remat), prefill and
+decode (port of ``repro/models/model.py``, dense branch).
 
 embed -> one ``DenseBlock`` per layer (attention + SwiGLU, pre-norm) ->
 final norm -> unembed. A Python loop over ``nn.Module`` blocks takes the
@@ -17,16 +17,23 @@ on purpose, for the same result:
 - ``prefill`` writes each layer's K/V straight into its cache slots
   instead of stacking all layers' K/V first ((L, B, S, Hkv, hd), 4.7 GB at
   Qwen3-4B with B = 8, S = 4000).
-``forward`` has no remat and no gradient in this slice (training comes
-later). Families other than dense raise ``NotImplementedError``.
+``forward`` is differentiable: with ``remat`` each block runs under
+``torch.utils.checkpoint`` (non-reentrant), the counterpart of the
+reference's ``jax.checkpoint`` around the scanned block, so its
+activations are recomputed in the backward pass; ``remat_policy="dots"``
+keeps the matrix products' outputs (``dots_saveable``) through selective
+checkpointing. ``prefill`` and ``decode_step`` run without gradient.
+Families other than dense raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as CKPT
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
@@ -73,8 +80,8 @@ class DenseLM(nn.Module):
         super().__init__()
         _check_dense(cfg)
         self.cfg = cfg
-        self.table = L.frozen(table)
-        self.unembed = None if unembed is None else L.frozen(unembed)
+        self.table = nn.Parameter(table)
+        self.unembed = None if unembed is None else nn.Parameter(unembed)
         self.final_norm = L.RMSNorm(final_norm, cfg.norm_eps)
         self.blocks = nn.ModuleList(blocks)
 
@@ -96,16 +103,20 @@ class DenseLM(nn.Module):
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
-                device=None) -> DenseLM:
+                device=None, *, train: bool = False) -> DenseLM:
     """Seeded random weights, made per tensor on ``device`` (the GPU unless
     the caller names another): matmul weights are normal × 1/√fan_in and
-    embeddings normal × 0.02, both stored in ``cfg.dtype``; norm scales are
-    ones in f32. That is the layout the reference computes with after
-    ``_cast_tree``; no f32 copy of the whole model exists at any time.
-    ``generator`` must live on ``device``."""
+    embeddings normal × 0.02; norm scales are ones in f32. ``generator``
+    must live on ``device``; both storages draw the same numbers.
+
+    ``train=False`` (serving) stores the matrices and embeddings in
+    ``cfg.dtype`` without gradient: the layout the reference computes with
+    after ``_cast_tree``, and no f32 copy of the whole model exists at any
+    time. ``train=True`` keeps every parameter in f32 with a gradient: the
+    reference's own master layout, which ``forward`` casts at use."""
     _check_dense(cfg)
     dev = resolve_device(device)
-    dt = compute_dtype(cfg)
+    dt = torch.float32 if train else compute_dtype(cfg)
 
     def normal(shape, scale):
         w = torch.randn(shape, generator=generator, device=dev)
@@ -130,7 +141,7 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
         mlp = L.SwiGLU(dense((d, cfg.d_ff)), dense((d, cfg.d_ff)),
                        dense((cfg.d_ff, d)))
         blocks.append(DenseBlock(cfg, ones(d), attn, ones(d), mlp))
-    return DenseLM(cfg, table, unembed, ones(d), blocks)
+    return DenseLM(cfg, table, unembed, ones(d), blocks).requires_grad_(train)
 
 
 # ---------------------------------------------------------------------------
@@ -143,18 +154,56 @@ def _final_logits(params: DenseLM, x):
     return L.unembed(params.unembed_weight(), x, params.cfg)
 
 
-@torch.no_grad()
+def _block_out(block, x, rope, rot_dim, window):
+    return block(x, rope, rot_dim, window=window)[0]
+
+
+# the projections' and the MLP's products ((B, S, d) @ (d, n) folds to mm);
+# attention is one opaque kernel call, recomputed, as the reference's Pallas
+# call is (its plain CPU version's batched products are not saved either)
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The reference's ``dots_saveable``: keep matrix-product outputs,
+    recompute everything else."""
+    return (CKPT.CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else CKPT.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(policy: str):
+    """The block wrapper for ``remat_policy`` (the reference's
+    ``_remat_policy``): "full" recomputes the whole block, "dots" keeps
+    the matmul outputs."""
+    if policy in (None, "full"):
+        return functools.partial(CKPT.checkpoint, use_reentrant=False)
+    if policy == "dots":
+        return functools.partial(
+            CKPT.checkpoint, use_reentrant=False,
+            context_fn=functools.partial(
+                CKPT.create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(policy)
+
+
 def forward(params: DenseLM, cfg: ArchConfig,
-            batch: Dict[str, torch.Tensor]
+            batch: Dict[str, torch.Tensor], *, remat: bool = True,
+            remat_policy: str = "full"
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence forward: ``batch["tokens"]`` (B, S) -> (logits
-    (B, S, Vp) f32, aux = {})."""
+    (B, S, Vp) f32, aux = {}). Differentiable; with ``remat`` (and autograd
+    recording) each block is checkpointed as ``remat_policy`` says."""
     _check_dense(cfg)
     tokens = batch["tokens"]
     x = L.embed(params.table, tokens, compute_dtype(cfg))
     rope, rot_dim = params.rope(0, tokens.shape[1])
+    window = cfg.sliding_window
+    run = (_remat(remat_policy) if remat and torch.is_grad_enabled()
+           else None)
     for block in params.blocks:
-        x, _ = block(x, rope, rot_dim, window=cfg.sliding_window)
+        if run is None:
+            x = _block_out(block, x, rope, rot_dim, window)
+        else:
+            x = run(_block_out, block, x, rope, rot_dim, window)
     return _final_logits(params, x), {}
 
 

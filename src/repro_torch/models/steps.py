@@ -1,17 +1,104 @@
-"""Serving step functions of the dense family (port of the serving half of
-``repro/models/steps.py``).
+"""Step functions of the dense family (port of ``repro/models/steps.py``):
+the loss and the train step, and the serving steps.
 
-``make_prefill_step`` and ``make_serve_step`` close over the config, as
-the reference's do, so a caller holds only params, batch and cache. The
-loss, the train step and the optimizer come with the training slice.
+The factories close over the configs, as the reference's do, so a caller
+holds only params, optimizer state, batch and cache. ``make_train_step``'s
+step updates the parameters (a ``DenseLM`` in the f32 training layout,
+``model.init_params(..., train=True)``) and the AdamW state in place and
+returns them with the step's metrics.
 """
 from __future__ import annotations
 
 from typing import Optional
 
-from repro_torch.configs.base import ArchConfig, InputShape
+import torch
+
+from repro_torch.configs.base import ArchConfig, InputShape, TrainConfig
 from repro_torch.models import model as MODEL
 from repro_torch.models.kvcache import serve_cache_init
+from repro_torch.optim import adamw, schedules
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy(logits, labels, mask):
+    """logits: (B, S, V) f32; labels: (B, S) int; mask: (B, S) f32. The
+    masked mean of logsumexp(logits) − logits[label].
+
+    The reference takes the gold logit with a one-hot contraction: under
+    GSPMD a gather along the vocabulary-sharded axis would all-gather the
+    whole (B, S, V) tensor, while the contraction stays sharded. The port
+    shards nothing, and ``torch.gather`` picks the same number (the other
+    terms of the contraction are exact zeros) without a third (B, S, V)
+    f32 tensor."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long().unsqueeze(-1)).squeeze(-1)
+    nll = (logz - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def loss_fn(params, cfg: ArchConfig, batch, *, remat=True,
+            remat_policy="full"):
+    """Next-token cross entropy over ``batch["tokens"]`` (B, S): returns
+    (loss, metrics = {"loss": loss, **aux})."""
+    logits, aux = MODEL.forward(params, cfg, batch, remat=remat,
+                                remat_policy=remat_policy)
+    tokens = batch["tokens"]
+    S_text = tokens.shape[1]
+    labels = tokens[:, 1:]
+    pred = logits[:, -S_text:][:, :-1]
+    mask = torch.ones(labels.shape, dtype=torch.float32,
+                      device=labels.device)
+    loss = cross_entropy(pred, labels, mask)
+    return loss, {"loss": loss, **aux}
+
+
+# ---------------------------------------------------------------------------
+# Step factories
+# ---------------------------------------------------------------------------
+
+
+def make_train_step(cfg: ArchConfig, tcfg: TrainConfig):
+    lr_fn = schedules.warmup_cosine(tcfg)
+
+    def train_step(params, opt_state: adamw.AdamWState, batch):
+        """One AdamW update from ``batch`` (split into
+        ``tcfg.microbatches`` equal row chunks whose f32 gradients are
+        summed, then averaged, as the reference's scan does), with global
+        clipping and the 1-based lr step. Returns (params, opt_state,
+        metrics with loss, grad_norm and lr as 0-dim tensors)."""
+        M = tcfg.microbatches
+        tokens = batch["tokens"]
+        if tokens.shape[0] % M:
+            raise ValueError(f"batch of {tokens.shape[0]} rows does not "
+                             f"split into {M} microbatches")
+        named = dict(params.named_parameters())
+        for p in named.values():
+            p.grad = None
+        metrics = {}
+        for chunk in torch.split(tokens, tokens.shape[0] // M):
+            loss, mb_metrics = loss_fn(params, cfg, {"tokens": chunk},
+                                       remat=tcfg.remat,
+                                       remat_policy=tcfg.remat_policy)
+            loss.backward()       # accumulates f32 gradients in .grad
+            for k, v in mb_metrics.items():
+                v = v.detach()
+                metrics[k] = metrics[k] + v if k in metrics else v
+        grads = {n: p.grad for n, p in named.items()}
+        if M > 1:
+            for g in grads.values():
+                g.div_(M)
+            metrics = {k: v / M for k, v in metrics.items()}
+        grads, gnorm = adamw.clip_by_global_norm(grads, tcfg.grad_clip)
+        lr = lr_fn(opt_state.step + 1)   # 1-based so warmup never yields 0
+        opt_state = adamw.apply(named, grads, opt_state, tcfg, lr)
+        for p in named.values():
+            p.grad = None
+        return params, opt_state, dict(metrics, grad_norm=gnorm, lr=lr)
+
+    return train_step
 
 
 def make_prefill_step(cfg: ArchConfig, shape: InputShape,

@@ -1,5 +1,5 @@
-"""Kernels L1 (flash attention, forward) and L3 (decode attention): the
-port against the JAX reference.
+"""Kernels L1 (flash attention, forward, with its logsumexp), L2 (its
+backward) and L3 (decode attention): the port against the JAX reference.
 
 On the CPU each wrapper runs its plain version; it is held against the
 reference's wrapper, which runs its Pallas kernel in interpret mode, and
@@ -8,6 +8,13 @@ against the reference's jnp oracle, on the same numpy inputs. The
 over the same cases, and check that the wrappers allocate only their
 outputs (L3: and its split-S partials), with no padded copy of q/k/v or
 of the cache.
+
+L2 sits behind the autograd Function ``flash_attention_trainable``; its
+gradients are held against ``jax.grad`` through the reference's
+``flash_attention_trainable`` (the two Pallas backward kernels in
+interpret mode) at 2e-4, the tolerance of the reference's own
+``tests/test_flash_attention.py``: both sides sum the same f32 products in
+other orders (the reference's tiles, the plain version's whole rows).
 
 Tolerances, relative to the largest reference value (``assert_rel_close``):
 - f32: 1e-5. Both sides compute the same f32 scores and softmax; the
@@ -175,6 +182,115 @@ def test_wrappers_reject_bad_operands():
 
 
 # ---------------------------------------------------------------------------
+# L1's lse and L2 through the autograd Function, on the CPU
+# ---------------------------------------------------------------------------
+
+# (id, Hkv, causal, window): B = 1, S = 512 (the reference's Pallas
+# forward with lse takes only tile-aligned shapes), H = 4, hd = 32, f32
+LSE_CASES = [("causal-gqa2", 2, True, 0), ("window128-gqa4", 1, True, 128),
+             ("noncausal-gqa1", 4, False, 0)]
+
+
+@pytest.mark.parametrize("case", LSE_CASES, ids=[c[0] for c in LSE_CASES])
+def test_flash_lse_matches_reference(case):
+    """lse from the port's ``flash_attention(..., return_lse=True)``
+    against the reference's ``flash_attention_padded(..., return_lse=True)``
+    (interpret mode): both form the same f32 scores, so only summation
+    order differs: 1e-5 of the largest |lse|."""
+    import jax.numpy as jnp
+    from repro.kernels.flash_attention.kernel import flash_attention_padded
+    _, Hkv, causal, window = case
+    rng = np.random.default_rng(4)
+    q = rng.normal(size=(1, 512, 4, 32)).astype(np.float32)
+    k, v = (rng.normal(size=(1, 512, Hkv, 32)).astype(np.float32)
+            for _ in range(2))
+    o, lse = FA.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                torch.from_numpy(v), causal=causal,
+                                window=window, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (1, 512, 4)
+    jo, jlse = flash_attention_padded(jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(v), causal=causal,
+                                      window=window, interpret=True,
+                                      return_lse=True)
+    assert_rel_close(lse.numpy(), np.asarray(jlse), RTOL["f32"])
+    assert_rel_close(o.numpy(), np.asarray(jo), RTOL["f32"])
+
+
+def _grads_port(q, k, v, tgt, causal, window, attend):
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    o = attend(qt, kt, vt, causal, window)
+    ((o.float() - torch.from_numpy(tgt)) ** 2).sum().backward()
+    return [t.grad.numpy() for t in (qt, kt, vt)]
+
+
+@pytest.mark.parametrize("Hkv,window", [(2, 0), (4, 256), (1, 0)])
+def test_flash_grads_match_reference(Hkv, window):
+    """The cases of the reference's
+    ``test_flash_attention_vjp_matches_ref_grad``: dq, dk, dv of
+    sum((o - tgt)^2) through the port's autograd Function (plain L1 with
+    lse, plain L2) against ``jax.grad`` through the reference's
+    ``flash_attention_trainable`` (Pallas forward and backward kernels,
+    interpret mode), at the reference test's 2e-4."""
+    import jax
+    import jax.numpy as jnp
+    from repro.kernels.flash_attention import ops as JFA
+    rng = np.random.default_rng(7)
+    B, S, H, hd = 1, 512, 4, 64
+    q = rng.normal(size=(B, S, H, hd)).astype(np.float32)
+    k, v = (rng.normal(size=(B, S, Hkv, hd)).astype(np.float32)
+            for _ in range(2))
+    tgt = rng.normal(size=(B, S, H, hd)).astype(np.float32)
+
+    def loss(q, k, v):
+        o = JFA.flash_attention_trainable(q, k, v, True, window)
+        return jnp.sum((o - tgt) ** 2)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k),
+                                            jnp.asarray(v))
+    got = _grads_port(q, k, v, tgt, True, window,
+                      FA.flash_attention_trainable)
+    for a, b, name in zip(got, want, "qkv"):
+        np.testing.assert_allclose(a, np.asarray(b), rtol=2e-4, atol=2e-4,
+                                   err_msg=f"d{name} mismatch")
+
+
+def _plain_attend(q, k, v, causal, window):
+    return FA.flash_attention_ref(q, k, v, causal=causal, window=window)
+
+
+@pytest.mark.parametrize("Sq,Skv,causal,window", [
+    (300, 300, True, 0), (300, 300, True, 64), (77, 130, False, 0),
+    (130, 77, False, 40)])
+def test_flash_grads_ragged_match_plain_autograd(Sq, Skv, causal, window):
+    """Shapes the reference's trainable variant does not take (ragged,
+    Sq != Skv): the autograd Function (``flash_bwd_ref`` from o and lse)
+    against autograd through ``flash_attention_ref`` itself, GQA group 2,
+    f32: 2e-4 as above."""
+    rng = np.random.default_rng(9)
+    q = rng.normal(size=(2, Sq, 4, 32)).astype(np.float32)
+    k, v = (rng.normal(size=(2, Skv, 2, 32)).astype(np.float32)
+            for _ in range(2))
+    tgt = rng.normal(size=q.shape).astype(np.float32)
+    got = _grads_port(q, k, v, tgt, causal, window,
+                      FA.flash_attention_trainable)
+    want = _grads_port(q, k, v, tgt, causal, window, _plain_attend)
+    for a, b, name in zip(got, want, "qkv"):
+        np.testing.assert_allclose(a, b, rtol=2e-4, atol=2e-4,
+                                   err_msg=f"d{name} mismatch")
+
+
+def test_flash_bwd_rejects_bad_operands():
+    q, k, v = flash_inputs(FLASH_CASES[0])
+    o, lse = FA.flash_attention(q, k, v, return_lse=True)
+    with pytest.raises(ValueError):
+        FA.flash_bwd(q, k, v, o, o[:, :-1], lse)
+    with pytest.raises(ValueError):
+        FA.flash_bwd(q, k, v, o, o, lse.double())
+    with pytest.raises(TypeError):
+        FA.flash_bwd(q, k, v, o, o.to(torch.bfloat16), lse)
+
+
+# ---------------------------------------------------------------------------
 # On the card: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
@@ -264,3 +380,104 @@ def test_cuda_decode_allocates_only_output_and_partials(cuda_device):
     want = DA.decode_attention_ref(q, k, v, kv_pos, S - 1)
     assert_rel_close(out.float().cpu().numpy(),
                      want.to(q.dtype).float().cpu().numpy(), RTOL["bf16"])
+
+
+# (Sq, Skv, H, Hkv, causal, window): GQA groups 1, 2 and 4, ragged edges on
+# both axes, tiles that straddle the diagonal and the window edge
+BWD_SHAPES = [(300, 300, 4, 4, True, 0), (1000, 1000, 8, 4, True, 128),
+              (77, 130, 8, 2, False, 0), (130, 77, 4, 1, False, 40),
+              (129, 129, 8, 2, True, 64), (1, 1, 4, 1, True, 0)]
+# L2 kernel vs plain version, relative to the largest plain value. fp32:
+# both sum the same f32 products in other orders, over up to Skv terms
+# per element, and ds = p (dp - D) cancels (each row of ds sums to 0), so
+# the error is relative to the terms, not to the result: 1e-4. bf16: both
+# round f32 values that differ only in summation order, so they may land
+# one bf16 step (2^-8) apart: 4e-3.
+BWD_RTOL = {"f32": 1e-4, "bf16": 4e-3}
+
+
+def _bwd_inputs(shape, dt, device, seed=5):
+    Sq, Skv, H, Hkv, causal, window = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, do = (torch.randn((2, Sq, H, 128), generator=g, device=device)
+             .to(TORCH_DT[dt]) for _ in range(2))
+    k, v = (torch.randn((2, Skv, Hkv, 128), generator=g, device=device)
+            .to(TORCH_DT[dt]) for _ in range(2))
+    o, lse = FA.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                    return_lse=True)
+    return q, k, v, o.to(q.dtype).contiguous(), do, lse
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", BWD_SHAPES, ids=str)
+def test_cuda_flash_bwd_kernel_matches_plain(shape, dt, cuda_device):
+    causal, window = shape[4], shape[5]
+    q, k, v, o, do, lse = _bwd_inputs(shape, dt, cuda_device)
+    n0 = FA.flash_bwd.launches
+    got = FA.flash_bwd(q, k, v, o, do, lse, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert FA.flash_bwd.launches == n0 + 1
+    want = FA.flash_bwd_ref(q, k, v, o, do, lse, causal=causal,
+                            window=window)
+    for a, b, name in zip(got, want, ("dq", "dk", "dv")):
+        assert a.dtype == q.dtype, name
+        assert_rel_close(a.float().cpu().numpy(),
+                         b.to(q.dtype).float().cpu().numpy(), BWD_RTOL[dt])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BWD_SHAPES[:4], ids=str)
+def test_cuda_flash_lse_matches_plain(shape, cuda_device):
+    """L1's lse (f32 inputs): the same scores, another summation order."""
+    causal, window = shape[4], shape[5]
+    q, k, v, _, _, lse = _bwd_inputs(shape, "f32", cuda_device)
+    o, got = FA.flash_attention(q, k, v, causal=causal, window=window,
+                                return_lse=True)
+    assert got.shape == lse.shape and got.dtype == torch.float32
+    assert_rel_close(got.cpu().numpy(), lse.cpu().numpy(), RTOL["f32"])
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bwd_allocates_only_its_outputs(cuda_device):
+    """A ragged 4,113-token bf16 call at GQA group 4: the call may allocate
+    dq, dk, dv and the (B, Sq, H) f32 D; no repeated K/V and no
+    (B, Skv, H, hd) per-q-head temporaries (each would be 4x dk)."""
+    shape = (4113, 4113, 16, 4, True, 0)
+    q, k, v, o, do, lse = (t.contiguous() for t in
+                           _bwd_inputs(shape, "bf16", "cpu"))
+    q, k, v, o, do, lse = (t.to(cuda_device) for t in (q, k, v, o, do, lse))
+    (dq, dk, dv), peak = _alloc_peak(
+        lambda: FA.flash_bwd(q, k, v, o, do, lse))
+    allowed = (_rounded(q.numel() * 2) + 2 * _rounded(k.numel() * 2)
+               + _rounded(lse.numel() * 4))
+    assert peak <= allowed, (peak, allowed)
+    assert bool(torch.isfinite(dq).all() & torch.isfinite(dk).all()
+                & torch.isfinite(dv).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_cuda_autograd_function_matches_plain_autograd(dt, cuda_device):
+    """L1 forward + L2 backward through ``flash_attention_trainable``
+    against autograd through ``flash_attention_ref``, at a ragged GQA-2
+    shape, with do = tgt on both sides; the kernels' own tolerances (the
+    plain forward's softmax differs from the kernels' lse route only in
+    rounding)."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    q, k, v = (torch.randn((2, 300, h, 128), generator=g, device=cuda_device)
+               .to(TORCH_DT[dt]) for h in (8, 4, 4))
+    tgt = torch.randn((2, 300, 8, 128), generator=g, device=cuda_device)
+    n1, n2 = FA.flash_attention.launches, FA.flash_bwd.launches
+
+    def grads(attend):
+        qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+        (attend(qs, ks, vs, True, 64).float() * tgt).sum().backward()
+        return [t.grad.float().cpu().numpy() for t in (qs, ks, vs)]
+
+    got = grads(FA.flash_attention_trainable)
+    assert (FA.flash_attention.launches, FA.flash_bwd.launches) == (n1 + 1,
+                                                                    n2 + 1)
+    want = grads(lambda *a: _plain_attend(*a).to(q.dtype))
+    for a, b in zip(got, want):
+        assert_rel_close(a, b, BWD_RTOL[dt])

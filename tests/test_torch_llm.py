@@ -38,24 +38,12 @@ from repro_torch.models import kvcache as TKV
 from repro_torch.models import model as TM
 from repro_torch.models import steps as TST
 from torch_helpers import assert_rel_close
+from torch_helpers import llm_cfgs as _cfgs
+from torch_helpers import np_tree as _np_tree
 
 ARCHS = ["qwen3_4b", "llama3_8b"]
 B, S_PROMPT, MAX_LEN, N_DECODE = 2, 40, 48, 4
 RTOL = 1e-4
-
-
-def _cfgs(arch, **kw):
-    """The reference's and the port's config, equal field by field."""
-    from repro.configs.base import get_config
-    jcfg = dataclasses.replace(get_config(arch).smoke_variant(), **kw)
-    tcfg = dataclasses.replace(TCB.get_config(arch).smoke_variant(), **kw)
-    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
-    return jcfg, tcfg
-
-
-def _np_tree(tree):
-    import jax
-    return jax.tree.map(np.asarray, tree)
 
 
 def _tokens(cfg, seq, seed=0):

@@ -4,6 +4,8 @@ Inputs are made with numpy from a seed and handed to both packages. JAX
 and ``repro`` are imported inside the functions that need them, so the
 ``cuda``-marked legs also run on a machine that has no JAX.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -90,3 +92,20 @@ def assert_rel_close(got, want, rtol):
     got, want = np.asarray(got), np.asarray(want, np.float32)
     np.testing.assert_allclose(got, want, rtol=rtol,
                                atol=rtol * max(np.abs(want).max(), 1.0))
+
+
+def llm_cfgs(arch, **kw):
+    """The reference's and the port's ``smoke_variant`` config of ``arch``
+    with the fields ``kw`` replaced, equal field by field."""
+    from repro.configs.base import get_config
+    from repro_torch.configs import base as TCB
+    jcfg = dataclasses.replace(get_config(arch).smoke_variant(), **kw)
+    tcfg = dataclasses.replace(TCB.get_config(arch).smoke_variant(), **kw)
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+    return jcfg, tcfg
+
+
+def np_tree(tree):
+    """A JAX pytree as numpy arrays."""
+    import jax
+    return jax.tree.map(np.asarray, tree)
