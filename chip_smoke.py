@@ -54,7 +54,26 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      ``make_train_step`` steps on batches of 4 x 4,096 synthetic tokens in
      2 microbatches with remat: losses and grad norms finite, L1 launched
      32 and L2 16 times per step; the last step under ``torch.profiler``;
-  9. summary: one JSON line ``{"kernels": [...]}`` and, last, the
+  9. L1/L3 parity at zamba2's shared attention block (MHA, H = Hkv = 32,
+     hd = 112), bf16 and fp32: causal prefill at 4,000 tokens and decode
+     over a full 4,096-slot ring, timed as in phase 5;
+ 10. L4 (ssd_chunk) and L5 (wkv6) parity, f32, against their plain
+     chunked versions at the serve path's shapes (B = 8, S = 4,096;
+     zamba2: H = 112, P = N = 64; rwkv6: H = 64, N = 64): the serve
+     path's own call (zero state, a 4,000-token prompt padded with
+     identity steps), a random state over 4,096 steps, and strong decay
+     (a ~ -2 per step for L4, log w ~ -1 for L5); each timed beside its
+     plain version and its bound;
+ 11. the hybrid serve path at full width and depth: zamba2-7b, all 81
+     Mamba2 layers and the shared block (13 applications), and
+ 12. the ssm serve path: rwkv6-7b, all 32 layers; each with the traffic
+     of phase 6 (8 x 4,000-token prompts into a 4,096-token context, 96
+     teacher-forced decode steps), exact launch counts (zamba2: L4 81, L1
+     13 per prefill, L3 13 per decode step; rwkv6: L5 32), finite logits,
+     and every step's logits of 2 sequences against the port's forward
+     through the plain kernel versions, under phase 6's limits; each model
+     is freed before the next is built;
+ 13. summary: one JSON line ``{"kernels": [...]}`` and, last, the
      ``{"ok": true, "device": {...}}`` line.
 
 Without a GPU, or without the repository's ``src/repro_torch`` beside it,
@@ -87,8 +106,10 @@ TOL = {"bmf_precision": 1e-4, "bmf_sweep": 1e-4}
 SAMPLES, BURNIN = 8, 3
 
 # the LLM serve path: Qwen3-4B at full width and depth, 8 sequences, a
-# 4,000-token prompt into a 4,096-slot cache, then 96 decode steps
+# 4,000-token prompt into a 4,096-slot cache, then 96 decode steps; the
+# recurrent families (zamba2, rwkv6) serve the same traffic
 LLM_ARCH = "qwen3_4b"
+HYBRID_ARCH, SSM_ARCH = "zamba2_7b", "rwkv6_7b"
 LLM_BATCH, LLM_PROMPT, LLM_CONTEXT = 8, 4000, 4096
 LLM_CHECK = 2              # sequences held against the plain forward
 # L1/L3 kernel vs plain version on the card, relative to the largest plain
@@ -96,15 +117,25 @@ LLM_CHECK = 2              # sequences held against the plain forward
 # bf16 from f32 values that differ in summation order, so they may land one
 # bf16 step (2^-8) apart
 ATTN_TOL = {"fp32": 1e-5, "bf16": 4e-3}
-# serve path vs the port's forward with the plain attention, both bf16:
-# max |d logit| / rms(logits) over the real vocabulary. On the H100 the
-# plain bf16 forward itself sits 0.091 from the f32 forward on the same
-# weights (bf16 roundings through 36 random layers), and the serve path
-# 0.088 from the plain bf16 forward; the limit is about twice that spread.
-LOGIT_TOL = 0.2
+# serve path vs the port's forward with the plain kernel versions, both
+# bf16: max |d logit| / rms(logits) over the real vocabulary, by model. On
+# the H100 the plain bf16 forward of Qwen3-4B itself sits 0.091 from the
+# f32 forward on the same weights (bf16 roundings through 36 random
+# layers), and the serve path 0.088 from the plain bf16 forward; the limit
+# is about twice that spread. Through zamba2-7b's 81 random layers bf16
+# rounding moves the logits further: the plain bf16 forward sits 0.400
+# from the f32 forward and the serve path 0.300 from the plain bf16
+# forward (argmax agreement 0.969), so its limit is 0.6, 1.5x bf16
+# rounding's own spread there. rwkv6-7b (0.133 and 0.217) keeps 0.2.
+LOGIT_TOL = {LLM_ARCH: 0.2, HYBRID_ARCH: 0.6, SSM_ARCH: 0.2}
 # and the serve path may be at most this much farther from the f32
 # forward than the plain bf16 forward is (measured: 0.94x)
 F32_GAP_TOL = 1.5
+
+# L4/L5 vs their plain chunked versions on the card, relative to the
+# largest plain value (y and the final state): both f32; the kernels sum
+# in 64-step chunks, the plain versions in the reference's 128-step chunks
+SCAN_TOL = 1e-4
 
 # L2 parity at the train path's attention shape; the plain version's f32
 # (S, S) tiles allow L2_CHECK sequences at a time
@@ -309,10 +340,13 @@ def _wrappers():
     from repro_torch.kernels.bmf_sweep import ops as B2
     from repro_torch.kernels.decode_attention import ops as L3
     from repro_torch.kernels.flash_attention import ops as L1
+    from repro_torch.kernels.ssd_chunk import ops as L4
+    from repro_torch.kernels.wkv6 import ops as L5
     return {"bmf_precision": B1.precision_accum, "bmf_sweep": B2.fused_sweep,
             "flash_attention": L1.flash_attention,
             "flash_attention_bwd": L1.flash_bwd,
-            "decode_attention": L3.decode_attention}
+            "decode_attention": L3.decode_attention,
+            "ssd_chunk": L4.ssd_scan, "wkv6": L5.wkv6}
 
 
 def reset_counts():
@@ -413,132 +447,312 @@ def _attn_line(name, case, dtype, err, scale, tol, ms, pms, bd, lib,
                 library_ms=lib)
 
 
+PEAK = {"fp32": FP32_FLOPS, "bf16": BF16_FLOPS}
+
+
+def _tdt(dtype):
+    import torch
+    return {"fp32": torch.float32, "bf16": torch.bfloat16}[dtype]
+
+
+def _l1_case(g, dev, case, B, S, H, Hkv, hd, causal, window, dtype,
+             tag="llm-parity"):
+    """L1 against its plain version (on the first LLM_CHECK sequences),
+    timed at the full batch beside the plain version, the bound and SDPA."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as L1
+    i = torch.arange(S, device=dev)[:, None]
+    j = torch.arange(S, device=dev)[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= j <= i
+    if window:
+        mask &= j > i - window
+    pairs = int(mask.sum())
+    q = torch.randn((B, S, H, hd), generator=g, device=dev).to(_tdt(dtype))
+    k, v = (torch.randn((B, S, Hkv, hd), generator=g,
+                        device=dev).to(_tdt(dtype)) for _ in range(2))
+
+    def kern():
+        return L1.flash_attention(q, k, v, causal=causal, window=window)
+
+    def plain():
+        return [L1.flash_attention_ref(
+            q[b:b + LLM_CHECK], k[b:b + LLM_CHECK], v[b:b + LLM_CHECK],
+            causal=causal, window=window).to(q.dtype)
+            for b in range(0, B, LLM_CHECK)]
+
+    out = kern()[:LLM_CHECK].float()
+    want = L1.flash_attention_ref(
+        q[:LLM_CHECK], k[:LLM_CHECK], v[:LLM_CHECK], causal=causal,
+        window=window).to(q.dtype).float()
+    err = float((out - want).abs().max())
+    scale = max(float(want.abs().max()), 1.0)
+    del out, want
+    ms, pms = cuda_ms(kern, 3, warmup=1), cuda_ms(plain, 1, warmup=0)
+    torch.cuda.empty_cache()
+    if window:
+        lib = _sdpa_ms(q, k, v, 3, attn_mask=mask)
+    else:
+        lib = _sdpa_ms(q, k, v, 3, is_causal=causal)
+    elt = q.element_size()
+    bd = bound(elt * (2 * q.numel() + k.numel() + v.numel()),
+               4 * B * H * hd * pairs, PEAK[dtype])
+    del q, k, v, mask
+    torch.cuda.empty_cache()
+    return _attn_line("flash_attention", case, dtype, err, scale,
+                      ATTN_TOL[dtype], ms, pms, bd, lib, tag=tag)
+
+
+def _l3_case(g, dev, case, B, S, H, Hkv, hd, window, dtype,
+             tag="llm-parity"):
+    """L3 against its plain version over a cache laid out as ``case``
+    says (full, empty-*, ring-*), timed beside the bound and SDPA."""
+    import torch
+    from repro_torch.kernels.decode_attention import ops as L3
+    from repro_torch.kernels.decode_attention.ref import slot_valid
+    if case.startswith("full"):
+        kv_pos, q_pos = torch.arange(S, device=dev), S - 1
+    elif case.startswith("empty"):
+        n = int(0.6 * S)
+        ar = torch.arange(S, device=dev)
+        kv_pos, q_pos = torch.where(ar < n, ar, -1), n - 1
+    else:
+        q_pos = 3 * S + 17
+        p = torch.arange(q_pos - S + 1, q_pos + 1, device=dev)
+        kv_pos = torch.empty(S, dtype=torch.long, device=dev)
+        kv_pos[p % S] = p
+        kv_pos[[(q_pos - 5) % S, (q_pos - S + 3) % S]] = -1
+    kv_pos = kv_pos.to(torch.int32)
+    valid = slot_valid(kv_pos, q_pos, window)
+    n_valid = int(valid.sum())
+    q = torch.randn((B, H, hd), generator=g, device=dev).to(_tdt(dtype))
+    k, v = (torch.randn((B, S, Hkv, hd), generator=g,
+                        device=dev).to(_tdt(dtype)) for _ in range(2))
+
+    def kern():
+        return L3.decode_attention(q, k, v, kv_pos, q_pos, window=window)
+
+    def plain():
+        return L3.decode_attention_ref(q, k, v, kv_pos, q_pos,
+                                       window).to(q.dtype)
+
+    out, want = kern().float(), plain().float()
+    err = float((out - want).abs().max())
+    scale = max(float(want.abs().max()), 1.0)
+    ms, pms = cuda_ms(kern, 20), cuda_ms(plain, 5)
+    lib = _sdpa_ms(q[:, None], k, v, 20,
+                   attn_mask=valid[None, None, None, :])
+    elt = q.element_size()
+    bd = bound(2 * B * Hkv * hd * elt * n_valid + 2 * q.numel() * elt
+               + 4 * S, 4 * B * H * hd * n_valid, PEAK[dtype])
+    del q, k, v
+    return _attn_line("decode_attention", case, dtype, err, scale,
+                      ATTN_TOL[dtype], ms, pms, bd, lib, tag=tag)
+
+
 def phase_llm_parity(dev):
     """L1 and L3 against their plain versions at the serve path's shapes."""
     import torch
     from repro_torch.configs.base import get_config
-    from repro_torch.kernels.decode_attention import ops as L3
-    from repro_torch.kernels.decode_attention.ref import slot_valid
-    from repro_torch.kernels.flash_attention import ops as L1
     cfg = get_config(LLM_ARCH)
     B, H, Hkv, hd = LLM_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     g = torch.Generator(device=dev).manual_seed(0)
     results = {"flash_attention": [], "decode_attention": []}
-    peak = {"fp32": FP32_FLOPS, "bf16": BF16_FLOPS}
-    tdt = {"fp32": torch.float32, "bf16": torch.bfloat16}
-
     for case, S, causal, window in (("causal-4000", LLM_PROMPT, True, 0),
                                     ("window1024-4000", LLM_PROMPT, True,
                                      1024),
                                     ("noncausal-4096", LLM_CONTEXT, False,
                                      0)):
-        i = torch.arange(S, device=dev)[:, None]
-        j = torch.arange(S, device=dev)[None, :]
-        mask = torch.ones((S, S), dtype=torch.bool, device=dev)
-        if causal:
-            mask &= j <= i
-        if window:
-            mask &= j > i - window
-        pairs = int(mask.sum())
         for dtype in ("bf16", "fp32"):
-            q = torch.randn((B, S, H, hd), generator=g,
-                            device=dev).to(tdt[dtype])
-            k, v = (torch.randn((B, S, Hkv, hd), generator=g,
-                                device=dev).to(tdt[dtype]) for _ in range(2))
-
-            def kern():
-                return L1.flash_attention(q, k, v, causal=causal,
-                                          window=window)
-
-            def plain():
-                return [L1.flash_attention_ref(
-                    q[b:b + LLM_CHECK], k[b:b + LLM_CHECK],
-                    v[b:b + LLM_CHECK], causal=causal,
-                    window=window).to(q.dtype) for b in range(0, B, LLM_CHECK)]
-
-            out = kern()[:LLM_CHECK].float()
-            want = L1.flash_attention_ref(
-                q[:LLM_CHECK], k[:LLM_CHECK], v[:LLM_CHECK], causal=causal,
-                window=window).to(q.dtype).float()
-            err = float((out - want).abs().max())
-            scale = max(float(want.abs().max()), 1.0)
-            del out, want
-            ms, pms = cuda_ms(kern, 3, warmup=1), cuda_ms(plain, 1, warmup=0)
-            torch.cuda.empty_cache()
-            if window:
-                lib = _sdpa_ms(q, k, v, 3, attn_mask=mask)
-            else:
-                lib = _sdpa_ms(q, k, v, 3, is_causal=causal)
-            elt = q.element_size()
-            bd = bound(elt * (2 * q.numel() + k.numel() + v.numel()),
-                       4 * B * H * hd * pairs, peak[dtype])
-            results["flash_attention"].append(_attn_line(
-                "flash_attention", case, dtype, err, scale, ATTN_TOL[dtype],
-                ms, pms, bd, lib))
-            del q, k, v
-            torch.cuda.empty_cache()
-
-    S_full = LLM_CONTEXT
-    for case, S, window in (("full-4096", S_full, 0),
+            results["flash_attention"].append(_l1_case(
+                g, dev, case, B, S, H, Hkv, hd, causal, window, dtype))
+    for case, S, window in (("full-4096", LLM_CONTEXT, 0),
                             ("empty-ragged-4033", 4033, 0),
-                            ("ring-window1000-4096", S_full, 1000)):
-        if case.startswith("full"):
-            kv_pos, q_pos = torch.arange(S, device=dev), S - 1
-        elif case.startswith("empty"):
-            n = int(0.6 * S)
-            ar = torch.arange(S, device=dev)
-            kv_pos, q_pos = torch.where(ar < n, ar, -1), n - 1
-        else:
-            q_pos = 3 * S + 17
-            p = torch.arange(q_pos - S + 1, q_pos + 1, device=dev)
-            kv_pos = torch.empty(S, dtype=torch.long, device=dev)
-            kv_pos[p % S] = p
-            kv_pos[[(q_pos - 5) % S, (q_pos - S + 3) % S]] = -1
-        kv_pos = kv_pos.to(torch.int32)
-        valid = slot_valid(kv_pos, q_pos, window)
-        n_valid = int(valid.sum())
+                            ("ring-window1000-4096", LLM_CONTEXT, 1000)):
         for dtype in ("bf16", "fp32"):
-            q = torch.randn((B, H, hd), generator=g, device=dev).to(tdt[dtype])
-            k, v = (torch.randn((B, S, Hkv, hd), generator=g,
-                                device=dev).to(tdt[dtype]) for _ in range(2))
-
-            def kern():
-                return L3.decode_attention(q, k, v, kv_pos, q_pos,
-                                           window=window)
-
-            def plain():
-                return L3.decode_attention_ref(q, k, v, kv_pos, q_pos,
-                                               window).to(q.dtype)
-
-            out, want = kern().float(), plain().float()
-            err = float((out - want).abs().max())
-            scale = max(float(want.abs().max()), 1.0)
-            ms, pms = cuda_ms(kern, 20), cuda_ms(plain, 5)
-            lib = _sdpa_ms(q[:, None], k, v, 20,
-                           attn_mask=valid[None, None, None, :])
-            elt = q.element_size()
-            bd = bound(2 * B * Hkv * hd * elt * n_valid + 2 * q.numel() * elt
-                       + 4 * S, 4 * B * H * hd * n_valid, peak[dtype])
-            results["decode_attention"].append(_attn_line(
-                "decode_attention", case, dtype, err, scale, ATTN_TOL[dtype],
-                ms, pms, bd, lib))
-            del q, k, v
+            results["decode_attention"].append(_l3_case(
+                g, dev, case, B, S, H, Hkv, hd, window, dtype))
     torch.cuda.empty_cache()
     return results
 
 
-def phase_llm_serve(dev):
-    """Qwen3-4B at full width and depth: prefill, 96 decode steps, and the
-    logits of 2 sequences against the plain forward."""
+def phase_hd112_parity(dev):
+    """L1 and L3 at zamba2's shared attention block (MHA, H = Hkv = 32,
+    hd = 112): causal prefill at 4,000 tokens, decode over a full
+    4,096-slot ring."""
+    import torch
+    from repro_torch.configs.base import get_config
+    cfg = get_config(HYBRID_ARCH)
+    B, H, Hkv, hd = LLM_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    g = torch.Generator(device=dev).manual_seed(2)
+    results = {"flash_attention": [], "decode_attention": []}
+    for dtype in ("bf16", "fp32"):
+        results["flash_attention"].append(_l1_case(
+            g, dev, "hd112-causal-4000", B, LLM_PROMPT, H, Hkv, hd, True, 0,
+            dtype, tag="hd112-parity"))
+    for dtype in ("bf16", "fp32"):
+        results["decode_attention"].append(_l3_case(
+            g, dev, "hd112-full-4096", B, LLM_CONTEXT, H, Hkv, hd, 0, dtype,
+            tag="hd112-parity"))
+    torch.cuda.empty_cache()
+    return results
+
+
+def _scan_inputs(g, dev, name, B, S, H, N, P, case):
+    """Inputs of L4 (``name`` "ssd_chunk": xdt, a, B, C, state0) or L5
+    ("wkv6": r, k, v, logw, u, state0) at the serve path's shape, f32,
+    with the decay of zamba2's and rwkv6's random layers. ``case`` asks
+    for a zero state0 ("zero"; else random), 96 identity steps at the end
+    ("padded": a 4,000-token prompt padded as the mixers pad it, the serve
+    path's own call) or strong decay ("strong")."""
+    import torch
+    import torch.nn.functional as F
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    if name == "ssd_chunk":
+        dt = F.softplus(randn(B, S, H, scale=0.5) - 2.0)   # dt_bias = -2
+        if case.startswith("strong"):
+            a = -2.0 + randn(B, S, H, scale=0.1)
+        else:
+            a = -torch.linspace(1.0, 16.0, H, device=dev) * dt
+        seq = [randn(B, S, H, P) * dt[..., None], a, randn(B, S, N),
+               randn(B, S, N)]
+        state = randn(B, H, P, N, scale=0.1)
+        extra = []
+    else:
+        logw = (-1.0 + randn(B, S, H, N, scale=0.1) if case.startswith(
+            "strong") else -torch.exp(randn(B, S, H, N) - 3.0))
+        seq = [randn(B, S, H, N), randn(B, S, H, N, scale=0.5),
+               randn(B, S, H, N), logw]
+        state = randn(B, H, N, N, scale=0.1)
+        extra = [randn(H, N, scale=0.1)]
+    if "zero" in case:
+        state.zero_()
+    if "padded" in case:
+        for t in seq:
+            t[:, LLM_PROMPT:] = 0.0
+    return seq + extra + [state]
+
+
+def phase_scan_parity(dev):
+    """L4 and L5 against their plain chunked versions, f32, at the serve
+    path's shapes (B = 8, S = 4,096; zamba2: H = 112, P = N = 64; rwkv6:
+    H = 64, N = 64), timed beside the bound and the plain version."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.ssd_chunk import ops as L4
+    from repro_torch.kernels.ssd_chunk.ref import ssd_chunked
+    from repro_torch.kernels.wkv6 import ops as L5
+    from repro_torch.kernels.wkv6.ref import wkv_chunked
+    hyb, ssm = get_config(HYBRID_ARCH), get_config(SSM_ARCH)
+    B, S = LLM_BATCH, LLM_CONTEXT
+    shapes = {
+        "ssd_chunk": (L4.ssd_scan, ssd_chunked,
+                      hyb.ssm_expand * hyb.d_model // hyb.ssm_head_dim,
+                      hyb.ssm_state, hyb.ssm_head_dim),
+        "wkv6": (L5.wkv6, wkv_chunked, ssm.d_model // ssm.wkv_head_dim,
+                 ssm.wkv_head_dim, ssm.wkv_head_dim)}
+    g = torch.Generator(device=dev).manual_seed(3)
+    results = {name: [] for name in shapes}
+    for name, (kern_fn, plain_fn, H, N, P) in shapes.items():
+        for case in ("state0-zero-4000-padded", "state0-random-4096",
+                     "strong-decay-4096"):
+            args = _scan_inputs(g, dev, name, B, S, H, N, P, case)
+            got, want = kern_fn(*args), plain_fn(*args)
+            finite = all(bool(torch.isfinite(t).all()) for t in got)
+            err, scale = _rel_err(got, want)
+            del got, want
+            ms = cuda_ms(lambda: kern_fn(*args), 5)
+            pms = cuda_ms(lambda: plain_fn(*args), 1, warmup=0)
+            # each input read once, y and the state written once; the
+            # recurrence's own operations: per step and head 2 P N for the
+            # state update and 2 P N for y_t (the sequential form, the
+            # least any scan does; the chunked forms do more)
+            n_bytes = 4 * (sum(t.numel() for t in args) + args[0].numel()
+                           + args[-1].numel())
+            bd = bound(n_bytes, 4 * B * S * H * P * N)
+            ok = finite and err <= SCAN_TOL * scale
+            log(f"[scan-parity] {name} {case} fp32: max_abs_err {err:.3e} "
+                f"(tolerance {SCAN_TOL:.0e} x {scale:.3g} = "
+                f"{SCAN_TOL * scale:.3e}) {'ok' if ok else 'FAIL'}; kernel "
+                f"{ms:.3f} ms, plain {pms:.3f} ms, bound {bd[0]:.4f} ms "
+                f"({bd[1]}), library none")
+            if not ok:
+                raise AssertionError(f"{name} {case} disagrees with its "
+                                     "plain version")
+            results[name].append(dict(case=case, dtype="fp32",
+                                      max_abs_err=err, ms=ms, plain_ms=pms,
+                                      bound_ms=bd[0], bound_by=bd[1],
+                                      library_ms=None))
+            del args
+            torch.cuda.empty_cache()
+    return results
+
+
+def _describe(cfg):
+    if cfg.family == "ssm":
+        mix = f"{cfg.d_model // cfg.wkv_head_dim} WKV heads of " \
+              f"{cfg.wkv_head_dim}, d_ff {cfg.d_ff}"
+    else:
+        mix = f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}"
+        if cfg.family == "hybrid":
+            d_in = cfg.ssm_expand * cfg.d_model
+            mix += (f" (shared block after every {cfg.shared_attn_period} "
+                    f"layers), d_inner {d_in}, {d_in // cfg.ssm_head_dim} "
+                    f"SSM heads of {cfg.ssm_head_dim}, state "
+                    f"{cfg.ssm_state}")
+    return (f"{cfg.name} ({cfg.family}): {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, {mix}, vocab {cfg.vocab_size} (padded "
+            f"{cfg.padded_vocab_size})")
+
+
+def _expected_launches(cfg, n_steps):
+    """The kernels the serve path must launch, by family: L1 per
+    attention layer in prefill, L3 per attention layer and decode step,
+    L4 / L5 per recurrent layer in prefill; nothing else."""
+    counts = {name: 0 for name in _wrappers()}
+    n_attn = {"dense": cfg.n_layers,
+              "hybrid": cfg.n_layers // max(cfg.shared_attn_period, 1),
+              "ssm": 0}[cfg.family]
+    counts["flash_attention"] = n_attn
+    counts["decode_attention"] = n_attn * n_steps
+    if cfg.family == "hybrid":
+        counts["ssd_chunk"] = cfg.n_layers
+    if cfg.family == "ssm":
+        counts["wkv6"] = cfg.n_layers
+    return counts
+
+
+def _tensor_bytes(tree):
+    import torch
+    if isinstance(tree, dict):
+        return sum(_tensor_bytes(v) for v in tree.values())
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return 0
+
+
+def phase_serve(dev, arch, tag):
+    """One model at full width and depth: prefill of 8 x 4,000 tokens into
+    a 4,096-token context, 96 teacher-forced decode steps, exact launch
+    counts, and the logits of 2 sequences against the port's forward over
+    all 4,096 tokens through the plain kernel versions."""
     import torch
     from unittest import mock
     from repro_torch.configs.base import InputShape, get_config
     from repro_torch.data.tokens import synthetic_token_batches
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.ssd_chunk.ref import ssd_chunked
+    from repro_torch.kernels.wkv6.ref import wkv_chunked
     from repro_torch.models import layers as LY
+    from repro_torch.models import mamba2 as M2
     from repro_torch.models import model as LM
+    from repro_torch.models import rwkv6 as R6
     from repro_torch.models import steps as ST
-    cfg = get_config(LLM_ARCH)
+    cfg = get_config(arch)
     t0 = time.time()
     params = LM.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                             dev)
@@ -548,12 +762,9 @@ def phase_llm_serve(dev):
     t1 = time.time()
     tokens = next(synthetic_token_batches(cfg, LLM_BATCH, LLM_CONTEXT,
                                           seed=0, device=dev))["tokens"]
-    log(f"[llm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, vocab "
-        f"{cfg.vocab_size} (padded {cfg.padded_vocab_size}); {n_params} "
-        f"parameters, {w_bytes / 1e9:.2f} GB of weights made in "
-        f"{t1 - t0:.1f}s; tokens {tuple(tokens.shape)} in "
-        f"{time.time() - t1:.1f}s")
+    log(f"[{tag}] {_describe(cfg)}; {n_params} parameters, "
+        f"{w_bytes / 1e9:.2f} GB of weights made in {t1 - t0:.1f}s; tokens "
+        f"{tuple(tokens.shape)} in {time.time() - t1:.1f}s")
 
     prefill_step = ST.make_prefill_step(
         cfg, InputShape("serve_4k", LLM_CONTEXT, LLM_BATCH, "prefill"))
@@ -565,8 +776,7 @@ def phase_llm_serve(dev):
     logits, cache = prefill_step(params, {"tokens": tokens[:, :LLM_PROMPT]})
     torch.cuda.synchronize()
     prefill_s = time.time() - t0
-    cache_bytes = sum(t.numel() * t.element_size()
-                      for t in cache["attn"].values())
+    cache_bytes = _tensor_bytes(cache)
     kept = [logits[:LLM_CHECK, 0].clone()]
     finite = torch.isfinite(logits).all()
     t0 = time.time()
@@ -579,18 +789,20 @@ def phase_llm_serve(dev):
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     n_steps = LLM_CONTEXT - LLM_PROMPT
-    log(f"[llm-serve] prefill {LLM_BATCH} x {LLM_PROMPT} tokens: "
+    log(f"[{tag}-serve] prefill {LLM_BATCH} x {LLM_PROMPT} tokens: "
         f"{prefill_s:.3f}s, {LLM_BATCH * LLM_PROMPT / prefill_s:.4g} "
         f"tokens/s; decode {n_steps} steps: {decode_s:.3f}s, "
         f"{1e3 * decode_s / n_steps:.3f} ms/step, "
         f"{LLM_BATCH * n_steps / decode_s:.4g} tokens/s; cache "
         f"{cache_bytes / 1e9:.2f} GB; peak device memory "
         f"{peak / 1e9:.2f} GB; launches {counts}")
-    assert bool(finite), "non-finite logits on the serve path"
+    assert bool(finite), f"{arch}: non-finite logits on the serve path"
     assert cache["pos"] == LLM_CONTEXT
-    assert counts["flash_attention"] == cfg.n_layers, counts
-    assert counts["decode_attention"] == cfg.n_layers * n_steps, counts
-    profile_decode(serve_step, params, cache, tokens)
+    want = _expected_launches(cfg, n_steps)
+    assert counts == want, f"{arch}: launches {counts}, expected {want}"
+    # the profiled steps re-run the last decode steps: the recurrent state
+    # moves on, and nothing reads it afterwards
+    profile_decode(serve_step, params, cache, tokens, tag)
     del cache, logits
     torch.cuda.empty_cache()
 
@@ -599,13 +811,16 @@ def phase_llm_serve(dev):
                                    window=window).to(q.dtype)
 
     # the reference: the port's forward over all 4,096 tokens with the
-    # plain attention, in bf16 as served, and in f32 on the same (bf16)
-    # weights, which shows how far bf16 rounding alone moves the logits
+    # plain kernel versions, in bf16 as served, and in f32 on the same
+    # (bf16) weights, which shows how far bf16 rounding alone moves the
+    # logits
     V = cfg.vocab_size
     got = torch.stack(kept, dim=1)[..., :V]
     refs = {}
     t0 = time.time()
-    with mock.patch.object(LY, "flash_attention", plain_attention):
+    with mock.patch.object(LY, "flash_attention", plain_attention), \
+            mock.patch.object(M2, "ssd_scan", ssd_chunked), \
+            mock.patch.object(R6, "wkv6", wkv_chunked):
         for name, c in (("bf16", cfg),
                         ("f32", dataclasses.replace(cfg, dtype="float32"))):
             full, _ = LM.forward(params, c, {"tokens": tokens[:LLM_CHECK]})
@@ -622,22 +837,25 @@ def phase_llm_serve(dev):
     ratio, per_step, agree, rms = compare(got, refs["bf16"])
     r_k32, _, a_k32, _ = compare(got, refs["f32"])
     r_p32, _, a_p32, _ = compare(refs["bf16"], refs["f32"])
-    log(f"[llm-serve] vs the plain forward over {LLM_CONTEXT} tokens "
+    log(f"[{tag}-serve] vs the plain forward over {LLM_CONTEXT} tokens "
         f"({LLM_CHECK} sequences, {time.time() - t0:.1f}s): max |d logit| / "
-        f"rms(logits) {ratio:.4g} (rms {rms:.4g}; limit {LOGIT_TOL}); "
+        f"rms(logits) {ratio:.4g} (rms {rms:.4g}; limit {LOGIT_TOL[arch]}); "
         f"prefill step {float(per_step[0]):.4g}, decode steps max "
         f"{float(per_step[1:].max()):.4g} median "
         f"{float(per_step[1:].median()):.4g}; argmax agreement {agree:.4f}. "
         f"Against the f32 forward: serve path {r_k32:.4g} (argmax "
         f"{a_k32:.4f}; limit {F32_GAP_TOL} x the plain bf16 forward's), "
         f"plain bf16 forward {r_p32:.4g} (argmax {a_p32:.4f})")
-    assert ratio <= LOGIT_TOL, "serve path disagrees with the plain forward"
+    assert ratio <= LOGIT_TOL[arch], \
+        f"{arch}: serve path disagrees with the plain forward"
     assert r_k32 <= F32_GAP_TOL * r_p32, \
-        "serve path is farther from the f32 forward than bf16 rounding"
+        f"{arch}: serve path is farther from the f32 forward than bf16 rounding"
+    del params, refs, got, kept
+    torch.cuda.empty_cache()
     return counts
 
 
-def profile_decode(serve_step, params, cache, tokens, n=3):
+def profile_decode(serve_step, params, cache, tokens, tag, n=3):
     """Re-run the last ``n`` decode steps (the cache is rewound; the same
     tokens rewrite the same slots) under ``torch.profiler``: device time
     by kernel and the device's busy share of the wall."""
@@ -663,11 +881,11 @@ def profile_decode(serve_step, params, cache, tokens, n=3):
         kernels[ev.key] = (us, ev.count)
     busy = sum(us for us, _ in kernels.values()) / 1e3
     if not kernels:
-        log("[llm-profile] the profiler recorded no device time: device "
+        log(f"[{tag}-profile] the profiler recorded no device time: device "
             "busy share not measured")
         return
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
-    log(f"[llm-profile] {n} decode steps under the profiler: wall "
+    log(f"[{tag}-profile] {n} decode steps under the profiler: wall "
         f"{1e3 * wall / n:.3f} ms/step, device busy {busy / n:.3f} ms/step "
         f"({100 * busy / (1e3 * wall):.1f}% of the wall), "
         f"{sum(c for _, c in kernels.values()) // n} kernels/step; top: "
@@ -727,8 +945,6 @@ def phase_l2_parity(dev):
     B, S, C = L2_BATCH, L2_SEQ, L2_CHECK
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     g = torch.Generator(device=dev).manual_seed(1)
-    peak = {"fp32": FP32_FLOPS, "bf16": BF16_FLOPS}
-    tdt = {"fp32": torch.float32, "bf16": torch.bfloat16}
     results = []
     for case, causal, window in (("causal-4096", True, 0),
                                  ("window1024-4096", True, 1024),
@@ -737,9 +953,9 @@ def phase_l2_parity(dev):
         pairs = int(mask.sum())
         for dtype in ("bf16", "fp32"):
             q, do = (torch.randn((B, S, H, hd), generator=g, device=dev)
-                     .to(tdt[dtype]) for _ in range(2))
+                     .to(_tdt(dtype)) for _ in range(2))
             k, v = (torch.randn((B, S, Hkv, hd), generator=g, device=dev)
-                    .to(tdt[dtype]) for _ in range(2))
+                    .to(_tdt(dtype)) for _ in range(2))
             o, lse = L1.flash_attention(q, k, v, causal=causal,
                                         window=window, return_lse=True)
             _, lse_p = flash_attention_ref(q[:C], k[:C], v[:C],
@@ -785,7 +1001,7 @@ def phase_l2_parity(dev):
             n_bytes = (elt * (3 * q.numel() + 2 * k.numel())
                        + 2 * 4 * lse.numel()
                        + elt * (q.numel() + 2 * k.numel()))
-            bd = bound(n_bytes, 10 * hd * H * B * pairs, peak[dtype])
+            bd = bound(n_bytes, 10 * hd * H * B * pairs, PEAK[dtype])
             tol = _limit(L2_TOL[dtype], scale, dtype) / scale
             results.append(_attn_line(
                 "flash_attention_bwd", case, dtype, err, scale, tol, ms,
@@ -796,9 +1012,9 @@ def phase_l2_parity(dev):
     # end to end: L1 forward + L2 backward through the autograd Function
     # against autograd through the plain attention, one sequence, do fixed
     for dtype in ("bf16", "fp32"):
-        q = torch.randn((1, S, H, hd), generator=g, device=dev).to(tdt[dtype])
+        q = torch.randn((1, S, H, hd), generator=g, device=dev).to(_tdt(dtype))
         k, v = (torch.randn((1, S, Hkv, hd), generator=g, device=dev)
-                .to(tdt[dtype]) for _ in range(2))
+                .to(_tdt(dtype)) for _ in range(2))
         do = torch.randn((1, S, H, hd), generator=g, device=dev)
 
         def grads(attend):
@@ -1048,16 +1264,27 @@ def main():
     del train, test, test_p, part
     torch.cuda.empty_cache()
     llm_parity = phase_llm_parity(dev)
-    llm_counts = phase_llm_serve(dev)
+    llm_counts = phase_serve(dev, LLM_ARCH, "llm")
     launches.update({n: llm_counts[n] for n in llm_parity})
     llm_parity["flash_attention_bwd"] = phase_l2_parity(dev)
     train_counts = phase_llm_train(dev)
     launches["flash_attention_bwd"] = train_counts["flash_attention_bwd"]
+    for name, cases in phase_hd112_parity(dev).items():
+        llm_parity[name] += cases
+    llm_parity.update(phase_scan_parity(dev))
+    hybrid_counts = phase_serve(dev, HYBRID_ARCH, "zamba2")
+    ssm_counts = phase_serve(dev, SSM_ARCH, "rwkv6")
+    launches["ssd_chunk"] = hybrid_counts["ssd_chunk"]
+    launches["wkv6"] = ssm_counts["wkv6"]
     by_path = {"flash_attention": {
                    "serve": llm_counts["flash_attention"],
+                   "serve_zamba2": hybrid_counts["flash_attention"],
                    "train": train_counts["flash_attention"]},
                "flash_attention_bwd": {
-                   "train": train_counts["flash_attention_bwd"]}}
+                   "train": train_counts["flash_attention_bwd"]},
+               "decode_attention": {
+                   "serve": llm_counts["decode_attention"],
+                   "serve_zamba2": hybrid_counts["decode_attention"]}}
 
     meta = {
         "bmf_precision": dict(
@@ -1087,9 +1314,15 @@ def main():
         "decode_attention": dict(
             source="src/repro_torch/csrc/decode_attention.cu",
             replaces="src/repro/kernels/decode_attention/kernel.py:70"),
+        "ssd_chunk": dict(
+            source="src/repro_torch/csrc/ssd_chunk.cu",
+            replaces="src/repro/kernels/ssd_chunk/kernel.py:56"),
+        "wkv6": dict(
+            source="src/repro_torch/csrc/wkv6.cu",
+            replaces="src/repro/kernels/wkv6/kernel.py:65"),
     }
     for name, m in llm_meta.items():
-        main_case = llm_parity[name][0]        # the path's shape, in bf16
+        main_case = llm_parity[name][0]   # the path's shape (L1-L3 bf16)
         kernels.append(dict(
             name=name, route="cuda", source=m["source"],
             replaces=m["replaces"], launches=launches[name],

@@ -4,8 +4,8 @@ The port's own copy of the reference's ``repro/configs/base.py``
 (``ArchConfig``, ``InputShape``, ``TrainConfig``, ``smoke_variant``, the
 analytic parameter count), so that the port imports nothing of
 ``repro``. Every architecture lives in its own module (``configs/<id>.py``) exporting
-``CONFIG``. ``get_config`` resolves the dense family, the one whose
-serving path the port runs; the other families raise
+``CONFIG``. ``get_config`` resolves the families whose serving path the
+port runs (dense, hybrid, ssm); the other families raise
 ``NotImplementedError`` naming the ROADMAP step that ports them.
 """
 from __future__ import annotations
@@ -216,11 +216,10 @@ ARCH_IDS = (
 )
 
 DENSE_IDS = ("qwen3_4b", "llama3_8b", "minitron_8b", "chatglm3_6b")
+RECURRENT_IDS = ("zamba2_7b", "rwkv6_7b")
 
-# the ROADMAP step (section A) that ports each family outside the dense one
+# the ROADMAP step (section A) that ports each family not ported yet
 NOT_PORTED = {
-    "zamba2_7b": "hybrid family (mamba2 + kernel L4 ssd_chunk), ROADMAP A.17",
-    "rwkv6_7b": "ssm family (rwkv6 + kernel L5 wkv6), ROADMAP A.18",
     "granite_moe_1b_a400m": "moe family, ROADMAP A.20",
     "mixtral_8x7b": "moe family, ROADMAP A.20",
     "whisper_medium": "audio family (layernorm, cross-attention), "

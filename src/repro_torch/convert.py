@@ -7,9 +7,10 @@ The reference's state types are NamedTuples (``RowGaussians``,
 field name to numpy array (e.g. ``{k: np.asarray(v) for k, v in
 jax_obj._asdict().items()}``) on a device; ``to_numpy`` turns any of the
 port's objects back into nested dicts of numpy arrays. The LLM stack's
-parameters travel as the reference's ``init_params`` pytree of numpy
-arrays (``llm_params_from_numpy`` / ``llm_params_to_numpy``), in the
-serving layout (the ``_cast_tree`` rule) or the f32 training layout, and
+parameters (dense, hybrid and ssm families) travel as the reference's
+``init_params`` pytree of numpy arrays (``llm_params_from_numpy`` /
+``llm_params_to_numpy``), in the serving layout (the ``_cast_tree`` rule)
+or the f32 training layout (dense), and
 so does AdamW's state (``adamw_state_from_numpy`` / ``adamw_state_to_numpy``:
 ``step``, ``mu``, ``nu`` with ``mu``/``nu`` in the parameters' tree).
 Nothing here imports JAX.
@@ -27,7 +28,6 @@ from repro_torch.core.bmf import BMFConfig
 from repro_torch.core.gibbs import GibbsAccumulators
 from repro_torch.core.posterior import NormalWishart, RowGaussians
 from repro_torch.data.sparse import PaddedCSR
-from repro_torch.models import layers as LY
 from repro_torch.models import model as LM
 from repro_torch.optim import adamw as ADAMW
 
@@ -104,101 +104,88 @@ def to_numpy(obj):
     return obj
 
 
-def _llm_tensor(a, cfg: ArchConfig, device, train: bool):
-    """Serving (``train=False``): the reference's ``_cast_tree`` rule, an
-    f32 array with ndim >= 2 and more than ``CAST_MIN_SIZE`` elements goes
-    to ``cfg.dtype`` and everything else stays as it is; applied to the
-    stacked (L, …) arrays, as the reference applies it, before they are
-    split per layer. Training: every array stays as it is (f32)."""
-    a = np.asarray(a)
-    t = tensor(a, device)
-    if (not train and a.dtype == np.float32 and a.ndim >= 2
-            and a.size > LM.CAST_MIN_SIZE):
-        t = t.to(LM.compute_dtype(cfg))
-    return t
+def _tree_path(name: str):
+    """(path in the reference's pytree, layer index or None) of one
+    ``CausalLM`` parameter name: ``table``/``unembed`` live under
+    ``embed``, ``blocks.<i>.<path>`` is row i of the stacked ``blocks``
+    array at ``<path>``, any other name is its own path."""
+    parts = name.split(".")
+    if parts[0] in ("table", "unembed"):
+        return ["embed", parts[0]], None
+    if parts[0] == "blocks":
+        return ["blocks"] + parts[2:], int(parts[1])
+    return parts, None
 
 
 def llm_params_from_numpy(tree: Mapping[str, Any], cfg: ArchConfig,
                           device=None, *, train: bool = False
-                          ) -> "LM.DenseLM":
-    """The port's ``DenseLM`` from the reference's dense ``init_params``
-    pytree as numpy (``jax.tree.map(np.asarray, params)``), whose
-    ``blocks`` hold stacked (L, …) arrays. ``train`` picks the storage as
-    ``model.init_params`` does: f32 with gradient, or the serving cast
-    without."""
+                          ) -> "LM.CausalLM":
+    """The port's ``CausalLM`` from the reference's ``init_params`` pytree
+    as numpy (``jax.tree.map(np.asarray, params)``) of a dense, hybrid or
+    ssm config, whose ``blocks`` hold stacked (L, …) arrays. ``train``
+    picks the storage as ``model.init_params`` does: f32 with gradient
+    (dense only), or the serving cast without: the reference's
+    ``_cast_tree`` rule (``model.serve_dtype``), an f32 array with
+    ndim >= 2 and more than ``CAST_MIN_SIZE`` elements goes to
+    ``cfg.dtype``, applied to the stacked arrays, as the reference applies
+    it, before they are split per layer."""
     dev = resolve_device(device)
+    if train and cfg.family != "dense":
+        raise NotImplementedError(
+            f"training the {cfg.family} family is not ported (ROADMAP A.20)")
 
-    def get(*path):
+    def param(name, shape):
+        path, layer = _tree_path(name)
         node = tree
         for p in path:
             node = node[p]
-        return _llm_tensor(node, cfg, dev, train)
+        a = np.asarray(node)
+        if layer is not None and a.shape[0] != cfg.n_layers:
+            raise ValueError(f"{'/'.join(path)} has {a.shape[0]} layers, "
+                             f"cfg {cfg.n_layers}")
+        dtype = None
+        if not train and a.dtype == np.float32:
+            dtype = LM.serve_dtype(a.shape, cfg)
+        if layer is not None:
+            a = a[layer]
+        if a.shape != tuple(shape):
+            raise ValueError(f"{name}: shape {a.shape}, expected {shape}")
+        return tensor(a, dev, dtype)
 
-    emb = tree["embed"]
-    unembed = get("embed", "unembed") if "unembed" in emb else None
-    stacked = {
-        "ln1": get("blocks", "ln1", "scale"),
-        "ln2": get("blocks", "ln2", "scale"),
-        **{n: get("blocks", "attn", n) for n in ("wq", "wk", "wv", "wo")},
-        **{n: get("blocks", "mlp", n) for n in ("w_gate", "w_up",
-                                                 "w_down")},
-    }
-    if cfg.qk_norm:
-        stacked["q_norm"] = get("blocks", "attn", "q_norm", "scale")
-        stacked["k_norm"] = get("blocks", "attn", "k_norm", "scale")
-    n_layers = stacked["wq"].shape[0]
-    if n_layers != cfg.n_layers:
-        raise ValueError(f"tree has {n_layers} layers, cfg {cfg.n_layers}")
-    blocks = []
-    for i in range(n_layers):
-        w = {n: t[i] for n, t in stacked.items()}
-        attn = LY.Attention(cfg, w["wq"], w["wk"], w["wv"], w["wo"],
-                            w.get("q_norm"), w.get("k_norm"))
-        mlp = LY.SwiGLU(w["w_gate"], w["w_up"], w["w_down"])
-        blocks.append(LM.DenseBlock(cfg, w["ln1"], attn, w["ln2"], mlp))
-    return LM.DenseLM(cfg, get("embed", "table"), unembed,
-                      get("final_norm", "scale"), blocks).requires_grad_(train)
+    return LM.build(cfg, param).requires_grad_(train)
 
 
-def _llm_tree(named: Mapping[str, torch.Tensor], cfg: ArchConfig,
-              n_layers: int) -> Dict[str, Any]:
+def _llm_tree(named: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """The reference's pytree layout, with stacked (L, …) blocks, of one
-    tensor per ``DenseLM`` parameter name, as f32 numpy arrays."""
-    def arr(name):
-        return named[name].detach().float().cpu().numpy()
-
-    def stack(name):
-        return np.stack([arr(f"blocks.{i}.{name}") for i in range(n_layers)])
-
-    attn = {n: stack(f"attn.{n}") for n in ("wq", "wk", "wv", "wo")}
-    if cfg.qk_norm:
-        attn["q_norm"] = {"scale": stack("attn.q_norm.scale")}
-        attn["k_norm"] = {"scale": stack("attn.k_norm.scale")}
-    embed = {"table": arr("table")}
-    if "unembed" in named:
-        embed["unembed"] = arr("unembed")
-    return {
-        "embed": embed,
-        "final_norm": {"scale": arr("final_norm.scale")},
-        "blocks": {
-            "ln1": {"scale": stack("ln1.scale")},
-            "attn": attn,
-            "ln2": {"scale": stack("ln2.scale")},
-            "mlp": {n: stack(f"mlp.{n}") for n in ("w_gate", "w_up",
-                                                    "w_down")},
-        },
-    }
+    tensor per ``CausalLM`` parameter name, as f32 numpy arrays."""
+    tree: Dict[str, Any] = {}
+    stacked: Dict[tuple, Dict[int, np.ndarray]] = {}
+    for name, t in named.items():
+        path, layer = _tree_path(name)
+        arr = t.detach().float().cpu().numpy()
+        if layer is None:
+            _put(tree, path, arr)
+        else:
+            stacked.setdefault(tuple(path), {})[layer] = arr
+    for path, rows in stacked.items():
+        _put(tree, list(path), np.stack([rows[i] for i in sorted(rows)]))
+    return tree
 
 
-def llm_params_to_numpy(params: "LM.DenseLM") -> Dict[str, Any]:
+def _put(tree, path, value):
+    for p in path[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[path[-1]] = value
+
+
+def llm_params_to_numpy(params: "LM.CausalLM") -> Dict[str, Any]:
     """The inverse of ``llm_params_from_numpy``: the reference's pytree
     layout with stacked (L, …) blocks, as f32 numpy arrays."""
-    return _llm_tree(dict(params.named_parameters()), params.cfg,
-                     len(params.blocks))
+    return _llm_tree(dict(params.named_parameters()))
 
 
 def adamw_state_from_numpy(fields: Mapping[str, Any],
-                           params: "LM.DenseLM") -> "ADAMW.AdamWState":
+                           params: "LM.CausalLM") -> "ADAMW.AdamWState":
     """The port's ``AdamWState`` for ``params`` from the reference's
     ``AdamWState`` as numpy (``step`` and the ``mu``/``nu`` pytrees, each in
     the parameters' layout), f32 on the parameters' device."""
@@ -218,10 +205,8 @@ def adamw_state_from_numpy(fields: Mapping[str, Any],
 
 
 def adamw_state_to_numpy(state: "ADAMW.AdamWState",
-                         params: "LM.DenseLM") -> Dict[str, Any]:
+                         params: "LM.CausalLM") -> Dict[str, Any]:
     """The inverse of ``adamw_state_from_numpy``: ``step`` (int32) and
     ``mu``/``nu`` in the reference's pytree layout, as f32 numpy."""
-    n_layers = len(params.blocks)
-    return {"step": np.int32(state.step),
-            "mu": _llm_tree(state.mu, params.cfg, n_layers),
-            "nu": _llm_tree(state.nu, params.cfg, n_layers)}
+    return {"step": np.int32(state.step), "mu": _llm_tree(state.mu),
+            "nu": _llm_tree(state.nu)}

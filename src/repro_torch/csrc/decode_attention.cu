@@ -128,10 +128,12 @@ decode_partial_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     l_s[g] = 0.f;
   }
 
-  // this thread's output column d and heads g0, g0 + TPH, ...
+  // this thread's output column d and heads g0, g0 + TPH, ...; when HD
+  // does not divide kThreads (hd = 112) the last kThreads - TPH * HD
+  // threads own no column
   const int d = t % HD;
   const int g0 = t / HD;
-  const int nh = g0 < G ? (G - g0 + TPH - 1) / TPH : 0;
+  const int nh = g0 < G && g0 < TPH ? (G - g0 + TPH - 1) / TPH : 0;
   float acc[kHeadsPerThread];
 #pragma unroll
   for (int j = 0; j < kHeadsPerThread; ++j) acc[j] = 0.f;
@@ -310,6 +312,9 @@ cudaError_t dispatch(int hd, const void* q, const void* k, const void* v,
     case 64:
       return launch<64, TQ, TKV>(q, k, v, kv_pos, o, part_acc, part_ml, B, S,
                                  H, Hkv, q_pos, window, chunk, st);
+    case 112:  // zamba2's shared attention block
+      return launch<112, TQ, TKV>(q, k, v, kv_pos, o, part_acc, part_ml, B, S,
+                                  H, Hkv, q_pos, window, chunk, st);
     case 128:
       return launch<128, TQ, TKV>(q, k, v, kv_pos, o, part_acc, part_ml, B, S,
                                   H, Hkv, q_pos, window, chunk, st);

@@ -304,6 +304,9 @@ cudaError_t dispatch(int hd, const void* q, const void* k, const void* v,
     case 64:
       return launch<64, T>(q, k, v, o, lse, B, Sq, Skv, H, Hkv, causal,
                            window, st);
+    case 112:  // zamba2's shared attention block
+      return launch<112, T>(q, k, v, o, lse, B, Sq, Skv, H, Hkv, causal,
+                            window, st);
     case 128:
       return launch<128, T>(q, k, v, o, lse, B, Sq, Skv, H, Hkv, causal,
                             window, st);

@@ -22,7 +22,7 @@ from repro_torch.kernels import build as BUILD
 from repro_torch.kernels.bmf_precision.ops import check_cuda_operands
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 112, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 CHUNK = 256          # cache slots per block of the split-S pass
 HEADS_PER_THREAD = 16

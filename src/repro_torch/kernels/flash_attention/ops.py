@@ -28,7 +28,8 @@ from repro_torch.kernels.bmf_precision.ops import check_cuda_operands
 from repro_torch.kernels.flash_attention.ref import (flash_attention_ref,
                                                      flash_bwd_ref)
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 112, 128)       # L1; 112 is zamba2's shared block
+BWD_HEAD_DIMS = (32, 64, 128)         # L2
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_TILES = 65535            # the kernels' grid y axis: 64 rows per tile
 
@@ -67,14 +68,14 @@ def _check_qkv(q, k, v, window):
         raise ValueError(f"window must be >= 0, got {window}")
 
 
-def _check_cuda(tensors, dtypes):
+def _check_cuda(tensors, dtypes, head_dims):
     """The kernels' operand rules: f32 or bf16, contiguous, on the card,
     16-byte aligned, a head size they were built for, a grid that fits."""
     q, k = tensors["q"], tensors["k"]
     B, Sq, _, hd = q.shape
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash attention kernels take hd in {HEAD_DIMS}, "
-                         f"got {hd}")
+    if hd not in head_dims:
+        raise ValueError(f"this flash attention kernel takes hd in "
+                         f"{head_dims}, got {hd}")
     if (max(Sq, k.shape[1]) + 63) // 64 > MAX_TILES or B > 65535:
         raise ValueError(f"grid too large: B={B}, Sq={Sq}, Skv={k.shape[1]}")
     check_cuda_operands(tensors, dtypes)
@@ -106,7 +107,8 @@ flash_attention.launches = 0
 def _launch(q, k, v, causal, window, return_lse):
     B, Sq, H, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    _check_cuda(dict(q=q, k=k, v=v), dict(q=DTYPES, k=DTYPES, v=DTYPES))
+    _check_cuda(dict(q=q, k=k, v=v), dict(q=DTYPES, k=DTYPES, v=DTYPES),
+                HEAD_DIMS)
     o = torch.empty_like(q)
     lse = (torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
            if return_lse else None)
@@ -151,7 +153,7 @@ def _launch_bwd(q, k, v, o, do, lse, causal, window):
     Skv, Hkv = k.shape[1], k.shape[2]
     _check_cuda(dict(q=q, k=k, v=v, o=o, do=do, lse=lse),
                 dict(q=DTYPES, k=DTYPES, v=DTYPES, o=DTYPES, do=DTYPES,
-                     lse=(torch.float32,)))
+                     lse=(torch.float32,)), BWD_HEAD_DIMS)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     D = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
     err = _lib_bwd()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),

@@ -1,18 +1,27 @@
-"""KV cache of the dense family's serving path (port of
-``repro/models/kvcache.py``, dense branch).
+"""Serving state of the dense, hybrid and ssm families (port of
+``repro/models/kvcache.py``).
 
-The cache is a dict like the reference's pytree: ``{"pos": int,
-"attn": {"k", "v": (L, B, max_len, Hkv, hd), "kv_pos": (L, max_len)
-int32}}``; ``kv_pos`` holds each slot's absolute position (-1 = empty), so
-the attention mask stays exact in a ring buffer (sliding window:
-``max_len == window``, slot ``pos % window``). ``pos`` is the number of
-tokens consumed, a Python int so that no step reads the device.
+The cache is a dict like the reference's pytree, with ``pos`` (the number
+of tokens consumed, a Python int so that no step reads the device) and:
+- dense: ``"attn": {"k", "v": (L, B, max_len, Hkv, hd), "kv_pos":
+  (L, max_len) int32}``; ``kv_pos`` holds each slot's absolute position
+  (-1 = empty), so the attention mask stays exact in a ring buffer
+  (sliding window: ``max_len == window``, slot ``pos % window``);
+- hybrid (zamba2): ``"mamba"`` per-layer mixer states (``conv_x``,
+  ``conv_B``, ``conv_C`` histories (L, B, W-1, ·) in the cache dtype,
+  ``ssm`` (L, B, H, P, N) f32) and ``"attn"``, a ring of
+  ``min(seq_len, 4096)`` slots (or the window) for each of the
+  ceil(L / period) shared-attention applications; the ring's size is the
+  shared block's attention window;
+- ssm (rwkv6): ``"wkv"`` (L, B, H, N, N) f32 and the token shifts
+  ``shift_att`` / ``shift_ffn`` (L, B, d) in the cache dtype.
+The recurrent states do not grow with ``seq_len``.
 
 Where the reference is functional and returns a new cache, the port
-writes in place (``attn_cache_update``, ``model.prefill``): that saves a
-copy of the whole cache on every step. The int8 cache (``kv_quant``) and
-the recurrent states of the other families are not ported yet (ROADMAP
-A.17, A.18, A.20).
+writes in place (``attn_cache_update``, ``model.prefill``,
+``model.decode_step``): that saves a copy of the whole cache on every
+step. The int8 cache (``kv_quant``) and the other families' state are
+not ported yet (ROADMAP A.20).
 """
 from __future__ import annotations
 
@@ -52,15 +61,37 @@ def attn_cache_update(cache_layer_k, cache_layer_v, kv_pos, k_new, v_new,
 def serve_cache_init(cfg: ArchConfig, batch: int, seq_len: int,
                      dtype=torch.bfloat16,
                      window_override: Optional[int] = None, device=None):
-    """The serving state of a dense model: ``seq_len`` slots, or
-    ``window`` slots (a ring) under sliding-window attention."""
+    """The serving state of ``cfg``'s family for a context of ``seq_len``
+    tokens: a dense model gets ``seq_len`` slots, or ``window`` slots (a
+    ring) under sliding-window attention; recurrent layers get constant
+    state."""
+    from repro_torch.models.mamba2 import mamba2_state_init
+    window = (window_override if window_override is not None
+              else cfg.sliding_window)
+    dev = resolve_device(device)
+    if cfg.family == "ssm":
+        N = cfg.wkv_head_dim
+        L, d = cfg.n_layers, cfg.d_model
+        return {"pos": 0,
+                "wkv": torch.zeros((L, batch, d // N, N, N),
+                                   dtype=torch.float32, device=dev),
+                "shift_att": torch.zeros((L, batch, d), dtype=dtype,
+                                         device=dev),
+                "shift_ffn": torch.zeros((L, batch, d), dtype=dtype,
+                                         device=dev)}
+    if cfg.family == "hybrid":
+        n_attn = -(-cfg.n_layers // cfg.shared_attn_period)
+        ring = window if window > 0 else min(seq_len, 4096)
+        return {"pos": 0,
+                "mamba": mamba2_state_init(cfg, batch, dtype, dev,
+                                           n_layers=cfg.n_layers),
+                "attn": attn_cache_init(cfg, n_attn, batch, ring, dtype,
+                                        device=dev)}
     if cfg.family != "dense":
         raise NotImplementedError(
             f"{cfg.family} serving state is not ported yet; the port serves "
-            "the dense family")
-    window = (window_override if window_override is not None
-              else cfg.sliding_window)
+            "the dense, hybrid and ssm families")
     max_len = window if window > 0 else seq_len
     return {"pos": 0,
             "attn": attn_cache_init(cfg, cfg.n_layers, batch, max_len, dtype,
-                                    device=device)}
+                                    device=dev)}

@@ -1,0 +1,110 @@
+"""RWKV6 (Finch) time-mix and channel-mix of the ssm family (port of
+``repro/models/rwkv6.py``).
+
+Recurrence (per head, key size = value size = wkv_head_dim N):
+
+    S_t = diag(w_t) S_{t-1} + k_t v_tᵀ
+    y_t = r_tᵀ S_{t-1} + (r_t ⊙ u ⊙ k_t) · v_t
+
+with the data-dependent decay w_t = exp(-exp(w0 + tanh(x A) B)) from a
+small LoRA. A prompt (S > 1) is padded to a multiple of 128 with identity
+steps (log w = 0 and k = 0 leave the state as it is) and goes through
+``wkv6`` (kernel L5 on the card, its plain chunked version on the CPU);
+one token goes through ``wkv_step``.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.wkv6.ops import wkv6
+from repro_torch.kernels.wkv6.ref import CHUNK
+from repro_torch.models.layers import RMSNorm
+
+LORA_R = 64
+# the time-mix parameters in the reference's order (``timemix_init``),
+# ``ln_out`` aside
+TIMEMIX_NAMES = ("mix_base", "wr", "wk", "wv", "wg", "wo", "decay_w0",
+                 "decay_A", "decay_B", "bonus_u")
+CHANNELMIX_NAMES = ("mix_base", "w_in", "w_out")
+
+
+def token_shift(x, x_prev):
+    """x: (B, S, d); x_prev: (B, d), the last token of the previous
+    segment. Returns x shifted one step right."""
+    return torch.cat([x_prev[:, None, :].to(x.dtype), x[:, :-1]], dim=1)
+
+
+def wkv_step(r, k, v, logw, u, state):
+    """One decode step. r, k, v, logw: (B, H, N); state: (B, H, N, N)."""
+    y = torch.einsum("bhn,bhnm->bhm", r, state)
+    y = y + (r * u * k).sum(-1, keepdim=True) * v
+    state = torch.exp(logw)[..., None] * state + k[..., None] * v[..., None, :]
+    return y, state
+
+
+class TimeMix(nn.Module):
+    def __init__(self, cfg: ArchConfig, params: Dict[str, torch.Tensor],
+                 ln_out: torch.Tensor):
+        super().__init__()
+        self.cfg = cfg
+        for n in TIMEMIX_NAMES:
+            setattr(self, n, nn.Parameter(params[n]))
+        self.ln_out = RMSNorm(ln_out, cfg.norm_eps)
+
+    def forward(self, x, x_prev, state):
+        """x: (B, S, d); x_prev: (B, d); state: (B, H, N, N) f32. Returns
+        (out (B, S, d), x's last token, the new state)."""
+        Bb, S, d = x.shape
+        N = self.cfg.wkv_head_dim
+        H = d // N
+        shifted = token_shift(x, x_prev)
+        mix = self.mix_base.to(x.dtype)                       # (5, d)
+        xs = [x + mix[i] * (shifted - x) for i in range(5)]
+        r = xs[0] @ self.wr.to(x.dtype)
+        k = xs[1] @ self.wk.to(x.dtype)
+        v = xs[2] @ self.wv.to(x.dtype)
+        g = xs[3] @ self.wg.to(x.dtype)
+        lora = torch.tanh(xs[4].float() @ self.decay_A.float()
+                          ) @ self.decay_B.float()
+        logw = -torch.exp(self.decay_w0.float() + lora)       # (B, S, d) < 0
+        u = self.bonus_u.float().reshape(H, N)
+
+        rf, kf, vf, wf = (t.float().reshape(Bb, S, H, N)
+                          for t in (r, k, v, logw))
+        if S == 1:
+            y, state = wkv_step(rf[:, 0], kf[:, 0], vf[:, 0], wf[:, 0], u,
+                                state)
+            y = y[:, None]
+        else:
+            pad = (-S) % CHUNK
+            if pad:
+                rf, kf, vf, wf = (F.pad(t, (0, 0, 0, 0, 0, pad))
+                                  for t in (rf, kf, vf, wf))
+            y, state = wkv6(rf.contiguous(), kf.contiguous(), vf.contiguous(),
+                            wf.contiguous(), u.contiguous(),
+                            state.contiguous())
+            y = y[:, :S]
+        y = self.ln_out(y.reshape(Bb, S, d))                  # f32
+        y = y.to(x.dtype) * F.silu(g.float()).to(x.dtype)
+        return y @ self.wo.to(x.dtype), x[:, -1], state
+
+
+class ChannelMix(nn.Module):
+    def __init__(self, cfg: ArchConfig, params: Dict[str, torch.Tensor]):
+        super().__init__()
+        for n in CHANNELMIX_NAMES:
+            setattr(self, n, nn.Parameter(params[n]))
+
+    def forward(self, x, x_prev):
+        """Squared-ReLU MLP on the token-shifted mix. Returns (out, x's
+        last token)."""
+        shifted = token_shift(x, x_prev)
+        xk = x + self.mix_base.to(x.dtype)[0] * (shifted - x)
+        h = xk @ self.w_in.to(x.dtype)
+        h = torch.square(F.relu(h.float())).to(x.dtype)
+        return h @ self.w_out.to(x.dtype), x[:, -1]

@@ -1,9 +1,10 @@
-"""Step functions of the dense family (port of ``repro/models/steps.py``):
-the loss and the train step, and the serving steps.
+"""Step functions (port of ``repro/models/steps.py``): the loss and the
+train step of the dense family, and the serving steps of the dense,
+hybrid and ssm families.
 
 The factories close over the configs, as the reference's do, so a caller
 holds only params, optimizer state, batch and cache. ``make_train_step``'s
-step updates the parameters (a ``DenseLM`` in the f32 training layout,
+step updates the parameters (a ``CausalLM`` in the f32 training layout,
 ``model.init_params(..., train=True)``) and the AdamW state in place and
 returns them with the step's metrics.
 """

@@ -47,6 +47,8 @@ FLASH_CASES = [
     ("window-700-gqa4-f32", 1, 700, 4, 1, 32, True, 128, "f32"),
     ("window-700-gqa4-bf16", 1, 700, 4, 1, 128, True, 128, "bf16"),
     ("noncausal-512-f32", 2, 512, 2, 2, 32, False, 0, "f32"),
+    # zamba2's shared attention block: MHA at hd = 112
+    ("causal-300-mha-hd112-bf16", 1, 300, 4, 4, 112, True, 0, "bf16"),
 ]
 
 # (id, B, S, H, Hkv, hd, layout, window, q dtype, cache dtype)
@@ -61,6 +63,7 @@ DECODE_CASES = [
     ("ring-700-window-bf16", 2, 700, 4, 2, 128, "ring", 500, "bf16", "bf16"),
     ("ring-300-f32-query-bf16-cache", 2, 300, 4, 2, 32, "ring", 0, "f32",
      "bf16"),
+    ("ring-300-mha-hd112-f32", 2, 300, 4, 4, 112, "ring", 0, "f32", "f32"),
 ]
 
 

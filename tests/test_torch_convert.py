@@ -98,3 +98,56 @@ def test_port_imports_neither_jax_nor_the_reference():
                          capture_output=True, text=True, timeout=120,
                          env=dict(os.environ, PYTHONPATH=str(src)))
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("arch,kw", [
+    ("zamba2_7b", dict(n_layers=9, d_model=512, shared_attn_period=4)),
+    ("rwkv6_7b", dict(n_layers=8, d_model=512))],
+    ids=["hybrid", "ssm"])
+def test_recurrent_params_round_trip_applies_the_cast_rule(arch, kw):
+    """The hybrid and ssm pytrees (numpy -> port -> numpy) in the bf16
+    serving layout, at a width where the reference's ``_cast_tree`` rule
+    casts some small parameters and not others because it looks at the
+    stacked (L, …) arrays: each parameter is stored in bf16 exactly when
+    the reference casts it, and the values come back equal."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import model as JM
+    from torch_helpers import llm_cfgs, np_tree
+    jcfg, cfg = llm_cfgs(arch, **kw)
+    tree = JM.init_params(jax.random.key(0), jcfg)
+    params = CV.llm_params_from_numpy(np_tree(tree), cfg, "cpu")
+    cast = JM._cast_tree(tree, jnp.bfloat16)
+    want_dtype = {"/".join(str(getattr(k, "key", k)) for k in path):
+                  a.dtype == jnp.bfloat16
+                  for path, a in jax.tree_util.tree_flatten_with_path(cast)[0]}
+    got_dtype = {}
+    for name, t in params.named_parameters():
+        path, layer = CV._tree_path(name)
+        got_dtype.setdefault("/".join(path), set()).add(
+            t.dtype == torch.bfloat16)
+    assert {k: {v} for k, v in want_dtype.items()} == got_dtype
+    # the rule bites below the matrices: stacked conv / mix arrays
+    small = ("blocks/mixer/conv_x" if arch == "zamba2_7b"
+             else "blocks/att/mix_base")
+    assert want_dtype[small] and not want_dtype["final_norm/scale"]
+    back = CV.llm_params_to_numpy(params)
+    want = jax.tree.map(lambda a: np.asarray(a, np.float32), cast)
+    flat_b, tree_b = jax.tree.flatten(back)
+    flat_w, tree_w = jax.tree.flatten(want)
+    assert tree_b == tree_w
+    for a, w in zip(flat_b, flat_w):
+        np.testing.assert_array_equal(a, w)
+
+
+def test_serve_dtype_is_the_cast_rule():
+    """``model.serve_dtype`` on the shapes of the rule's edge: more than
+    16,384 elements and ndim >= 2, counted on the stacked array."""
+    from repro_torch.configs import base as TCB
+    from repro_torch.models import model as TM
+    cfg = TCB.get_config("zamba2_7b")
+    assert TM.serve_dtype((4, 8192), cfg) == torch.bfloat16
+    assert TM.serve_dtype((4, 4096), cfg) == torch.float32    # = 16,384
+    assert TM.serve_dtype((16385,), cfg) == torch.float32     # 1-D
+    assert TM.serve_dtype((4, 64), cfg, n_stack=81) == torch.bfloat16
+    assert TM.serve_dtype((112,), cfg, n_stack=81) == torch.float32
