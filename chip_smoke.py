@@ -6,7 +6,8 @@
 Phases (any failure exits non-zero; nothing is caught and swallowed):
   1. card and build: the card's name and power limit, then the CUDA
      kernels built from ``src/repro_torch/csrc`` (one nvcc per source, in
-     parallel), with the build seconds;
+     parallel), with the build seconds and ptxas's register report; the
+     bf16 tensor-core variants of L1 and L2 (``*_sm90``) must not spill;
   2. kernel parity: each kernel (B1 bmf_precision, B2 bmf_sweep) against
      its plain PyTorch version, fp32 and bf16, at the phase-c bucket shape
      of phase 4's data (which holds all-padding tiles and empty rows),
@@ -21,7 +22,9 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      run must give a finite RMSE below the mean predictor and launch its
      kernel;
   5. LLM kernel parity: L1 flash_attention and L3 decode_attention against
-     their plain versions, bf16 and fp32, at the serve path's shapes
+     their plain versions, bf16 and fp32 (L1 and L2 have two CUDA
+     variants: bf16 runs the sm90 tensor-core kernel, fp32 the f32
+     kernel), at the serve path's shapes
      (Qwen3-4B: H = 32, Hkv = 8, hd = 128, batch 8): L1 causal at the
      4,000-token prompt, with a 1,024 window, and non-causal at 4,096; L3
      over a full 4,096-slot cache, a ragged cache with empty slots, and a
@@ -35,9 +38,10 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      tokens; ``make_prefill_step`` consumes 4,000 of them into a
      4,096-slot cache and ``make_serve_step`` feeds the other 96 one by
      one (teacher-forced) until the cache is full. Logits must be finite,
-     L1 must launch 36 times and L3 36 x 96 times, and for 2 sequences
-     every step's logits must agree with the port's ``forward`` over all
-     4,096 tokens run through the plain attention versions;
+     L1 must launch 36 times, all on the sm90 kernel, and L3 36 x 96
+     times, and for 2 sequences every step's logits must agree with the
+     port's ``forward`` over all 4,096 tokens run through the plain
+     attention versions;
   7. L2 parity: L2 (flash attention backward) against its plain version
      on the same (q, k, v, o, do, lse), bf16 and fp32, at the train path's
      attention shape (B = 2, S = 4,096, H = 32, Hkv = 8, hd = 128): causal,
@@ -53,7 +57,8 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      same through the plain attention and against an f32 pass; then 6
      ``make_train_step`` steps on batches of 4 x 4,096 synthetic tokens in
      2 microbatches with remat: losses and grad norms finite, L1 launched
-     32 and L2 16 times per step; the last step under ``torch.profiler``;
+     32 and L2 16 times per step, every launch on the sm90 kernels; the
+     last step under ``torch.profiler``;
   9. L1/L3 parity at zamba2's shared attention block (MHA, H = Hkv = 32,
      hd = 112), bf16 and fp32: causal prefill at 4,000 tokens and decode
      over a full 4,096-slot ring, timed as in phase 5;
@@ -69,11 +74,12 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
  12. the ssm serve path: rwkv6-7b, all 32 layers; each with the traffic
      of phase 6 (8 x 4,000-token prompts into a 4,096-token context, 96
      teacher-forced decode steps), exact launch counts (zamba2: L4 81, L1
-     13 per prefill, L3 13 per decode step; rwkv6: L5 32), finite logits,
-     and every step's logits of 2 sequences against the port's forward
-     through the plain kernel versions, under phase 6's limits; each model
-     is freed before the next is built;
- 13. summary: one JSON line ``{"kernels": [...]}`` and, last, the
+     13 per prefill, all sm90, L3 13 per decode step; rwkv6: L5 32),
+     finite logits, and every step's logits of 2 sequences against the
+     port's forward through the plain kernel versions, under phase 6's
+     limits; each model is freed before the next is built;
+ 13. summary: one JSON line ``{"kernels": [...]}`` (L1 and L2 with each
+     variant's launches and times) and, last, the
      ``{"ok": true, "device": {...}}`` line.
 
 Without a GPU, or without the repository's ``src/repro_torch`` beside it,
@@ -215,7 +221,14 @@ def phase_build():
         lines = BUILD.lib_path(name).with_suffix(".log").read_text()
         regs = [ln.strip() for ln in lines.splitlines()
                 if "registers" in ln or "spill" in ln]
-        log(f"[build] {name}: " + " | ".join(regs[:4]))
+        sm90 = name in SM90
+        log(f"[build] {name}: " + " | ".join(regs if sm90 else regs[:4]))
+        # the tensor-core kernels keep every accumulator in registers
+        spills = [ln for ln in regs if "spill" in ln
+                  and not ln.startswith("0 bytes stack frame, 0 bytes spill "
+                                        "stores, 0 bytes spill loads")]
+        if sm90 and spills:
+            raise AssertionError(f"{name}: ptxas spills: {spills}")
 
 
 def make_data():
@@ -349,13 +362,24 @@ def _wrappers():
             "ssd_chunk": L4.ssd_scan, "wkv6": L5.wkv6}
 
 
+# L1 and L2 count their bf16 launches (the sm90 tensor-core kernels)
+# beside their totals; f32 calls go to the f32 kernels
+SM90 = {"flash_attention_sm90": "flash_attention",
+        "flash_attention_bwd_sm90": "flash_attention_bwd"}
+
+
 def reset_counts():
     for fn in _wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "sm90_launches"):
+            fn.sm90_launches = 0
 
 
 def read_counts():
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    fns = _wrappers()
+    counts = {name: fn.launches for name, fn in fns.items()}
+    counts.update({v: fns[name].sm90_launches for v, name in SM90.items()})
+    return counts
 
 
 def mean_rmse(train, test):
@@ -434,7 +458,9 @@ def _sdpa_ms(q, k, v, reps, **kw):
 def _attn_line(name, case, dtype, err, scale, tol, ms, pms, bd, lib,
                tag="llm-parity"):
     ok = err <= tol * scale
-    log(f"[{tag}] {name} {case} {dtype}: max_abs_err {err:.3e} "
+    variant = (f" ({'sm90' if dtype == 'bf16' else 'f32'} kernel)"
+               if name.startswith("flash_attention") else "")
+    log(f"[{tag}] {name}{variant} {case} {dtype}: max_abs_err {err:.3e} "
         f"(tolerance {tol:.3g} x {scale:.3g} = {tol * scale:.3e}) "
         f"{'ok' if ok else 'FAIL'}; kernel {ms:.3f} ms, plain {pms:.3f} ms, "
         f"bound {bd[0]:.4f} ms ({bd[1]}), library (SDPA"
@@ -711,13 +737,15 @@ def _describe(cfg):
 
 def _expected_launches(cfg, n_steps):
     """The kernels the serve path must launch, by family: L1 per
-    attention layer in prefill, L3 per attention layer and decode step,
-    L4 / L5 per recurrent layer in prefill; nothing else."""
-    counts = {name: 0 for name in _wrappers()}
+    attention layer in prefill, every one the bf16 sm90 kernel, L3 per
+    attention layer and decode step, L4 / L5 per recurrent layer in
+    prefill; nothing else."""
+    counts = {name: 0 for name in [*_wrappers(), *SM90]}
     n_attn = {"dense": cfg.n_layers,
               "hybrid": cfg.n_layers // max(cfg.shared_attn_period, 1),
               "ssm": 0}[cfg.family]
     counts["flash_attention"] = n_attn
+    counts["flash_attention_sm90"] = n_attn
     counts["decode_attention"] = n_attn * n_steps
     if cfg.family == "hybrid":
         counts["ssd_chunk"] = cfg.n_layers
@@ -1169,19 +1197,25 @@ def phase_llm_train(dev):
         dt = time.time() - t1
         step_s.append(dt)
         after = read_counts()
-        d1 = after["flash_attention"] - before["flash_attention"]
-        d2 = after["flash_attention_bwd"] - before["flash_attention_bwd"]
+        d1, d2, s1, s2 = (after[n] - before[n] for n in (
+            "flash_attention", "flash_attention_bwd", "flash_attention_sm90",
+            "flash_attention_bwd_sm90"))
         loss, gn, lr = (float(m[k]) for k in ("loss", "grad_norm", "lr"))
         finite &= all(math.isfinite(x) for x in (loss, gn))
         log(f"[llm-train] step {i + 1}: {dt:.3f}s, "
             f"{tokens_per_step / dt:.4g} tokens/s, loss {loss:.6f}, grad "
-            f"norm {gn:.6f}, lr {lr:.4e}; L1 {d1} / L2 {d2} launches"
+            f"norm {gn:.6f}, lr {lr:.4e}; L1 {d1} / L2 {d2} launches, "
+            f"sm90 {s1} / {s2}"
             + (" (under the profiler)" if i == TRAIN_STEPS - 1 else ""))
         if (d1 != 2 * cfg.n_layers * TRAIN_MICRO
                 or d2 != cfg.n_layers * TRAIN_MICRO):
             raise AssertionError(f"step {i + 1}: L1 {d1} and L2 {d2} "
                                  "launches, expected forward + recompute "
                                  "and one backward per layer and microbatch")
+        if (s1, s2) != (d1, d2):
+            raise AssertionError(f"step {i + 1}: {d1 - s1} L1 and {d2 - s2} "
+                                 "L2 launches of the bf16 step missed the "
+                                 "sm90 kernels")
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     steady = step_s[1:-1]
@@ -1266,9 +1300,12 @@ def main():
     llm_parity = phase_llm_parity(dev)
     llm_counts = phase_serve(dev, LLM_ARCH, "llm")
     launches.update({n: llm_counts[n] for n in llm_parity})
+    launches["flash_attention_sm90"] = llm_counts["flash_attention_sm90"]
     llm_parity["flash_attention_bwd"] = phase_l2_parity(dev)
     train_counts = phase_llm_train(dev)
     launches["flash_attention_bwd"] = train_counts["flash_attention_bwd"]
+    launches["flash_attention_bwd_sm90"] = train_counts[
+        "flash_attention_bwd_sm90"]
     for name, cases in phase_hd112_parity(dev).items():
         llm_parity[name] += cases
     llm_parity.update(phase_scan_parity(dev))
@@ -1280,8 +1317,14 @@ def main():
                    "serve": llm_counts["flash_attention"],
                    "serve_zamba2": hybrid_counts["flash_attention"],
                    "train": train_counts["flash_attention"]},
+               "flash_attention_sm90": {
+                   "serve": llm_counts["flash_attention_sm90"],
+                   "serve_zamba2": hybrid_counts["flash_attention_sm90"],
+                   "train": train_counts["flash_attention_sm90"]},
                "flash_attention_bwd": {
                    "train": train_counts["flash_attention_bwd"]},
+               "flash_attention_bwd_sm90": {
+                   "train": train_counts["flash_attention_bwd_sm90"]},
                "decode_attention": {
                    "serve": llm_counts["decode_attention"],
                    "serve_zamba2": hybrid_counts["decode_attention"]}}
@@ -1304,12 +1347,16 @@ def main():
                             bound_ms=fp32["bound_ms"],
                             bound_by=fp32["bound_by"], library_ms=None,
                             bf16=bf16))
+    # L1 and L2 run bf16 on the path (the sm90 kernels); their f32 kernels
+    # stand beside them as a second variant
     llm_meta = {
         "flash_attention": dict(
-            source="src/repro_torch/csrc/flash_attention.cu",
+            source="src/repro_torch/csrc/flash_attention_sm90.cu",
+            f32_source="src/repro_torch/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention/kernel.py:90"),
         "flash_attention_bwd": dict(
-            source="src/repro_torch/csrc/flash_attention_bwd.cu",
+            source="src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
+            f32_source="src/repro_torch/csrc/flash_attention_bwd.cu",
             replaces="src/repro/kernels/flash_attention/kernel_bwd.py:108"),
         "decode_attention": dict(
             source="src/repro_torch/csrc/decode_attention.cu",
@@ -1321,17 +1368,33 @@ def main():
             source="src/repro_torch/csrc/wkv6.cu",
             replaces="src/repro/kernels/wkv6/kernel.py:65"),
     }
+    timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")
     for name, m in llm_meta.items():
         main_case = llm_parity[name][0]   # the path's shape (L1-L3 bf16)
-        kernels.append(dict(
+        entry = dict(
             name=name, route="cuda", source=m["source"],
             replaces=m["replaces"], launches=launches[name],
-            **{k: main_case[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                         "bound_ms", "bound_by",
-                                         "library_ms")},
+            **{k: main_case[k] for k in timed},
             case=main_case["case"], cases=llm_parity[name][1:],
             **({"launches_by_path": by_path[name]} if name in by_path
-               else {})))
+               else {}))
+        if "f32_source" in m:
+            f32 = next(c for c in llm_parity[name] if c["dtype"] == "fp32"
+                       and c["case"] == main_case["case"])
+            sm90_by_path = by_path[f"{name}_sm90"]
+            entry["variants"] = [
+                dict(variant="sm90", dtype="bf16", source=m["source"],
+                     launches=launches[f"{name}_sm90"],
+                     launches_by_path=sm90_by_path,
+                     **{k: main_case[k] for k in timed}),
+                dict(variant="f32", dtype="fp32", source=m["f32_source"],
+                     launches=launches[name] - launches[f"{name}_sm90"],
+                     launches_by_path={
+                         path: n - sm90_by_path[path]
+                         for path, n in by_path[name].items()},
+                     **{k: f32[k] for k in timed})]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

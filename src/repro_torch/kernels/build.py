@@ -22,7 +22,9 @@ from typing import Dict, Sequence
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("bmf_precision", "bmf_sweep", "flash_attention",
-           "flash_attention_bwd", "decode_attention", "ssd_chunk", "wkv6")
+           "flash_attention_bwd", "flash_attention_sm90",
+           "flash_attention_bwd_sm90", "decode_attention", "ssd_chunk",
+           "wkv6")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,7 +1,14 @@
-"""Wrappers of kernels L1 (``csrc/flash_attention.cu``, the forward pass of
-flash attention, with an optional row logsumexp) and L2
-(``csrc/flash_attention_bwd.cu``, its backward pass), and the autograd
+"""Wrappers of kernels L1 (the forward pass of flash attention, with an
+optional row logsumexp) and L2 (its backward pass), and the autograd
 Function that joins them for training.
+
+Each kernel has two CUDA variants, chosen by dtype and by nothing else:
+bf16 goes to the Hopper tensor-core kernels (``csrc/flash_attention_sm90.cu``
+and ``csrc/flash_attention_bwd_sm90.cu``: wgmma fed by TMA), f32 to the
+f32 kernels on the CUDA cores (``csrc/flash_attention.cu`` and
+``csrc/flash_attention_bwd.cu``), since the tensor cores have no f32
+product that keeps the f32 results to 1e-5. Each wrapper counts all its
+launches in ``launches`` and the bf16 ones in ``sm90_launches``.
 
 L1 replaces the TPU kernel ``src/repro/kernels/flash_attention/kernel.py``
 (``flash_attention_padded``, body ``_kernel``, with ``return_lse``) and its
@@ -52,6 +59,25 @@ def _lib_bwd():
     return fn
 
 
+def _lib_sm90():
+    fn = BUILD.load("flash_attention_sm90").flash_attention_sm90_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 5 + [i] * 8 + [p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _lib_bwd_sm90():
+    lib = BUILD.load("flash_attention_bwd_sm90")
+    fn = lib.flash_attention_bwd_sm90_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 10 + [i] * 8 + [p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def _check_qkv(q, k, v, window):
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"expected q (B, Sq, H, hd) and k = v (B, Skv, Hkv, "
@@ -82,6 +108,11 @@ def _check_cuda(tensors, dtypes, head_dims):
     for name, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
+        # the bf16 kernels read by TMA, whose global strides (one row of a
+        # head: hd elements) must be multiples of 16 bytes
+        if t.dtype == torch.bfloat16 and (hd * t.element_size()) % 16:
+            raise ValueError(f"{name}: a row of {hd} bf16 values is not a "
+                             "multiple of 16 bytes, as TMA needs")
 
 
 def flash_attention(q, k, v, causal: bool = True, window: int = 0,
@@ -102,6 +133,7 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
 
 
 flash_attention.launches = 0
+flash_attention.sm90_launches = 0
 
 
 def _launch(q, k, v, causal, window, return_lse):
@@ -112,12 +144,17 @@ def _launch(q, k, v, causal, window, return_lse):
     o = torch.empty_like(q)
     lse = (torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 None if lse is None else lse.data_ptr(),
-                 int(q.dtype == torch.bfloat16), B, Sq, Skv, H, Hkv, hd,
-                 int(bool(causal)), int(window),
-                 torch.cuda.current_stream(q.device).cuda_stream)
-    BUILD.check(err, "flash_attention_launch")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr())
+    dims = (B, Sq, Skv, H, Hkv, hd, int(bool(causal)), int(window))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if q.dtype == torch.bfloat16:
+        BUILD.check(_lib_sm90()(*ptrs, *dims, stream),
+                    "flash_attention_sm90_launch")
+        flash_attention.sm90_launches += 1
+    else:
+        BUILD.check(_lib()(*ptrs, 0, *dims, stream),
+                    "flash_attention_launch")
     flash_attention.launches += 1
     return (o, lse) if return_lse else o
 
@@ -146,6 +183,7 @@ def flash_bwd(q, k, v, o, do, lse, causal: bool = True, window: int = 0):
 
 
 flash_bwd.launches = 0
+flash_bwd.sm90_launches = 0
 
 
 def _launch_bwd(q, k, v, o, do, lse, causal, window):
@@ -156,13 +194,16 @@ def _launch_bwd(q, k, v, o, do, lse, causal, window):
                      lse=(torch.float32,)), BWD_HEAD_DIMS)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     D = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
-    err = _lib_bwd()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                     do.data_ptr(), lse.data_ptr(), D.data_ptr(),
-                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                     int(q.dtype == torch.bfloat16), B, Sq, Skv, H, Hkv, hd,
-                     int(bool(causal)), int(window),
-                     torch.cuda.current_stream(q.device).cuda_stream)
-    BUILD.check(err, "flash_attention_bwd_launch")
+    ptrs = tuple(t.data_ptr() for t in (q, k, v, o, do, lse, D, dq, dk, dv))
+    dims = (B, Sq, Skv, H, Hkv, hd, int(bool(causal)), int(window))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if q.dtype == torch.bfloat16:
+        BUILD.check(_lib_bwd_sm90()(*ptrs, *dims, stream),
+                    "flash_attention_bwd_sm90_launch")
+        flash_bwd.sm90_launches += 1
+    else:
+        BUILD.check(_lib_bwd()(*ptrs, 0, *dims, stream),
+                    "flash_attention_bwd_launch")
     flash_bwd.launches += 1
     return dq, dk, dv
 

@@ -7,7 +7,10 @@ against the reference's jnp oracle, on the same numpy inputs. The
 ``cuda`` legs hold each CUDA kernel against the plain version on the card,
 over the same cases, and check that the wrappers allocate only their
 outputs (L3: and its split-S partials), with no padded copy of q/k/v or
-of the cache.
+of the cache. L1 and L2 have two CUDA variants each: bf16 calls go to the
+Hopper tensor-core kernels (``*_sm90.cu``), f32 calls to the f32 kernels;
+the ``sm90`` legs cover every head size of the bf16 kernels and check
+which variant ran.
 
 L2 sits behind the autograd Function ``flash_attention_trainable``; its
 gradients are held against ``jax.grad`` through the reference's
@@ -27,6 +30,8 @@ Tolerances, relative to the largest reference value (``assert_rel_close``):
   version each round an f32 value that differs only in summation order, so
   they may land one bf16 step apart: the same 4e-3.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -484,3 +489,141 @@ def test_cuda_autograd_function_matches_plain_autograd(dt, cuda_device):
     want = grads(lambda *a: _plain_attend(*a).to(q.dtype))
     for a, b in zip(got, want):
         assert_rel_close(a, b, BWD_RTOL[dt])
+
+
+# ---------------------------------------------------------------------------
+# On the card: the bf16 tensor-core kernels (sm90) at every head size
+# ---------------------------------------------------------------------------
+
+# (Sq, Skv, H, Hkv, hd, causal, window): every head size L1 takes, GQA
+# groups 1, 2 and 4, ragged edges off the kernels' 64- and 128-row tiles
+# (300, 700, 4,033), window edges inside a tile, and rows that see no key
+# (non-causal, window 50, Skv 300: rows >= 349)
+SM90_FWD_SHAPES = [(300, 300, 4, 4, 32, True, 0),
+                   (700, 700, 8, 4, 64, True, 100),
+                   (4033, 4033, 8, 2, 128, True, 0),
+                   (300, 700, 4, 1, 112, False, 0),
+                   (700, 300, 8, 2, 128, False, 50),
+                   (300, 300, 4, 1, 112, True, 37)]
+# the head sizes L2 takes (no path trains at hd 112)
+SM90_BWD_SHAPES = [(300, 300, 4, 4, 32, True, 0),
+                   (700, 700, 8, 4, 64, True, 100),
+                   (4033, 4033, 8, 2, 128, True, 0),
+                   (700, 300, 8, 2, 128, False, 50),
+                   (300, 700, 4, 1, 64, True, 200)]
+
+
+def _sm90_inputs(shape, device, n_q=1, seed=8):
+    """bf16 q[, do] (B, Sq, H, hd) and k, v (B, Skv, Hkv, hd); B = 1 at
+    4,033 tokens (the plain version's f32 score tiles), else 2."""
+    Sq, Skv, H, Hkv, hd = shape[:5]
+    B = 1 if max(Sq, Skv) > 1000 else 2
+    g = torch.Generator(device=device).manual_seed(seed)
+    qs = [torch.randn((B, Sq, H, hd), generator=g, device=device)
+          .to(torch.bfloat16) for _ in range(n_q)]
+    k, v = (torch.randn((B, Skv, Hkv, hd), generator=g, device=device)
+            .to(torch.bfloat16) for _ in range(2))
+    return qs, k, v
+
+
+def _counts(fn):
+    """(sm90 launches, f32-kernel launches) of a wrapper."""
+    return fn.sm90_launches, fn.launches - fn.sm90_launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SM90_FWD_SHAPES, ids=str)
+def test_cuda_sm90_flash_matches_plain(shape, cuda_device):
+    """bf16 L1 goes to the sm90 kernel, allocates only o and lse, and
+    agrees with the plain version: o at RTOL["bf16"], lse at RTOL["f32"]
+    (the same f32 scores of the same bf16 inputs, another order)."""
+    Sq, Skv, H, Hkv, hd, causal, window = shape
+    (q,), k, v = _sm90_inputs(shape, cuda_device)
+    sm90, f32 = _counts(FA.flash_attention)
+    (o, lse), peak = _alloc_peak(lambda: FA.flash_attention(
+        q, k, v, causal=causal, window=window, return_lse=True))
+    assert _counts(FA.flash_attention) == (sm90 + 1, f32)
+    assert o.dtype == torch.bfloat16 and lse.shape == q.shape[:3]
+    assert peak <= _rounded(o.numel() * 2) + _rounded(lse.numel() * 4)
+    want, lse_want = FA.flash_attention_ref(q, k, v, causal=causal,
+                                            window=window, return_lse=True)
+    assert_rel_close(o.float().cpu().numpy(),
+                     want.to(q.dtype).float().cpu().numpy(), RTOL["bf16"])
+    assert_rel_close(lse.cpu().numpy(), lse_want.cpu().numpy(), RTOL["f32"])
+    if not causal and window and Sq > Skv + window:
+        blind = Skv + window - 1          # the first row that sees no key
+        assert float(o[:, blind:].float().abs().max()) == 0.0
+        assert torch.allclose(lse[:, blind:],
+                              torch.full_like(lse[:, blind:],
+                                          math.log(1e-30)))
+
+
+@pytest.mark.cuda
+def test_cuda_sm90_flash_allocates_only_its_output(cuda_device):
+    """The serve path's call (bf16, no lse) at a ragged 4,113 tokens, GQA
+    group 4: the call allocates its (B, Sq, H, hd) output and nothing
+    like a padded copy of q, k or v."""
+    (q,), k, v = _sm90_inputs((4113, 4113, 16, 4, 128), cuda_device)
+    sm90, f32 = _counts(FA.flash_attention)
+    o, peak = _alloc_peak(lambda: FA.flash_attention(q, k, v))
+    assert _counts(FA.flash_attention) == (sm90 + 1, f32)
+    assert peak <= _rounded(o.numel() * 2), peak
+    assert bool(torch.isfinite(o).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SM90_BWD_SHAPES, ids=str)
+def test_cuda_sm90_flash_bwd_matches_plain(shape, cuda_device):
+    """bf16 L2 goes to the sm90 kernels and agrees with the plain version
+    on the same (o, lse) at BWD_RTOL["bf16"]."""
+    Sq, Skv, H, Hkv, hd, causal, window = shape
+    (q, do), k, v = _sm90_inputs(shape, cuda_device, n_q=2)
+    o, lse = FA.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                    return_lse=True)
+    o = o.to(q.dtype).contiguous()
+    sm90, f32 = _counts(FA.flash_bwd)
+    got = FA.flash_bwd(q, k, v, o, do, lse, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert _counts(FA.flash_bwd) == (sm90 + 1, f32)
+    want = FA.flash_bwd_ref(q, k, v, o, do, lse, causal=causal,
+                            window=window)
+    for a, b, name in zip(got, want, ("dq", "dk", "dv")):
+        assert a.dtype == q.dtype and a.shape == b.shape, name
+        assert_rel_close(a.float().cpu().numpy(),
+                         b.to(q.dtype).float().cpu().numpy(),
+                         BWD_RTOL["bf16"])
+
+
+@pytest.mark.cuda
+def test_cuda_f32_calls_stay_on_the_f32_kernels(cuda_device):
+    """An f32 forward and backward launch the f32 kernels, not sm90."""
+    (q, do), k, v = _sm90_inputs((130, 130, 4, 2, 64), cuda_device, n_q=2)
+    q, do, k, v = (t.float() for t in (q, do, k, v))
+    fwd, bwd = _counts(FA.flash_attention), _counts(FA.flash_bwd)
+    o, lse = FA.flash_attention(q, k, v, return_lse=True)
+    FA.flash_bwd(q, k, v, o, do, lse)
+    assert _counts(FA.flash_attention) == (fwd[0], fwd[1] + 1)
+    assert _counts(FA.flash_bwd) == (bwd[0], bwd[1] + 1)
+
+
+@pytest.mark.cuda
+def test_cuda_sm90_empty_sides(cuda_device):
+    """bf16 calls with no keys or no queries: the forward writes o = 0 and
+    lse = log(1e-30) (every row sees no key); the backward writes dq = 0
+    without keys and dk = dv = 0 without queries. The plain versions cannot
+    reduce over an empty key axis, so the values are written out."""
+    (q,), k, v = _sm90_inputs((5, 0, 4, 2, 64), cuda_device)
+    o, lse = FA.flash_attention(q, k, v, causal=False, return_lse=True)
+    assert float(o.float().abs().max()) == 0.0
+    assert torch.allclose(lse, torch.full_like(lse, math.log(1e-30)))
+    dq, dk, dv = FA.flash_bwd(q, k, v, o, q, lse, causal=False)
+    assert dq.shape == q.shape and float(dq.float().abs().max()) == 0.0
+    assert dk.numel() == dv.numel() == 0
+    (q,), k, v = _sm90_inputs((0, 7, 4, 2, 64), cuda_device)
+    o, lse = FA.flash_attention(q, k, v, return_lse=True)
+    assert o.shape == q.shape and lse.shape == q.shape[:3]
+    dq, dk, dv = FA.flash_bwd(q, k, v, o, q, lse)
+    torch.cuda.synchronize()
+    assert dq.numel() == 0 and dk.shape == k.shape
+    assert float(dk.float().abs().max()) == 0.0
+    assert float(dv.float().abs().max()) == 0.0
