@@ -7,7 +7,8 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
   1. card and build: the card's name and power limit, then the CUDA
      kernels built from ``src/repro_torch/csrc`` (one nvcc per source, in
      parallel), with the build seconds and ptxas's register report; the
-     bf16 tensor-core variants of L1 and L2 (``*_sm90``) must not spill;
+     bf16 tensor-core variants of L1 and L2 (``*_sm90``), L3 and L4 must
+     not spill;
   2. kernel parity: each kernel (B1 bmf_precision, B2 bmf_sweep) against
      its plain PyTorch version, fp32 and bf16, at the phase-c bucket shape
      of phase 4's data (which holds all-padding tiles and empty rows),
@@ -31,8 +32,12 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      ring-shuffled cache under a window. L1 is compared on 2 of the 8
      sequences (the plain version's f32 scores at 8 x 4,000 would take
      16 GB); every kernel is timed at the full shape, beside its plain
-     version, its bound and one PyTorch call (SDPA) as the library
-     yardstick;
+     version, its bound, its achieved TB/s and one PyTorch call (SDPA) as
+     the library yardstick; L3 and its SDPA as one call between events
+     (``ms``, ``library_ms``: the measure of the earlier rows, which counts
+     the host's enqueue) and beside it as device time per call (20 calls
+     in a CUDA graph: ``device_ms_per_call``,
+     ``library_device_ms_per_call``);
   6. the LLM serve path at full width: Qwen3-4B, all 36 layers, seeded
      random bf16 weights made on the card; 8 sequences of 4,096 synthetic
      tokens; ``make_prefill_step`` consumes 4,000 of them into a
@@ -68,7 +73,8 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      path's own call (zero state, a 4,000-token prompt padded with
      identity steps), a random state over 4,096 steps, and strong decay
      (a ~ -2 per step for L4, log w ~ -1 for L5); each timed beside its
-     plain version and its bound;
+     plain version, its bound and its achieved TB/s (L4: the bytes bound,
+     its bf16 split products and the f32 bound of its first design);
  11. the hybrid serve path at full width and depth: zamba2-7b, all 81
      Mamba2 layers and the shared block (13 applications), and
  12. the ssm serve path: rwkv6-7b, all 32 layers; each with the traffic
@@ -201,6 +207,40 @@ def cuda_ms(fn, reps, warmup=2):
     return statistics.median(times)
 
 
+def graph_ms(fn, calls=20, reps=5):
+    """Device milliseconds per call of ``fn``: ``calls`` calls captured in
+    one CUDA graph, replayed ``reps`` times between CUDA events (median).
+    Unlike ``cuda_ms`` around a single call, the host's time to enqueue a
+    call (the wrapper's checks and allocations) does not leave the device
+    idle inside the window."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    torch.cuda.empty_cache()
+    return statistics.median(times)
+
+
 def bound(n_bytes, flops, peak=FP32_FLOPS):
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
     return (1e3 * max(t_bytes, t_ops),
@@ -221,13 +261,14 @@ def phase_build():
         lines = BUILD.lib_path(name).with_suffix(".log").read_text()
         regs = [ln.strip() for ln in lines.splitlines()
                 if "registers" in ln or "spill" in ln]
-        sm90 = name in SM90
-        log(f"[build] {name}: " + " | ".join(regs if sm90 else regs[:4]))
-        # the tensor-core kernels keep every accumulator in registers
+        full = name in SM90 or name in NO_SPILL
+        log(f"[build] {name}: " + " | ".join(regs if full else regs[:4]))
+        # the tensor-core kernels keep every accumulator in registers, and
+        # the redesigned L3 and L4 their q, partial sums and state
         spills = [ln for ln in regs if "spill" in ln
                   and not ln.startswith("0 bytes stack frame, 0 bytes spill "
                                         "stores, 0 bytes spill loads")]
-        if sm90 and spills:
+        if full and spills:
             raise AssertionError(f"{name}: ptxas spills: {spills}")
 
 
@@ -366,6 +407,9 @@ def _wrappers():
 # beside their totals; f32 calls go to the f32 kernels
 SM90 = {"flash_attention_sm90": "flash_attention",
         "flash_attention_bwd_sm90": "flash_attention_bwd"}
+# sources whose ptxas report must show no spill besides the sm90 ones: the
+# pipelined split-KV L3 and the tensor-core L4
+NO_SPILL = ("decode_attention", "ssd_chunk")
 
 
 def reset_counts():
@@ -456,21 +500,22 @@ def _sdpa_ms(q, k, v, reps, **kw):
 
 
 def _attn_line(name, case, dtype, err, scale, tol, ms, pms, bd, lib,
-               tag="llm-parity"):
+               n_bytes, tag="llm-parity", note="", **extra):
     ok = err <= tol * scale
     variant = (f" ({'sm90' if dtype == 'bf16' else 'f32'} kernel)"
                if name.startswith("flash_attention") else "")
     log(f"[{tag}] {name}{variant} {case} {dtype}: max_abs_err {err:.3e} "
         f"(tolerance {tol:.3g} x {scale:.3g} = {tol * scale:.3e}) "
-        f"{'ok' if ok else 'FAIL'}; kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+        f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms "
+        f"({n_bytes / ms / 1e9:.3f} TB/s), plain {pms:.3f} ms, "
         f"bound {bd[0]:.4f} ms ({bd[1]}), library (SDPA"
-        f"{' backward' if tag == 'l2-parity' else ''}) {lib:.3f} ms")
+        f"{' backward' if tag == 'l2-parity' else ''}) {lib:.4f} ms{note}")
     if not ok:
         raise AssertionError(f"{name} {case} {dtype} disagrees with its "
                              f"plain version")
     return dict(case=case, dtype=dtype, max_abs_err=err, ms=ms,
                 plain_ms=pms, bound_ms=bd[0], bound_by=bd[1],
-                library_ms=lib)
+                library_ms=lib, tb_per_s=n_bytes / ms / 1e9, **extra)
 
 
 PEAK = {"fp32": FP32_FLOPS, "bf16": BF16_FLOPS}
@@ -522,12 +567,12 @@ def _l1_case(g, dev, case, B, S, H, Hkv, hd, causal, window, dtype,
     else:
         lib = _sdpa_ms(q, k, v, 3, is_causal=causal)
     elt = q.element_size()
-    bd = bound(elt * (2 * q.numel() + k.numel() + v.numel()),
-               4 * B * H * hd * pairs, PEAK[dtype])
+    n_bytes = elt * (2 * q.numel() + k.numel() + v.numel())
+    bd = bound(n_bytes, 4 * B * H * hd * pairs, PEAK[dtype])
     del q, k, v, mask
     torch.cuda.empty_cache()
     return _attn_line("flash_attention", case, dtype, err, scale,
-                      ATTN_TOL[dtype], ms, pms, bd, lib, tag=tag)
+                      ATTN_TOL[dtype], ms, pms, bd, lib, n_bytes, tag=tag)
 
 
 def _l3_case(g, dev, case, B, S, H, Hkv, hd, window, dtype,
@@ -535,6 +580,7 @@ def _l3_case(g, dev, case, B, S, H, Hkv, hd, window, dtype,
     """L3 against its plain version over a cache laid out as ``case``
     says (full, empty-*, ring-*), timed beside the bound and SDPA."""
     import torch
+    import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops as L3
     from repro_torch.kernels.decode_attention.ref import slot_valid
     if case.startswith("full"):
@@ -566,15 +612,84 @@ def _l3_case(g, dev, case, B, S, H, Hkv, hd, window, dtype,
     out, want = kern().float(), plain().float()
     err = float((out - want).abs().max())
     scale = max(float(want.abs().max()), 1.0)
+    # ms and library_ms: one call between events, the measure of every
+    # earlier row (it counts the host's enqueue of a ~0.1 ms kernel); beside
+    # them the device time per call in a CUDA graph, for both alike
     ms, pms = cuda_ms(kern, 20), cuda_ms(plain, 5)
-    lib = _sdpa_ms(q[:, None], k, v, 20,
-                   attn_mask=valid[None, None, None, :])
+    group = H // Hkv
+    qt = q[:, :, None]
+    kt, vt = (t.repeat_interleave(group, dim=2).transpose(1, 2)
+              for t in (k, v))
+    mask = valid[None, None, None, :]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+    lib = cuda_ms(sdpa, 20)
+    dev_ms, dev_lib = graph_ms(kern), graph_ms(sdpa)
+    # what one call between events costs for the least work: a one-element
+    # add_, whose enqueue and launch sit in the window as the kernel's do
+    one = torch.zeros(1, device=dev)
+    floor = cuda_ms(lambda: one.add_(1), 20)
+    del kt, vt
     elt = q.element_size()
-    bd = bound(2 * B * Hkv * hd * elt * n_valid + 2 * q.numel() * elt
-               + 4 * S, 4 * B * H * hd * n_valid, PEAK[dtype])
+    n_bytes = (2 * B * Hkv * hd * k.element_size() * n_valid
+               + 2 * q.numel() * elt + 4 * S)
+    bd = bound(n_bytes, 4 * B * H * hd * n_valid, PEAK[dtype])
+    n_splits, chunk = L3.split_plan(
+        B, Hkv, S, hd, torch.cuda.get_device_properties(dev)
+        .multi_processor_count)
+    if case.endswith("full-4096") and dtype == "bf16":
+        _l3_split_sweep(q, k, v, kv_pos, q_pos, n_splits, case, tag)
     del q, k, v
-    return _attn_line("decode_attention", case, dtype, err, scale,
-                      ATTN_TOL[dtype], ms, pms, bd, lib, tag=tag)
+    torch.cuda.empty_cache()
+    return _attn_line(
+        "decode_attention", case, dtype, err, scale, ATTN_TOL[dtype], ms,
+        pms, bd, lib, n_bytes, tag=tag,
+        note=(f" (one call each); device time per call (CUDA graph): kernel "
+              f"{dev_ms:.4f} ms ({n_bytes / dev_ms / 1e9:.3f} TB/s), SDPA "
+              f"{dev_lib:.4f} ms; one-call floor (a one-element add_) "
+              f"{floor:.4f} ms; {n_splits} splits of {chunk} slots"),
+        device_ms_per_call=dev_ms, library_device_ms_per_call=dev_lib,
+        device_tb_per_s=n_bytes / dev_ms / 1e9, one_call_floor_ms=floor,
+        splits=n_splits)
+
+
+def _l3_split_sweep(q, k, v, kv_pos, q_pos, n_plan, case, tag):
+    """Device ms per call of L3's kernels at other split counts than
+    ``split_plan``'s, through the C entry point (the wrapper's launch count
+    does not move): the measurement the plan's one-wave rule rests on."""
+    import torch
+    from repro_torch.kernels import build as BUILD
+    from repro_torch.kernels.decode_attention import ops as L3
+    B, H, hd = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    tiles = -(-S // L3.TILE)
+    found = {}
+    for n_try in (n_plan, 2 * n_plan, 4 * n_plan, 8 * n_plan,
+                  max(1, n_plan // 2)):
+        chunk = -(-tiles // n_try) * L3.TILE
+        nc = -(-S // chunk)
+        if nc in found:
+            continue
+        o = torch.empty_like(q)
+        part_acc = torch.empty((B, Hkv, nc, H // Hkv, hd),
+                               device=q.device)
+        part_ml = torch.empty((B, Hkv, nc, H // Hkv, 2), device=q.device)
+
+        def call():
+            BUILD.check(L3._lib()(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_pos.data_ptr(),
+                o.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), 1, 1,
+                B, S, H, Hkv, hd, q_pos, 0, chunk,
+                torch.cuda.current_stream().cuda_stream),
+                "decode_attention_launch")
+
+        found[nc] = graph_ms(call)
+    log(f"[{tag}] decode_attention {case} bf16 device ms by split count "
+        f"(B * Hkv = {B * Hkv} blocks per split; split_plan takes "
+        f"{n_plan}): " + ", ".join(f"{n}: {ms:.4f}"
+                                   for n, ms in sorted(found.items())))
 
 
 def phase_llm_parity(dev):
@@ -700,19 +815,37 @@ def phase_scan_parity(dev):
             n_bytes = 4 * (sum(t.numel() for t in args) + args[0].numel()
                            + args[-1].numel())
             bd = bound(n_bytes, 4 * B * S * H * P * N)
+            bytes_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
+            note = f"bytes alone {bytes_ms:.4f} ms"
+            if name == "ssd_chunk":
+                # L4 multiplies on the tensor cores in bf16, each product
+                # three times (hi.hi + hi.lo + lo.hi) over 64-step chunks:
+                # per head and chunk C S^T and (w x)^T B (128 P N each) and
+                # M X on the 10 lower-triangle 16 x 16 tiles (5,120 P); per
+                # batch row and chunk C B^T on 20 16 x 8 tiles (5,120 N).
+                # Its bound is the larger of those at the bf16 rate and the
+                # bytes
+                flops = 3 * B * (S // 64) * (H * (256 * P * N + 5120 * P)
+                                             + 5120 * N)
+                note += (f", f32 sequential operations {bd[0]:.4f} ms "
+                         f"(the first design's bound), bf16 split products "
+                         f"{1e3 * flops / BF16_FLOPS:.4f} ms")
+                bd = bound(n_bytes, flops, BF16_FLOPS)
             ok = finite and err <= SCAN_TOL * scale
             log(f"[scan-parity] {name} {case} fp32: max_abs_err {err:.3e} "
                 f"(tolerance {SCAN_TOL:.0e} x {scale:.3g} = "
                 f"{SCAN_TOL * scale:.3e}) {'ok' if ok else 'FAIL'}; kernel "
-                f"{ms:.3f} ms, plain {pms:.3f} ms, bound {bd[0]:.4f} ms "
-                f"({bd[1]}), library none")
+                f"{ms:.3f} ms ({n_bytes / ms / 1e9:.3f} TB/s), plain "
+                f"{pms:.3f} ms, bound {bd[0]:.4f} ms ({bd[1]}; {note}), "
+                f"library none")
             if not ok:
                 raise AssertionError(f"{name} {case} disagrees with its "
                                      "plain version")
             results[name].append(dict(case=case, dtype="fp32",
                                       max_abs_err=err, ms=ms, plain_ms=pms,
                                       bound_ms=bd[0], bound_by=bd[1],
-                                      library_ms=None))
+                                      library_ms=None,
+                                      tb_per_s=n_bytes / ms / 1e9))
             del args
             torch.cuda.empty_cache()
     return results
@@ -883,6 +1016,27 @@ def phase_serve(dev, arch, tag):
     return counts
 
 
+def device_time(prof):
+    """({kernel name: (device us, count)}, busy ms) of a ``torch.profiler``
+    run: busy is the union of the device activities' intervals, so that
+    work on overlapping streams is counted once and the busy share of the
+    wall cannot pass 100%."""
+    import torch
+    kernels, spans = {}, []
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us, n = kernels.get(ev.name, (0.0, 0))
+        kernels[ev.name] = (us + ev.time_range.elapsed_us(), n + 1)
+        spans.append((ev.time_range.start, ev.time_range.end))
+    busy, end = 0.0, float("-inf")
+    for lo, hi in sorted(spans):
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    return kernels, busy / 1e3
+
+
 def profile_decode(serve_step, params, cache, tokens, tag, n=3):
     """Re-run the last ``n`` decode steps (the cache is rewound; the same
     tokens rewrite the same slots) under ``torch.profiler``: device time
@@ -899,15 +1053,7 @@ def profile_decode(serve_step, params, cache, tokens, tag, n=3):
             serve_step(params, cache, tokens[:, t:t + 1])
         torch.cuda.synchronize()
         wall = time.time() - t0
-    kernels = {}
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = ev.self_cuda_time_total
-        kernels[ev.key] = (us, ev.count)
-    busy = sum(us for us, _ in kernels.values()) / 1e3
+    kernels, busy = device_time(prof)
     if not kernels:
         log(f"[{tag}-profile] the profiler recorded no device time: device "
             "busy share not measured")
@@ -1033,7 +1179,7 @@ def phase_l2_parity(dev):
             tol = _limit(L2_TOL[dtype], scale, dtype) / scale
             results.append(_attn_line(
                 "flash_attention_bwd", case, dtype, err, scale, tol, ms,
-                pms, bd, lib, tag="l2-parity"))
+                pms, bd, lib, n_bytes, tag="l2-parity"))
             del q, k, v, o, do, lse
             torch.cuda.empty_cache()
 
@@ -1244,19 +1390,11 @@ def profile_train_step(step_fn, params, opt, batch):
         out = step_fn(params, opt, batch)
         torch.cuda.synchronize()
         wall = time.time() - t0
-    kernels = {}
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = ev.self_cuda_time_total
-        kernels[ev.key] = (us, ev.count)
+    kernels, busy = device_time(prof)
     if not kernels:
         log("[llm-train-profile] the profiler recorded no device time: "
             "device busy share not measured")
         return out
-    busy = sum(us for us, _ in kernels.values()) / 1e3
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
     log(f"[llm-train-profile] one step under the profiler: wall "
         f"{1e3 * wall:.1f} ms, device busy {busy:.1f} ms "
@@ -1360,10 +1498,19 @@ def main():
             replaces="src/repro/kernels/flash_attention/kernel_bwd.py:108"),
         "decode_attention": dict(
             source="src/repro_torch/csrc/decode_attention.cu",
-            replaces="src/repro/kernels/decode_attention/kernel.py:70"),
+            replaces="src/repro/kernels/decode_attention/kernel.py:70",
+            design="pipelined split-KV: 32-slot K/V tiles in their own dtype "
+                   "in a 4-stage cp.async ring, lane groups per slot, f32 "
+                   "online softmax, split count from split_plan (one split "
+                   "writes the output, more add a combine launch); ms one "
+                   "call, device_ms_per_call in a CUDA graph"),
         "ssd_chunk": dict(
             source="src/repro_torch/csrc/ssd_chunk.cu",
-            replaces="src/repro/kernels/ssd_chunk/kernel.py:56"),
+            replaces="src/repro/kernels/ssd_chunk/kernel.py:56",
+            design="tensor-core SSD scan: mma.sync bf16 hi + lo split "
+                   "operands (3 products), C B^T shared by 2 heads per "
+                   "block, state in mma accumulators, cp.async double "
+                   "buffer"),
         "wkv6": dict(
             source="src/repro_torch/csrc/wkv6.cu",
             replaces="src/repro/kernels/wkv6/kernel.py:65"),
@@ -1376,7 +1523,11 @@ def main():
             name=name, route="cuda", source=m["source"],
             replaces=m["replaces"], launches=launches[name],
             **{k: main_case[k] for k in timed},
+            **{k: main_case[k] for k in ("device_ms_per_call",
+                                         "library_device_ms_per_call")
+               if k in main_case},
             case=main_case["case"], cases=llm_parity[name][1:],
+            **({"design": m["design"]} if "design" in m else {}),
             **({"launches_by_path": by_path[name]} if name in by_path
                else {}))
         if "f32_source" in m:

@@ -12,23 +12,41 @@
 // (B, H, hd) is written in q's dtype; zeros where no slot is valid.
 //
 // Bound on Hopper: bytes. Each valid slot's K and V rows are read once
-// (at B = 8, S = 4096, Hkv = 8, hd = 128, bf16: 134 MB, 40 us at
-// 3.35 TB/s) for 4 flops per byte-pair and query head; the card needs ~300
-// flops per byte before its arithmetic is the limit.
-// Design (split-S flash-decoding):
+// (B = 8, S = 4,096, bf16: 134 MB at Qwen3's Hkv = 8, hd = 128, 40 us at
+// 3.35 TB/s; 470 MB at zamba2's Hkv = 32, hd = 112, 140 us) for G flops
+// per byte (G = H / Hkv query heads per KV head: 4 and 1). The card's f32
+// rate limits only above ~20 flops per byte, so the arithmetic stays f32 on
+// the CUDA cores and the design is about keeping bytes in flight.
+// Design (pipelined split-KV flash-decoding):
 //   - the TPU grid (B, Hkv, S / 512) runs its S axis in order and carries
-//     (m, l, acc) in VMEM. At B = 8, Hkv = 8 that is 64 programs, too few
-//     for 132 SMs, so pass 1 cuts S into chunks of 256 slots: one block of
-//     128 threads per (b, kv head, chunk), 1024 blocks at S = 4096. It
-//     stages 64-slot K and V tiles in shared memory and reads each K/V row
-//     once for all `group` query heads of its KV head, keeps an online
-//     softmax per head, and writes partial (m, l, acc) per chunk.
-//   - pass 2 combines the partials of each (b, h): the cross-block
-//     reduction that the TPU did in its sequential grid.
-//   - validity comes from kv_pos per slot; a 64-slot tile with no valid
-//     slot is skipped without reading K/V, and invalid rows are not read
-//     (zeros are staged). A ragged S is masked here: the cache is never
-//     padded or copied. The wrapper allocates only the output and the
+//     (m, l, acc) in VMEM. Here S is cut into splits: one block of 4 warps
+//     per (split, kv head, b). The wrapper's split_plan picks as many
+//     splits as keep the grid to one wave of two blocks per SM (4 at
+//     Qwen3's 64 (b, kv head) pairs, 1 at zamba2's 256): on the H100 one
+//     wave beat 2-32 waves at both shapes, since a longer split pays its
+//     ring's fill and its partials once per more slots. With one split
+//     the block writes the output itself; with more, a second launch
+//     combines the splits' partials, the cross-block reduction that the
+//     TPU did in its grid.
+//   - K and V tiles of 32 slots stay in the cache's dtype in shared memory,
+//     in a ring of 4 stages (2 for f32) kept full by 16-byte cp.async with
+//     commit/wait groups: while one tile is consumed the next three are in
+//     flight. One barrier per tile. No f32 staging copy.
+//   - every lane works at any group size: a slot is read by a group of
+//     4, 8 or 16 lanes (hd / 8 rounded up to a power of two; at hd 112, 14
+//     of 16 lanes hold data), each lane holding 8 head-dim elements (16
+//     bytes of bf16) of q for every query head of the group in registers
+//     (beyond 4 heads, in shared memory). Scores are reduced by warp
+//     shuffles inside the lane group; each lane group keeps its own online
+//     softmax over its slots of each tile (4 at a time, one rescale per
+//     batch), and the 8-32 lane groups of the block are merged in shared
+//     memory at the end into one partial per head.
+//   - validity comes from kv_pos per slot (one warp ballot per tile, its
+//     positions loaded a tile ahead): a tile with no valid slot is neither
+//     read nor computed; an invalid slot inside a tile, and the ragged end
+//     of S, are zero-filled by cp.async (source size 0: nothing is read)
+//     and get no weight. The cache is never padded or copied; the wrapper
+//     allocates only the output and, with more than one split, the
 //     partials.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,20 +56,91 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kTS = 64;          // slots per staged tile
-constexpr int kHeadsPerThread = 16;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTS = 32;          // slots per ring tile: one warp ballot
+constexpr int kCh = 8;           // head-dim elements per lane (16 bytes)
 constexpr unsigned kFull = 0xffffffffu;
 
 template <typename T>
-__device__ __forceinline__ float to_f32(T x);
+struct KV;
 
 template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
+struct KV<float> {
+  static constexpr int kStages = 2;
+  static __device__ __forceinline__ void load(const float* p,
+                                              float (&x)[kCh]) {
+    const float4 u = *reinterpret_cast<const float4*>(p);
+    const float4 w = *reinterpret_cast<const float4*>(p + 4);
+    x[0] = u.x;
+    x[1] = u.y;
+    x[2] = u.z;
+    x[3] = u.w;
+    x[4] = w.x;
+    x[5] = w.y;
+    x[6] = w.z;
+    x[7] = w.w;
+  }
+};
 
 template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+struct KV<__nv_bfloat16> {
+  static constexpr int kStages = 4;
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              float (&x)[kCh]) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+      x[2 * i] = f.x;
+      x[2 * i + 1] = f.y;
+    }
+  }
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(src_bytes)
+               : "memory");
 }
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// how the lanes of a warp share the slots of a tile at head size HD
+template <int HD>
+struct Lanes {
+  static constexpr int kChunks = HD / kCh;   // lanes holding data: 4..16
+  static constexpr int kPerSlot = kChunks <= 4 ? 4 : kChunks <= 8 ? 8 : 16;
+  static constexpr int kGroups = kWarps * (32 / kPerSlot);
+  static constexpr int kSlots = kTS / kGroups;   // per group and tile
+  static_assert(HD % kCh == 0 && kChunks <= 16, "head size");
+};
+
+// dynamic shared memory: the K/V ring, reused at the end for the merge of
+// the lane groups' (m, l, acc); beyond 4 query heads per KV head (GB =
+// 16) q lives after it, in shared memory rather than registers
+template <int HD, int GB, typename TKV>
+struct Smem {
+  static constexpr bool kQShared = GB > 4;
+  static constexpr int kRow = HD * (int)sizeof(TKV);
+  static constexpr int kTile = kTS * kRow;
+  static constexpr int kRing = KV<TKV>::kStages * 2 * kTile;
+  static constexpr int kMerge = Lanes<HD>::kGroups * GB * (HD + 2) * 4;
+  static constexpr int kQ = kRing > kMerge ? kRing : kMerge;
+  static constexpr int kMasks = kQ + (kQShared ? GB * HD * 4 : 0);
+  static constexpr int kBytes = kMasks + KV<TKV>::kStages * 4;
+  static_assert(kRow % 16 == 0, "rows are whole 16-byte chunks");
+};
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -64,188 +153,267 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-template <typename T>
-__device__ __forceinline__ float4 load4(const T* p);
-
-template <>
-__device__ __forceinline__ float4 load4<float>(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-template <>
-__device__ __forceinline__ float4
-load4<__nv_bfloat16>(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-template <int HD>
-constexpr int smem_floats(int G) {
-  // q (G x HD), k tile (kTS x (HD + 4)), v tile (kTS x HD), scores
-  // (G x kTS), per-head m, l, corr
-  return G * HD + kTS * (HD + 4) + kTS * HD + G * kTS + 3 * G;
-}
-
-template <int HD, typename TQ, typename TKV>
+// One block per (split c, kv head hk, batch b): the partial (m, l, acc) of
+// each of the G query heads over slots [c * chunk, min(S, (c + 1) * chunk)).
+// When the grid has one split, part_acc is the output (B, H, hd) in q's
+// dtype, whose index is then the partials' own, and gets acc / l.
+// m is kept in log2 units (q is pre-scaled by log2(e) / sqrt(hd)). GB >= G
+// is the compile-time head count of the registers.
+template <int HD, int GB, typename TKV>
 __global__ void __launch_bounds__(kThreads)
-decode_partial_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
-                      const TKV* __restrict__ v,
-                      const int32_t* __restrict__ kv_pos,
-                      float* __restrict__ part_acc,
-                      float* __restrict__ part_ml, int S, int H, int Hkv,
-                      int q_pos, int window, int chunk, float scale) {
-  constexpr int LDK = HD + 4;
-  constexpr int TPH = kThreads / HD;  // threads sharing one column d
-  extern __shared__ float4 smem4[];
-  const int G = H / Hkv;
-  float* qs = reinterpret_cast<float*>(smem4);  // G x HD, scaled
-  float* ks = qs + G * HD;                      // kTS x LDK
-  float* vs = ks + kTS * LDK;                   // kTS x HD
-  float* ss = vs + kTS * HD;                    // G x kTS
-  float* m_s = ss + G * kTS;
-  float* l_s = m_s + G;
-  float* corr_s = l_s + G;
-  __shared__ int ok_s[kTS];
+decode_split_kernel(const void* __restrict__ q, int q_bf16,
+                    const TKV* __restrict__ k, const TKV* __restrict__ v,
+                    const int32_t* __restrict__ kv_pos,
+                    float* __restrict__ part_acc, float* __restrict__ part_ml,
+                    int S, int H, int Hkv, int q_pos, int window, int chunk,
+                    float qscale) {
+  using Ln = Lanes<HD>;
+  using Sm = Smem<HD, GB, TKV>;
+  constexpr int kStages = KV<TKV>::kStages;
+  constexpr int kLps = Ln::kPerSlot;
+  constexpr int kSpg = Ln::kSlots;
+  // slots scored per batch: bounded so that the scores fit registers
+  constexpr int kSb = kSpg < (16 / GB > 1 ? 16 / GB : 1)
+                          ? kSpg
+                          : (16 / GB > 1 ? 16 / GB : 1);
+  constexpr int kCpr = Sm::kRow / 16;
+  // at GB = 16 the batches stay a loop: unrolled, they spill
+  constexpr int kUnroll = GB > 4 ? 1 : kSpg / kSb;
+  static_assert(kSpg % kSb == 0, "batches tile a group's slots");
+  extern __shared__ __align__(16) unsigned char smem[];
 
+  const int G = H / Hkv;
   const int c = blockIdx.x;
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
-  const int t = threadIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int gl = lane % kLps;                       // lane in its group
+  const int grp = (tid >> 5) * (32 / kLps) + lane / kLps;
+  const bool active = gl < Ln::kChunks;
   const int s_lo = c * chunk;
   const int s_hi = min(S, s_lo + chunk);
-  const int64_t stride = (int64_t)Hkv * HD;
-  const TKV* kb = k + ((int64_t)b * S * Hkv + hk) * HD;
-  const TKV* vb = v + ((int64_t)b * S * Hkv + hk) * HD;
+  const int nt = (s_hi - s_lo + kTS - 1) / kTS;
+  const int64_t slot_bytes = (int64_t)Hkv * HD * (int64_t)sizeof(TKV);
+  const unsigned char* kb = reinterpret_cast<const unsigned char*>(
+      k + ((int64_t)b * S * Hkv + hk) * HD);
+  const unsigned char* vb = reinterpret_cast<const unsigned char*>(
+      v + ((int64_t)b * S * Hkv + hk) * HD);
 
-  const TQ* qb = q + ((int64_t)b * H + (int64_t)hk * G) * HD;
-  for (int i = t; i < G * HD; i += kThreads) qs[i] = to_f32<TQ>(qb[i]) * scale;
-  for (int g = t; g < G; g += kThreads) {
-    m_s[g] = -INFINITY;
-    l_s[g] = 0.f;
+  // this lane's q chunk of each head, scaled: in registers, or for GB = 16
+  // in shared memory (written by lane group 0, read after the first
+  // barrier of the tile loop)
+  float qr[Sm::kQShared ? 1 : GB][kCh];
+  float* qs = reinterpret_cast<float*>(smem + Sm::kQ);
+  {
+    const int64_t q0 = ((int64_t)b * H + (int64_t)hk * G) * HD + gl * kCh;
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      float x[kCh] = {};
+      if (g < G && active) {
+        if (q_bf16)
+          KV<__nv_bfloat16>::load(
+              static_cast<const __nv_bfloat16*>(q) + q0 + g * HD, x);
+        else
+          KV<float>::load(static_cast<const float*>(q) + q0 + g * HD, x);
+#pragma unroll
+        for (int e = 0; e < kCh; ++e) x[e] *= qscale;
+      }
+      if constexpr (Sm::kQShared) {
+        if (grp == 0 && active) {
+          float4* qd = reinterpret_cast<float4*>(qs + g * HD + gl * kCh);
+          qd[0] = make_float4(x[0], x[1], x[2], x[3]);
+          qd[1] = make_float4(x[4], x[5], x[6], x[7]);
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < kCh; ++e) qr[g][e] = x[e];
+      }
+    }
   }
 
-  // this thread's output column d and heads g0, g0 + TPH, ...; when HD
-  // does not divide kThreads (hd = 112) the last kThreads - TPH * HD
-  // threads own no column
-  const int d = t % HD;
-  const int g0 = t / HD;
-  const int nh = g0 < G && g0 < TPH ? (G - g0 + TPH - 1) / TPH : 0;
-  float acc[kHeadsPerThread];
+  // kv_pos of this lane's slot of tile t (-1 past the split), loaded one
+  // tile before its mask is needed; the masks of the tiles in the ring
+  // are kept in shared memory for their consumers
+  auto load_pos = [&](int t) -> int {
+    const int s = s_lo + t * kTS + lane;
+    return t < nt && s < s_hi ? kv_pos[s] : -1;
+  };
+  unsigned* masks = reinterpret_cast<unsigned*>(smem + Sm::kMasks);
+  // every thread issues its share of tile t's K and V rows (slot positions
+  // pos) and commits one group (empty for a tile with no valid slot)
+  auto issue = [&](int t, int pos) {
+    const unsigned mask = __ballot_sync(
+        kFull, pos >= 0 && pos <= q_pos &&
+                   (window <= 0 || pos > q_pos - window));
+    if (tid == 0) masks[t % kStages] = mask;
+    if (mask) {
+      unsigned char* ks = smem + (t % kStages) * 2 * Sm::kTile;
+      unsigned char* vs = ks + Sm::kTile;
+      const int s0 = s_lo + t * kTS;
+      for (int i = tid; i < kTS * kCpr; i += kThreads) {
+        const int r = i / kCpr;
+        const int cc = i % kCpr;
+        const bool ok = (mask >> r) & 1u;
+        const int64_t off = ok ? (int64_t)(s0 + r) * slot_bytes + cc * 16 : 0;
+        cp_async16(ks + r * Sm::kRow + cc * 16, kb + off, ok ? 16 : 0);
+        cp_async16(vs + r * Sm::kRow + cc * 16, vb + off, ok ? 16 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float m[GB], l[GB], acc[GB][kCh];
 #pragma unroll
-  for (int j = 0; j < kHeadsPerThread; ++j) acc[j] = 0.f;
+  for (int g = 0; g < GB; ++g) {
+    m[g] = -INFINITY;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < kCh; ++e) acc[g][e] = 0.f;
+  }
 
-  for (int s0 = s_lo; s0 < s_hi; s0 += kTS) {
-    __syncthreads();  // previous tile's reads done (and q, m, l written)
-    int ok = 0;
-    if (t < kTS) {
-      const int s = s0 + t;
-      if (s < s_hi) {
-        const int p = kv_pos[s];
-        ok = p >= 0 && p <= q_pos && (window <= 0 || p > q_pos - window);
-      }
-      ok_s[t] = ok;
-    }
-    if (!__syncthreads_or(ok)) continue;  // no valid slot in this tile
-
-    constexpr int V4 = HD / 4;
-    for (int i = t; i < kTS * V4; i += kThreads) {
-      const int r = i / V4;
-      const int cc = (i % V4) * 4;
-      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 vx = kx;
-      if (ok_s[r]) {
-        const int64_t off = (int64_t)(s0 + r) * stride + cc;
-        kx = load4<TKV>(kb + off);
-        vx = load4<TKV>(vb + off);
-      }
-      *reinterpret_cast<float4*>(ks + r * LDK + cc) = kx;
-      *reinterpret_cast<float4*>(vs + r * HD + cc) = vx;
-    }
-    __syncthreads();
-
-    for (int i = t; i < G * kTS; i += kThreads) {
-      const int g = i / kTS;
-      const int r = i % kTS;
-      float sc = -INFINITY;
-      if (ok_s[r]) {
-        const float* qr = qs + g * HD;
-        const float* kr = ks + r * LDK;
-        float a = 0.f;
-#pragma unroll 8
-        for (int dd = 0; dd < HD; dd += 4) {
-          const float4 qv = *reinterpret_cast<const float4*>(qr + dd);
-          const float4 kv = *reinterpret_cast<const float4*>(kr + dd);
-          a = fmaf(qv.x, kv.x, a);
-          a = fmaf(qv.y, kv.y, a);
-          a = fmaf(qv.z, kv.z, a);
-          a = fmaf(qv.w, kv.w, a);
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < nt)
+      issue(t, load_pos(t));
+    else
+      cp_async_commit();
+  }
+  int pos_next = load_pos(kStages - 1);
+  for (int t = 0; t < nt; ++t) {
+    cp_async_wait<kStages - 2>();   // this thread's copies of tile t landed
+    __syncthreads();                // everyone's; and tile t - 1 consumed
+    if (t + kStages - 1 < nt)
+      issue(t + kStages - 1, pos_next);   // into the stage tile t - 1 used
+    else
+      cp_async_commit();
+    pos_next = load_pos(t + kStages);
+    const unsigned mask = masks[t % kStages];
+    if (!mask) continue;
+    const TKV* kt =
+        reinterpret_cast<const TKV*>(smem + (t % kStages) * 2 * Sm::kTile);
+    const TKV* vt = kt + kTS * HD;
+#pragma unroll kUnroll
+    for (int sb = 0; sb < kSpg; sb += kSb) {
+      const int j0 = grp * kSpg + sb;
+      float sc[kSb][GB];
+#pragma unroll
+      for (int i = 0; i < kSb; ++i) {
+        float kx[kCh] = {};
+        if (active) KV<TKV>::load(kt + (j0 + i) * HD + gl * kCh, kx);
+#pragma unroll
+        for (int g = 0; g < GB; ++g) {
+          float qv[kCh];
+          if constexpr (Sm::kQShared) {
+            KV<float>::load(qs + g * HD + gl * kCh, qv);
+          } else {
+#pragma unroll
+            for (int e = 0; e < kCh; ++e) qv[e] = qr[g][e];
+          }
+          float a = qv[0] * kx[0];
+#pragma unroll
+          for (int e = 1; e < kCh; ++e) a = fmaf(qv[e], kx[e], a);
+          sc[i][g] = a;
         }
-        sc = a;
       }
-      ss[g * kTS + r] = sc;
+#pragma unroll
+      for (int off = kLps / 2; off > 0; off /= 2)
+#pragma unroll
+        for (int i = 0; i < kSb; ++i)
+#pragma unroll
+          for (int g = 0; g < GB; ++g)
+            sc[i][g] += __shfl_xor_sync(kFull, sc[i][g], off);
+#pragma unroll
+      for (int g = 0; g < GB; ++g) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int i = 0; i < kSb; ++i)
+          if ((mask >> (j0 + i)) & 1u) mx = fmaxf(mx, sc[i][g]);
+        const float m_new = fmaxf(m[g], mx);
+        const float m_safe = m_new == -INFINITY ? 0.f : m_new;
+        const float corr = m[g] == -INFINITY ? 0.f : exp2f(m[g] - m_safe);
+        float sum = 0.f;
+#pragma unroll
+        for (int i = 0; i < kSb; ++i) {
+          const float p =
+              ((mask >> (j0 + i)) & 1u) ? exp2f(sc[i][g] - m_safe) : 0.f;
+          sc[i][g] = p;
+          sum += p;
+        }
+        l[g] = fmaf(l[g], corr, sum);
+        m[g] = m_new;
+#pragma unroll
+        for (int e = 0; e < kCh; ++e) acc[g][e] *= corr;
+      }
+#pragma unroll
+      for (int i = 0; i < kSb; ++i) {
+        float vx[kCh] = {};
+        if (active) KV<TKV>::load(vt + (j0 + i) * HD + gl * kCh, vx);
+#pragma unroll
+        for (int g = 0; g < GB; ++g)
+#pragma unroll
+          for (int e = 0; e < kCh; ++e)
+            acc[g][e] = fmaf(sc[i][g], vx[e], acc[g][e]);
+      }
     }
-    __syncthreads();
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // the ring is free: merge the lane groups through it
 
-    // online softmax, one warp per head
-    const int warp = t / 32;
-    const int lane = t % 32;
-    for (int g = warp; g < G; g += kThreads / 32) {
-      const float a = ss[g * kTS + lane];
-      const float bb = ss[g * kTS + lane + 32];
-      float mx = fmaxf(a, bb);
+  float* red_ml = reinterpret_cast<float*>(smem);    // [group][GB][2]
+  float* red_acc = red_ml + Ln::kGroups * GB * 2;    // [group][GB][HD]
 #pragma unroll
-      for (int off = 16; off > 0; off /= 2)
-        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
-      const float m_prev = m_s[g];
-      const float m_new = fmaxf(m_prev, mx);
-      const float m_safe = isinf(m_new) ? 0.f : m_new;
-      const float pa = a == -INFINITY ? 0.f : expf(a - m_safe);
-      const float pb = bb == -INFINITY ? 0.f : expf(bb - m_safe);
-      ss[g * kTS + lane] = pa;
-      ss[g * kTS + lane + 32] = pb;
-      float sum = pa + pb;
-#pragma unroll
-      for (int off = 16; off > 0; off /= 2)
-        sum += __shfl_xor_sync(kFull, sum, off);
-      if (lane == 0) {
-        const float corr = isinf(m_prev) ? 0.f : expf(m_prev - m_safe);
-        corr_s[g] = corr;
-        l_s[g] = l_s[g] * corr + sum;
-        m_s[g] = m_new;
-      }
+  for (int g = 0; g < GB; ++g) {
+    if (gl == 0) {
+      red_ml[(grp * GB + g) * 2] = m[g];
+      red_ml[(grp * GB + g) * 2 + 1] = l[g];
     }
-    __syncthreads();
-
-#pragma unroll
-    for (int j = 0; j < kHeadsPerThread; ++j) {
-      if (j < nh) {
-        const int g = g0 + j * TPH;
-        const float* pr = ss + g * kTS;
-        float a = acc[j] * corr_s[g];
-#pragma unroll 8
-        for (int r = 0; r < kTS; ++r) a = fmaf(pr[r], vs[r * HD + d], a);
-        acc[j] = a;
-      }
+    if (active) {
+      float4* ra =
+          reinterpret_cast<float4*>(red_acc + (grp * GB + g) * HD + gl * kCh);
+      ra[0] = make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+      ra[1] = make_float4(acc[g][4], acc[g][5], acc[g][6], acc[g][7]);
     }
   }
   __syncthreads();
-
   const int64_t base = (((int64_t)b * Hkv + hk) * gridDim.x + c) * G;
+  for (int i = tid; i < G * HD; i += kThreads) {
+    const int g = i / HD;
+    const int d = i % HD;
+    float M = -INFINITY;
 #pragma unroll
-  for (int j = 0; j < kHeadsPerThread; ++j)
-    if (j < nh) part_acc[(base + g0 + j * TPH) * HD + d] = acc[j];
-  for (int g = t; g < G; g += kThreads) {
-    part_ml[(base + g) * 2] = m_s[g];
-    part_ml[(base + g) * 2 + 1] = l_s[g];
+    for (int n = 0; n < Ln::kGroups; ++n)
+      M = fmaxf(M, red_ml[(n * GB + g) * 2]);
+    float L = 0.f, A = 0.f;
+    if (M != -INFINITY) {
+#pragma unroll
+      for (int n = 0; n < Ln::kGroups; ++n) {
+        const float mn = red_ml[(n * GB + g) * 2];
+        if (mn == -INFINITY) continue;
+        const float w = exp2f(mn - M);
+        L = fmaf(red_ml[(n * GB + g) * 2 + 1], w, L);
+        A = fmaf(red_acc[(n * GB + g) * HD + d], w, A);
+      }
+    }
+    if (gridDim.x == 1) {   // the only split: no combine follows
+      const float x = A / fmaxf(L, 1e-30f);
+      if (q_bf16)
+        reinterpret_cast<__nv_bfloat16*>(part_acc)[(base + g) * HD + d] =
+            from_f32<__nv_bfloat16>(x);
+      else
+        part_acc[(base + g) * HD + d] = x;
+      continue;
+    }
+    part_acc[(base + g) * HD + d] = A;
+    if (d == 0) {
+      part_ml[(base + g) * 2] = M;
+      part_ml[(base + g) * 2 + 1] = L;
+    }
   }
 }
 
-// One block of hd threads per (b, h): o = sum_c acc_c e^(m_c - M) /
-// sum_c l_c e^(m_c - M), M = max_c m_c over chunks that saw a valid slot.
+// One block of hd threads per (b, h): o = sum_c acc_c 2^(m_c - M) /
+// sum_c l_c 2^(m_c - M), M = max_c m_c over splits that saw a valid slot.
 template <typename TO>
 __global__ void decode_combine_kernel(const float* __restrict__ part_acc,
                                       const float* __restrict__ part_ml,
@@ -263,12 +431,12 @@ __global__ void decode_combine_kernel(const float* __restrict__ part_acc,
   for (int c = 0; c < n_chunks; ++c)
     M = fmaxf(M, part_ml[((row0 + c) * G + g) * 2]);
   float L = 0.f, A = 0.f;
-  if (!isinf(M)) {
+  if (M != -INFINITY) {
     for (int c = 0; c < n_chunks; ++c) {
       const int64_t r = (row0 + c) * G + g;
       const float mc = part_ml[r * 2];
-      if (isinf(mc)) continue;
-      const float w = expf(mc - M);
+      if (mc == -INFINITY) continue;
+      const float w = exp2f(mc - M);
       L = fmaf(part_ml[r * 2 + 1], w, L);
       A = fmaf(part_acc[r * hd + d], w, A);
     }
@@ -276,48 +444,76 @@ __global__ void decode_combine_kernel(const float* __restrict__ part_acc,
   o[((int64_t)b * H + h) * hd + d] = from_f32<TO>(A / fmaxf(L, 1e-30f));
 }
 
-template <int HD, typename TQ, typename TKV>
-cudaError_t launch(const void* q, const void* k, const void* v,
+template <int HD, int GB, typename TKV>
+cudaError_t launch(const void* q, int q_bf16, const void* k, const void* v,
                    const int32_t* kv_pos, void* o, float* part_acc,
                    float* part_ml, int B, int S, int H, int Hkv, int q_pos,
                    int window, int chunk, cudaStream_t st) {
-  const int G = H / Hkv;
-  if (G > kHeadsPerThread * (kThreads / HD)) return cudaErrorInvalidValue;
-  auto kern = decode_partial_kernel<HD, TQ, TKV>;
-  const int bytes = (int)sizeof(float) * smem_floats<HD>(G);
+  auto kern = decode_split_kernel<HD, GB, TKV>;
+  constexpr int bytes = Smem<HD, GB, TKV>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const int n_chunks = (S + chunk - 1) / chunk;
   kern<<<dim3(n_chunks, Hkv, B), kThreads, bytes, st>>>(
-      static_cast<const TQ*>(q), static_cast<const TKV*>(k),
-      static_cast<const TKV*>(v), kv_pos, part_acc, part_ml, S, H, Hkv, q_pos,
-      window, chunk, 1.0f / sqrtf((float)HD));
+      q, q_bf16, static_cast<const TKV*>(k), static_cast<const TKV*>(v),
+      kv_pos, n_chunks == 1 ? static_cast<float*>(o) : part_acc, part_ml, S,
+      H, Hkv, q_pos, window, chunk,
+      1.4426950408889634f / sqrtf((float)HD));
   err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  decode_combine_kernel<TQ><<<B * H, HD, 0, st>>>(
-      part_acc, part_ml, static_cast<TQ*>(o), H, Hkv, HD, n_chunks);
+  if (err != cudaSuccess || n_chunks == 1) return err;
+  if (q_bf16)
+    decode_combine_kernel<__nv_bfloat16><<<B * H, HD, 0, st>>>(
+        part_acc, part_ml, static_cast<__nv_bfloat16*>(o), H, Hkv, HD,
+        n_chunks);
+  else
+    decode_combine_kernel<float><<<B * H, HD, 0, st>>>(
+        part_acc, part_ml, static_cast<float*>(o), H, Hkv, HD, n_chunks);
   return cudaGetLastError();
 }
 
-template <typename TQ, typename TKV>
-cudaError_t dispatch(int hd, const void* q, const void* k, const void* v,
-                     const int32_t* kv_pos, void* o, float* part_acc,
-                     float* part_ml, int B, int S, int H, int Hkv, int q_pos,
-                     int window, int chunk, cudaStream_t st) {
+template <int HD, typename TKV>
+cudaError_t by_group(int G, const void* q, int q_bf16, const void* k,
+                     const void* v, const int32_t* kv_pos, void* o,
+                     float* part_acc, float* part_ml, int B, int S, int H,
+                     int Hkv, int q_pos, int window, int chunk,
+                     cudaStream_t st) {
+  if (G == 1)
+    return launch<HD, 1, TKV>(q, q_bf16, k, v, kv_pos, o, part_acc, part_ml,
+                              B, S, H, Hkv, q_pos, window, chunk, st);
+  if (G <= 4)
+    return launch<HD, 4, TKV>(q, q_bf16, k, v, kv_pos, o, part_acc, part_ml,
+                              B, S, H, Hkv, q_pos, window, chunk, st);
+  if (G <= 16)
+    return launch<HD, 16, TKV>(q, q_bf16, k, v, kv_pos, o, part_acc,
+                               part_ml, B, S, H, Hkv, q_pos, window, chunk,
+                               st);
+  return cudaErrorInvalidValue;
+}
+
+template <typename TKV>
+cudaError_t dispatch(int hd, int G, const void* q, int q_bf16, const void* k,
+                     const void* v, const int32_t* kv_pos, void* o,
+                     float* part_acc, float* part_ml, int B, int S, int H,
+                     int Hkv, int q_pos, int window, int chunk,
+                     cudaStream_t st) {
   switch (hd) {
     case 32:
-      return launch<32, TQ, TKV>(q, k, v, kv_pos, o, part_acc, part_ml, B, S,
-                                 H, Hkv, q_pos, window, chunk, st);
+      return by_group<32, TKV>(G, q, q_bf16, k, v, kv_pos, o, part_acc,
+                               part_ml, B, S, H, Hkv, q_pos, window, chunk,
+                               st);
     case 64:
-      return launch<64, TQ, TKV>(q, k, v, kv_pos, o, part_acc, part_ml, B, S,
-                                 H, Hkv, q_pos, window, chunk, st);
+      return by_group<64, TKV>(G, q, q_bf16, k, v, kv_pos, o, part_acc,
+                               part_ml, B, S, H, Hkv, q_pos, window, chunk,
+                               st);
     case 112:  // zamba2's shared attention block
-      return launch<112, TQ, TKV>(q, k, v, kv_pos, o, part_acc, part_ml, B, S,
-                                  H, Hkv, q_pos, window, chunk, st);
+      return by_group<112, TKV>(G, q, q_bf16, k, v, kv_pos, o, part_acc,
+                                part_ml, B, S, H, Hkv, q_pos, window, chunk,
+                                st);
     case 128:
-      return launch<128, TQ, TKV>(q, k, v, kv_pos, o, part_acc, part_ml, B, S,
-                                  H, Hkv, q_pos, window, chunk, st);
+      return by_group<128, TKV>(G, q, q_bf16, k, v, kv_pos, o, part_acc,
+                                part_ml, B, S, H, Hkv, q_pos, window, chunk,
+                                st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -327,8 +523,10 @@ cudaError_t dispatch(int hd, const void* q, const void* k, const void* v,
 
 // q: (B, H, hd); k, v: (B, S, Hkv, hd); kv_pos: (S,) int32; o: (B, H, hd)
 // in q's dtype; part_acc: (B, Hkv, n_chunks, H / Hkv, hd) f32 and part_ml:
-// (B, Hkv, n_chunks, H / Hkv, 2) f32 scratch, n_chunks = ceil(S / chunk).
-// q_bf16 / kv_bf16 pick bf16 over f32. Returns a cudaError_t.
+// (B, Hkv, n_chunks, H / Hkv, 2) f32 scratch, n_chunks = ceil(S / chunk),
+// chunk a multiple of 32 slots; with n_chunks = 1 they are not touched
+// (may be null). H / Hkv <= 16. q_bf16 / kv_bf16 pick bf16 over f32.
+// Returns a cudaError_t.
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, const void* kv_pos,
                                        void* o, void* part_acc, void* part_ml,
@@ -343,19 +541,13 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
   const int32_t* pos = static_cast<const int32_t*>(kv_pos);
   float* pa = static_cast<float*>(part_acc);
   float* pm = static_cast<float*>(part_ml);
+  const int G = H / Hkv;
   cudaError_t err;
-  if (q_bf16 && kv_bf16)
-    err = dispatch<__nv_bfloat16, __nv_bfloat16>(hd, q, k, v, pos, o, pa, pm,
-                                                 B, S, H, Hkv, q_pos, window,
-                                                 chunk, st);
-  else if (q_bf16)
-    err = dispatch<__nv_bfloat16, float>(hd, q, k, v, pos, o, pa, pm, B, S, H,
-                                         Hkv, q_pos, window, chunk, st);
-  else if (kv_bf16)
-    err = dispatch<float, __nv_bfloat16>(hd, q, k, v, pos, o, pa, pm, B, S, H,
-                                         Hkv, q_pos, window, chunk, st);
+  if (kv_bf16)
+    err = dispatch<__nv_bfloat16>(hd, G, q, q_bf16, k, v, pos, o, pa, pm, B,
+                                  S, H, Hkv, q_pos, window, chunk, st);
   else
-    err = dispatch<float, float>(hd, q, k, v, pos, o, pa, pm, B, S, H, Hkv,
-                                 q_pos, window, chunk, st);
+    err = dispatch<float>(hd, G, q, q_bf16, k, v, pos, o, pa, pm, B, S, H,
+                          Hkv, q_pos, window, chunk, st);
   return (int)err;
 }

@@ -7,267 +7,449 @@
 // by dt, B_t and C_t (N) shared by all heads, and S (P, N) the state:
 //   S_t = exp(a_t) S_{t-1} + xdt_t B_t^T,   y_t = S_t C_t.
 // Chunk by chunk, with L_t = sum_{s <= t} a_s inside the chunk:
-//   y_t = exp(L_t) (S C_t) + sum_{j <= t} (C_t . B_j) exp(L_t - L_j) xdt_j
+//   y_t = exp(L_t) (C_t S^T) + sum_{j <= t} (C_t . B_j) exp(L_t - L_j) xdt_j
 //   S'  = exp(L_last) S + sum_j exp(L_last - L_j) xdt_j B_j^T
 // Every exponent is <= 0 (exp(L_t - L_j) is formed from the difference,
 // never as exp(L_t) / exp(L_j)), so no decay underflows a term that
 // matters and nothing overflows. f32 in, f32 out.
 //
-// Bound on Hopper: operations. At zamba2's prefill shape (B = 8, S = 4096,
-// H = 112, P = N = 64) one call moves 1.94 GB (xdt and y dominate) and
-// does ~75 GFLOP in f32 (the two triangles, S C and the state update);
-// the kernel multiplies on the CUDA cores, as the TPU kernel does in f32.
-// Design:
+// Bound on Hopper: bytes, once the products are on the tensor cores. At
+// zamba2's prefill shape (B = 8, S = 4,096, H = 112, P = N = 64) one call
+// moves 1.94 GB (xdt in, y out: 0.579 ms at 3.35 TB/s); the recurrence's
+// own 60 GFLOP would take 0.898 ms on the CUDA cores' f32 (the first
+// design did ~1.5x that there, 4.2 ms). Design:
 //   - the TPU's sequential lax.scan over 128-step chunks becomes a loop
-//     inside one block per (b, h), with the (P, N) state in shared memory:
-//     one launch per layer, 896 blocks at B = 8, H = 112.
-//   - the block's chunk is 64 steps, not 128: on the CUDA cores the
-//     intra-chunk triangle costs ~T per step, so T = 64 does ~25% fewer
-//     operations than T = 128 and halves the shared memory (88 KB at
-//     P = N = 64, two blocks per SM). The result is the same recurrence;
-//     only rounding differs.
-//   - causal structure is loop bounds: thread (ty, tx) of 16 x 16 owns
-//     rows t = ty + 16 i and columns tx + 16 k, and only the blocks with
-//     k <= i of the (t, j) triangle are formed or read; the diagonal
-//     blocks zero j > t.
-//   - C B^T is recomputed by each head although B and C are shared by
-//     all heads (B and C are read from L2 after the first head); forming
-//     it once per (b, chunk) for all heads is later work, as are wgmma
-//     and TMA.
+//     over 64-step chunks inside one block of 8 warps per (b, pair of
+//     heads). Each head's (P, N) state stays in its warps' mma
+//     accumulators for the whole sequence: warp wi owns state rows and y
+//     columns 16 wi .. 16 wi + 15, so its accumulator tile is, as it
+//     stands, the B operand of the next chunk's C S^T. The (T, T) decay
+//     scores never leave the block (the reference kernel's reason to be).
+//   - the four products C B^T, M X, C S^T and (w x)^T B run on the tensor
+//     cores as mma.sync m16n8k16 with bf16 operands and f32 accumulators.
+//     The inputs are f32 and the parity limit is 1e-4 of the largest
+//     value, which one bf16 (or TF32) rounding does not hold, so each
+//     operand is split as x = hi + lo, both bf16 (round to nearest even),
+//     and each product is hi.hi + hi.lo + lo.hi (about 16 bits; the lo.lo
+//     term is dropped). bf16 rather than TF32 because the k-16 bf16 mma
+//     does twice the work per instruction at the same issue rate, and the
+//     kernel is bound by what its warps issue, not by bytes (PERF.md).
+//   - C B^T is the same for every head of a batch row: the block forms it
+//     once per chunk, on the 20 lower-triangle 16 x 8 tiles only, for its
+//     two heads, and each head applies its own mask exp(L_t - L_j) when it
+//     forms M's fragments. Two heads per block keeps shared memory at
+//     159 KB (one block per SM: 448 blocks at B = 8, H = 112, 3.4 waves).
+//   - the next chunk's xdt, B, C and a are in flight (cp.async, two
+//     buffers) while this chunk computes; two barriers per chunk.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kT = 64;          // steps per chunk in the block
-constexpr int kThreads = 256;   // 16 x 16
+constexpr int kT = 64;              // steps per chunk
+constexpr int kHB = 2;              // heads per block
+constexpr int kWarpsPerHead = 4;
+constexpr int kWarps = kWarpsPerHead * kHB;
+constexpr int kThreads = 32 * kWarps;
 constexpr unsigned kFull = 0xffffffffu;
-static_assert(kT == 64, "the cumulative sum takes 2 steps per lane");
+constexpr float kLog2e = 1.4426950408889634f;
+static_assert(kT == 64 && kWarpsPerHead == 4,
+              "the scan takes 2 steps per lane; 4 row tiles of 16 steps");
 
+// shared memory, in floats. Every leading dimension is 4 mod 32, which
+// keeps the fragment loads free of bank conflicts: pairs of adjacent
+// columns (t, n) or (n, j), and pairs of adjacent rows (j, p) or (j, n)
 template <int P, int N>
-struct Layout {                  // shared memory, in floats
-  static constexpr int LDX = P + 4;
-  static constexpr int LDN = N + 4;
-  static constexpr int LDM = kT + 4;
-  static constexpr int x = 0;                  // kT x LDX   xdt rows
-  static constexpr int b = x + kT * LDX;       // kT x LDN   B rows
-  static constexpr int c = b + kT * LDN;       // kT x LDN   C rows
-  static constexpr int s = c + kT * LDN;       // P x LDN    state
-  static constexpr int m = s + P * LDN;        // kT x LDM   (C.B) e^{L_t-L_j}
-  static constexpr int L = m + kT * LDM;       // kT         L_t
-  static constexpr int eL = L + kT;            // kT         exp(L_t)
-  static constexpr int w = eL + kT;            // kT         exp(L_last - L_t)
-  static constexpr int floats = w + kT;
+struct Layout {
+  static constexpr int LDX = P + 4;    // xdt rows (j, p)
+  static constexpr int LDB = N + 4;    // B rows (j, n)
+  static constexpr int LDC = N + 4;    // C rows (t, n)
+  static constexpr int LDG = kT + 4;   // C B^T (t, j)
+  // one buffer of a chunk's inputs
+  static constexpr int x = 0;                       // kHB x kT x LDX
+  static constexpr int b = x + kHB * kT * LDX;      // kT x LDB
+  static constexpr int c = b + kT * LDB;            // kT x LDC
+  static constexpr int a = c + kT * LDC;            // kHB x kT
+  static constexpr int buf = a + kHB * kT;
+  static constexpr int g = 2 * buf;                 // kT x LDG  C B^T
+  static constexpr int L = g + kT * LDG;            // kHB x kT  L_t log2(e)
+  static constexpr int eL = L + kHB * kT;           // kHB x kT  exp(L_t)
+  static constexpr int w = eL + kHB * kT;   // kHB x kT  exp(L_last - L_t)
+  static constexpr int floats = w + kHB * kT;
+  static_assert(b % 4 == 0 && c % 4 == 0 && a % 4 == 0 && buf % 4 == 0,
+                "cp.async destinations are 16-byte aligned");
 };
 
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
 }
 
-// rows [0, kT) of a (rows, stride) f32 matrix starting at src into shared
-// memory with leading dimension LD; W floats per row, W % 4 == 0
-template <int W, int LD>
-__device__ __forceinline__ void stage(float* dst, const float* src,
-                                      int64_t stride) {
-  constexpr int V = W / 4;
-  for (int i = threadIdx.x; i < kT * V; i += kThreads) {
-    const int r = i / V;
-    const int col = (i % V) * 4;
-    *reinterpret_cast<float4*>(dst + r * LD + col) =
-        *reinterpret_cast<const float4*>(src + r * stride + col);
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (x, y) = hi + lo, each a bf16 pair (x in the low half: the lower k)
+__device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = as_u32(h);
+  lo = as_u32(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+}
+
+// Fragments of mma m16n8k16 (PTX), lane = 4 g + t. A (16 x 16, rows r,
+// depth k): registers (g, 2t..2t+1), (g + 8, 2t..), (g, 2t + 8..),
+// (g + 8, 2t + 8..). B (16 x 8): (2t..2t+1, g), (2t + 8.., g). The
+// accumulator: (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
+struct FragA {   // split
+  uint32_t hi[4], lo[4];
+  __device__ __forceinline__ void set(float2 p0, float2 p1, float2 p2,
+                                      float2 p3) {
+    split2(p0.x, p0.y, hi[0], lo[0]);
+    split2(p1.x, p1.y, hi[1], lo[1]);
+    split2(p2.x, p2.y, hi[2], lo[2]);
+    split2(p3.x, p3.y, hi[3], lo[3]);
   }
+  // rows r0 + g (+ 8), depth k0 + 2t (+ 1, + 8, + 9) of a row-major matrix
+  __device__ __forceinline__ void rows(const float* m, int ld, int r0,
+                                       int k0, int g, int t) {
+    const float* p = m + (r0 + g) * ld + k0 + 2 * t;
+    set(*reinterpret_cast<const float2*>(p),
+        *reinterpret_cast<const float2*>(p + 8 * ld),
+        *reinterpret_cast<const float2*>(p + 8),
+        *reinterpret_cast<const float2*>(p + 8 * ld + 8));
+  }
+};
+
+struct FragB {   // split
+  uint32_t hi[2], lo[2];
+  __device__ __forceinline__ void set(float2 p0, float2 p1) {
+    split2(p0.x, p0.y, hi[0], lo[0]);
+    split2(p1.x, p1.y, hi[1], lo[1]);
+  }
+  // column n0 + g, depth k0 + 2t (+ 1, + 8, + 9) of a matrix stored as
+  // rows n (depth contiguous)
+  __device__ __forceinline__ void rows(const float* m, int ld, int n0,
+                                       int k0, int g, int t) {
+    const float* p = m + (n0 + g) * ld + k0 + 2 * t;
+    set(*reinterpret_cast<const float2*>(p),
+        *reinterpret_cast<const float2*>(p + 8));
+  }
+  // column n0 + g, depth k0 + 2t (+ 1, + 8, + 9) of a matrix stored as
+  // rows k (columns n contiguous)
+  __device__ __forceinline__ void cols(const float* m, int ld, int n0,
+                                       int k0, int g, int t) {
+    const float* p = m + (k0 + 2 * t) * ld + n0 + g;
+    set(make_float2(p[0], p[ld]), make_float2(p[8 * ld], p[9 * ld]));
+  }
+};
+
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// d += a b in about 16 bits: the two small cross terms, then hi.hi
+__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
+                                     const FragB& b) {
+  mma(d, a.lo, b.hi);
+  mma(d, a.hi, b.lo);
+  mma(d, a.hi, b.hi);
+}
+
+// Warp wi of a head owns state rows and y columns 16 wi .. 16 wi + 15, so
+// P / 16 of its 4 warps (all 4 at P = 64) scan; all 8 warps form C B^T.
 template <int P, int N>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, 1)
 ssd_scan_kernel(const float* __restrict__ xdt, const float* __restrict__ a,
                 const float* __restrict__ Bm, const float* __restrict__ Cm,
-                const float* __restrict__ s0, float* __restrict__ y,
-                float* __restrict__ s1, int S, int H) {
+                const float* s0, float* y, float* s1, int S, int H) {
   using Lay = Layout<P, N>;
-  constexpr int LDX = Lay::LDX, LDN = Lay::LDN, LDM = Lay::LDM;
-  constexpr int KP = P / 16;   // p columns (y) or p rows (state) a thread
-  constexpr int KN = N / 16;   // n columns of the state a thread owns
+  constexpr int LDX = Lay::LDX, LDB = Lay::LDB, LDC = Lay::LDC,
+                LDG = Lay::LDG;
+  constexpr int NTS = N / 8;   // state column tiles of a warp
+  static_assert(P % 16 == 0 && P / 16 <= kWarpsPerHead && N % 16 == 0,
+                "shape");
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  float* xs = sm + Lay::x;
-  float* bs = sm + Lay::b;
-  float* cs = sm + Lay::c;
-  float* ss = sm + Lay::s;
-  float* ms = sm + Lay::m;
-  float* Ls = sm + Lay::L;
-  float* eLs = sm + Lay::eL;
-  float* ws = sm + Lay::w;
 
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
   const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int64_t x_stride = (int64_t)H * P;
-  const int64_t bh = (int64_t)b * H + h;
+  const int lane = tid & 31;
+  const int wid = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int hh = wid / kWarpsPerHead;   // this warp's head in the block
+  const int wi = wid % kWarpsPerHead;   // and its place among that head's
+  const int h0 = blockIdx.x * kHB;
+  const int h = h0 + hh;
+  const bool live = h < H;              // an odd H leaves one head idle
+  const bool scans = live && wi < P / 16;
+  const int b = blockIdx.y;
+  float* Gs = sm + Lay::g;
+  float* Ls = sm + Lay::L + hh * kT;
+  float* eLs = sm + Lay::eL + hh * kT;
+  float* ws = sm + Lay::w + hh * kT;
 
-  for (int i = tid; i < P * N / 4; i += kThreads) {
-    const int p = i / (N / 4);
-    const int n = (i % (N / 4)) * 4;
-    *reinterpret_cast<float4*>(ss + p * LDN + n) =
-        *reinterpret_cast<const float4*>(s0 + (bh * P + p) * N + n);
+  // this warp's state tile, rows pr0 + g (+ 8), columns 8 j + 2t (+ 1), in
+  // mma accumulators for the whole sequence
+  const int pr0 = 16 * wi;
+  const int64_t bh = (int64_t)b * H + h;
+  float st[NTS][4];
+#pragma unroll
+  for (int j = 0; j < NTS; ++j) {
+    float2 lo2 = make_float2(0.f, 0.f), hi2 = lo2;
+    if (scans) {
+      const float* row = s0 + (bh * P + pr0 + g) * N + 8 * j + 2 * t;
+      lo2 = *reinterpret_cast<const float2*>(row);
+      hi2 = *reinterpret_cast<const float2*>(row + 8 * N);
+    }
+    st[j][0] = lo2.x;
+    st[j][1] = lo2.y;
+    st[j][2] = hi2.x;
+    st[j][3] = hi2.y;
   }
 
-  for (int c0 = 0; c0 < S; c0 += kT) {
-    __syncthreads();  // the previous chunk's reads of x, B and w are done
+  // one chunk's xdt (both heads), B, C and a into buffer `buf`
+  auto issue = [&](int c0, int buf) {
+    float* base = sm + buf * Lay::buf;
     const int64_t row0 = (int64_t)b * S + c0;
-    stage<P, LDX>(xs, xdt + (row0 * H + h) * P, x_stride);
-    stage<N, LDN>(bs, Bm + row0 * N, N);
-    stage<N, LDN>(cs, Cm + row0 * N, N);
-    if (tid < 32) {
-      // inclusive scan of the chunk's 64 log decays, two per lane
-      float v0 = a[(row0 + tid) * H + h];
-      float v1 = a[(row0 + tid + 32) * H + h];
+    constexpr int XV = P / 4;
+    for (int i = tid; i < kHB * kT * XV; i += kThreads) {
+      const int q = i / (kT * XV);
+      const int r = (i / XV) % kT;
+      const int col = (i % XV) * 4;
+      if (h0 + q < H)
+        cp_async16(base + Lay::x + (q * kT + r) * LDX + col,
+                   xdt + ((row0 + r) * H + h0 + q) * P + col);
+    }
+    constexpr int NV = N / 4;
+    for (int i = tid; i < kT * NV; i += kThreads) {
+      const int r = i / NV;
+      const int col = (i % NV) * 4;
+      cp_async16(base + Lay::b + r * LDB + col, Bm + (row0 + r) * N + col);
+      cp_async16(base + Lay::c + r * LDC + col, Cm + (row0 + r) * N + col);
+    }
+    for (int i = tid; i < kHB * kT; i += kThreads) {
+      const int q = i / kT;
+      const int r = i % kT;
+      if (h0 + q < H)
+        cp_async4(base + Lay::a + i, a + (row0 + r) * H + h0 + q);
+    }
+    cp_async_commit();
+  };
+
+  const int n_chunks = S / kT;
+  if (n_chunks > 0) issue(0, 0);
+  for (int ci = 0; ci < n_chunks; ++ci) {
+    const int buf = ci & 1;
+    cp_async_wait_all();
+    __syncthreads();   // chunk ci is in; every read of chunk ci - 1 is done
+    if (ci + 1 < n_chunks)
+      issue((ci + 1) * kT, buf ^ 1);   // in flight while chunk ci computes
+    const float* base = sm + buf * Lay::buf;
+    const float* Xs = base + Lay::x + hh * kT * LDX;
+    const float* Bs = base + Lay::b;
+    const float* Cs = base + Lay::c;
+
+    // the head's log decays in log2 units: L, exp(L), exp(L_last - L)
+    if (wi == 0 && live) {
+      const float* As = base + Lay::a + hh * kT;
+      float v0 = As[lane];
+      float v1 = As[lane + 32];
 #pragma unroll
       for (int off = 1; off < 32; off *= 2) {
         const float u0 = __shfl_up_sync(kFull, v0, off);
         const float u1 = __shfl_up_sync(kFull, v1, off);
-        if (tid >= off) {
+        if (lane >= off) {
           v0 += u0;
           v1 += u1;
         }
       }
       v1 += __shfl_sync(kFull, v0, 31);
       const float last = __shfl_sync(kFull, v1, 31);
-      Ls[tid] = v0;
-      Ls[tid + 32] = v1;
-      eLs[tid] = expf(v0);
-      eLs[tid + 32] = expf(v1);
-      ws[tid] = expf(last - v0);
-      ws[tid + 32] = expf(last - v1);
+      Ls[lane] = v0 * kLog2e;
+      Ls[lane + 32] = v1 * kLog2e;
+      eLs[lane] = exp2f(v0 * kLog2e);
+      eLs[lane + 32] = exp2f(v1 * kLog2e);
+      ws[lane] = exp2f((last - v0) * kLog2e);
+      ws[lane + 32] = exp2f((last - v1) * kLog2e);
     }
-    __syncthreads();
 
-    // M[t][j] = (C_t . B_j) exp(L_t - L_j) on the blocks k <= i
+    // C B^T on the 20 16 x 8 tiles (row tile rt, column tile jt <= 2 rt + 1)
+    // that touch the lower triangle, once for both heads: warp w takes
+    // tiles w, w + 8, w + 16, their k-steps interleaved
     {
-      float g[4][4];
+      constexpr int kTiles = (kT / 16) * (kT / 16 + 1);
+      constexpr int kPer = (kTiles + kWarps - 1) / kWarps;
+      int rt[kPer], jt[kPer];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) g[i][k] = 0.f;
-#pragma unroll 2
-      for (int n = 0; n < N; n += 4) {
-        float4 cv[4], bv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          cv[i] = *reinterpret_cast<const float4*>(cs + (ty + 16 * i) * LDN + n);
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          bv[k] = *reinterpret_cast<const float4*>(bs + (tx + 16 * k) * LDN + n);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int k = 0; k <= i; ++k) g[i][k] = dot4(cv[i], bv[k], g[i][k]);
+      for (int u = 0; u < kPer; ++u) {
+        const int idx = wid + kWarps * u;
+        rt[u] = idx < 2 ? 0 : idx < 6 ? 1 : idx < 12 ? 2 : 3;
+        jt[u] = idx - rt[u] * (rt[u] + 1);
       }
+      float d[kPer][4] = {};
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int t = ty + 16 * i;
+      for (int k0 = 0; k0 < N; k0 += 16) {
 #pragma unroll
-        for (int k = 0; k <= i; ++k) {
-          const int j = tx + 16 * k;
-          ms[t * LDM + j] =
-              (k < i || j <= t) ? g[i][k] * expf(Ls[t] - Ls[j]) : 0.f;
+        for (int u = 0; u < kPer; ++u) {
+          if (wid + kWarps * u >= kTiles) continue;   // warp-uniform
+          FragA fa;
+          fa.rows(Cs, LDC, 16 * rt[u], k0, g, t);
+          FragB fb;
+          fb.rows(Bs, LDB, 8 * jt[u], k0, g, t);
+          mma3(d[u], fa, fb);
         }
       }
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) {
+        if (wid + kWarps * u >= kTiles) continue;
+        float* gr = Gs + (16 * rt[u] + g) * LDG + 8 * jt[u] + 2 * t;
+        *reinterpret_cast<float2*>(gr) = make_float2(d[u][0], d[u][1]);
+        *reinterpret_cast<float2*>(gr + 8 * LDG) =
+            make_float2(d[u][2], d[u][3]);
+      }
     }
-    __syncthreads();
+    __syncthreads();   // C B^T and the decays are in
 
-    // y[t][p] = exp(L_t) (S C_t)[p] + sum_{j <= t} M[t][j] x[j][p]
-    {
-      float inter[4][KP], intra[4][KP];
+    if (scans) {
+      // y = exp(L_t) (C S^T) + M X on rows 0..63, columns pr0..pr0 + 15
+      float acc[4][2][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int rt = 0; rt < 4; ++rt)
 #pragma unroll
-        for (int k = 0; k < KP; ++k) inter[i][k] = intra[i][k] = 0.f;
-#pragma unroll 2
-      for (int n = 0; n < N; n += 4) {
-        float4 cv[4], sv[KP];
+        for (int j = 0; j < 2; ++j)
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          cv[i] = *reinterpret_cast<const float4*>(cs + (ty + 16 * i) * LDN + n);
+          for (int e = 0; e < 4; ++e) acc[rt][j][e] = 0.f;
+      // C S^T: the B operand (n, p) is the state tile as it stands
 #pragma unroll
-        for (int k = 0; k < KP; ++k)
-          sv[k] = *reinterpret_cast<const float4*>(ss + (tx + 16 * k) * LDN + n);
+      for (int k0 = 0; k0 < N; k0 += 16) {
+        const int j = k0 / 8;
+        FragB f0, f1;
+        f0.set(make_float2(st[j][0], st[j][1]),
+               make_float2(st[j + 1][0], st[j + 1][1]));
+        f1.set(make_float2(st[j][2], st[j][3]),
+               make_float2(st[j + 1][2], st[j + 1][3]));
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int k = 0; k < KP; ++k)
-            inter[i][k] = dot4(cv[i], sv[k], inter[i][k]);
+        for (int rt = 0; rt < 4; ++rt) {
+          FragA fa;
+          fa.rows(Cs, LDC, 16 * rt, k0, g, t);
+          mma3(acc[rt][0], fa, f0);
+          mma3(acc[rt][1], fa, f1);
+        }
       }
 #pragma unroll
-      for (int jb = 0; jb < 4; ++jb) {
-#pragma unroll 4
-        for (int jj = 0; jj < 16; ++jj) {
-          const int j = 16 * jb + jj;
-          float xv[KP];
+      for (int rt = 0; rt < 4; ++rt) {
+        const float e0 = eLs[16 * rt + g];
+        const float e1 = eLs[16 * rt + g + 8];
 #pragma unroll
-          for (int k = 0; k < KP; ++k) xv[k] = xs[j * LDX + tx + 16 * k];
+        for (int j = 0; j < 2; ++j) {
+          acc[rt][j][0] *= e0;
+          acc[rt][j][1] *= e0;
+          acc[rt][j][2] *= e1;
+          acc[rt][j][3] *= e1;
+        }
+      }
+      // M (r, j) = (C B^T)(r, j) exp(L_r - L_j) for j <= r, else 0
 #pragma unroll
-          for (int i = jb; i < 4; ++i) {
-            const float mv = ms[(ty + 16 * i) * LDM + j];
+      for (int k0 = 0; k0 < kT; k0 += 16) {
+        FragB fb[2];
 #pragma unroll
-            for (int k = 0; k < KP; ++k)
-              intra[i][k] = fmaf(mv, xv[k], intra[i][k]);
+        for (int j = 0; j < 2; ++j)
+          fb[j].cols(Xs, LDX, pr0 + 8 * j, k0, g, t);
+        const int j0 = k0 + 2 * t;   // this lane's depths j0, +1, +8, +9
+        const float Lj[4] = {Ls[j0], Ls[j0 + 1], Ls[j0 + 8], Ls[j0 + 9]};
+#pragma unroll
+        for (int rt = k0 / 16; rt < 4; ++rt) {
+          float2 m[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {   // row + 8 (q & 1), depth + 8 (q >> 1)
+            const int r = 16 * rt + g + 8 * (q & 1);
+            const int j = j0 + 8 * (q >> 1);
+            const float2 gv =
+                *reinterpret_cast<const float2*>(Gs + r * LDG + j);
+            const float Lr = Ls[r];
+            m[q] = make_float2(
+                j <= r ? gv.x * exp2f(Lr - Lj[2 * (q >> 1)]) : 0.f,
+                j + 1 <= r ? gv.y * exp2f(Lr - Lj[2 * (q >> 1) + 1]) : 0.f);
           }
+          FragA fa;
+          fa.set(m[0], m[1], m[2], m[3]);
+          mma3(acc[rt][0], fa, fb[0]);
+          mma3(acc[rt][1], fa, fb[1]);
         }
       }
+      const int64_t row0 = (int64_t)b * S + (int64_t)ci * kT;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int t = ty + 16 * i;
-        float* yrow = y + ((row0 + t) * H + h) * P;
+      for (int rt = 0; rt < 4; ++rt)
 #pragma unroll
-        for (int k = 0; k < KP; ++k)
-          yrow[tx + 16 * k] = fmaf(eLs[t], inter[i][k], intra[i][k]);
-      }
-    }
-    __syncthreads();  // every read of the old state is done
+        for (int j = 0; j < 2; ++j) {
+          const int r = 16 * rt + g;
+          float* yr = y + ((row0 + r) * H + h) * P + pr0 + 8 * j + 2 * t;
+          *reinterpret_cast<float2*>(yr) =
+              make_float2(acc[rt][j][0], acc[rt][j][1]);
+          *reinterpret_cast<float2*>(yr + (int64_t)8 * H * P) =
+              make_float2(acc[rt][j][2], acc[rt][j][3]);
+        }
 
-    // S[p][n] = exp(L_last) S[p][n] + sum_j w_j x[j][p] B[j][n]
-    {
-      float acc[KP][KN];
-#pragma unroll
-      for (int i = 0; i < KP; ++i)
-#pragma unroll
-        for (int k = 0; k < KN; ++k) acc[i][k] = 0.f;
-#pragma unroll 4
-      for (int j = 0; j < kT; ++j) {
-        const float wj = ws[j];
-        float xv[KP], bv[KN];
-#pragma unroll
-        for (int i = 0; i < KP; ++i) xv[i] = xs[j * LDX + ty + 16 * i] * wj;
-#pragma unroll
-        for (int k = 0; k < KN; ++k) bv[k] = bs[j * LDN + tx + 16 * k];
-#pragma unroll
-        for (int i = 0; i < KP; ++i)
-#pragma unroll
-          for (int k = 0; k < KN; ++k) acc[i][k] = fmaf(xv[i], bv[k], acc[i][k]);
-      }
+      // S = exp(L_last) S + (w x)^T B on this warp's state tile
       const float e_last = eLs[kT - 1];
 #pragma unroll
-      for (int i = 0; i < KP; ++i)
+      for (int j = 0; j < NTS; ++j)
 #pragma unroll
-        for (int k = 0; k < KN; ++k) {
-          float* sp = ss + (ty + 16 * i) * LDN + tx + 16 * k;
-          *sp = fmaf(e_last, *sp, acc[i][k]);
+        for (int e = 0; e < 4; ++e) st[j][e] *= e_last;
+#pragma unroll
+      for (int k0 = 0; k0 < kT; k0 += 16) {
+        // A (p, j) = w_j x (j, p) at depths j0, j0 + 1, j0 + 8, j0 + 9
+        const int j0 = k0 + 2 * t;
+        const float* xr = Xs + j0 * LDX + pr0 + g;
+        const float w0 = ws[j0], w1 = ws[j0 + 1], w8 = ws[j0 + 8],
+                    w9 = ws[j0 + 9];
+        FragA fa;
+        fa.set(make_float2(w0 * xr[0], w1 * xr[LDX]),
+               make_float2(w0 * xr[8], w1 * xr[LDX + 8]),
+               make_float2(w8 * xr[8 * LDX], w9 * xr[9 * LDX]),
+               make_float2(w8 * xr[8 * LDX + 8], w9 * xr[9 * LDX + 8]));
+#pragma unroll
+        for (int j = 0; j < NTS; ++j) {   // B (j, n) = B (j, n)
+          FragB fb;
+          fb.cols(Bs, LDB, 8 * j, k0, g, t);
+          mma3(st[j], fa, fb);
         }
+      }
     }
   }
-  __syncthreads();
-  for (int i = tid; i < P * N / 4; i += kThreads) {
-    const int p = i / (N / 4);
-    const int n = (i % (N / 4)) * 4;
-    *reinterpret_cast<float4*>(s1 + (bh * P + p) * N + n) =
-        *reinterpret_cast<const float4*>(ss + p * LDN + n);
+  if (scans) {
+#pragma unroll
+    for (int j = 0; j < NTS; ++j) {
+      float* row = s1 + (bh * P + pr0 + g) * N + 8 * j + 2 * t;
+      *reinterpret_cast<float2*>(row) = make_float2(st[j][0], st[j][1]);
+      *reinterpret_cast<float2*>(row + 8 * N) =
+          make_float2(st[j][2], st[j][3]);
+    }
   }
 }
 
@@ -280,8 +462,8 @@ cudaError_t launch(const float* xdt, const float* a, const float* Bm,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  kern<<<dim3(H, Bb), kThreads, bytes, st>>>(xdt, a, Bm, Cm, s0, y, s1, S,
-                                              H);
+  kern<<<dim3((H + kHB - 1) / kHB, Bb), kThreads, bytes, st>>>(
+      xdt, a, Bm, Cm, s0, y, s1, S, H);
   return cudaGetLastError();
 }
 
@@ -289,8 +471,9 @@ cudaError_t launch(const float* xdt, const float* a, const float* Bm,
 
 // xdt: (Bb, S, H, P); a: (Bb, S, H); B, C: (Bb, S, N); s0: (Bb, H, P, N);
 // y: (Bb, S, H, P); s1: (Bb, H, P, N), which may be s0 itself (each block
-// reads its own (P, N) slice before it writes it). All f32, contiguous;
-// S % 64 == 0; (P, N) in {(32, 16), (64, 64)}. Returns a cudaError_t.
+// reads its own heads' (P, N) slices before it writes them). All f32,
+// contiguous, 16-byte aligned; S % 64 == 0; (P, N) in {(32, 16), (64, 64)}.
+// Returns a cudaError_t.
 extern "C" int ssd_chunk_launch(const void* xdt, const void* a,
                                 const void* Bm, const void* Cm,
                                 const void* s0, void* y, void* s1, int Bb,

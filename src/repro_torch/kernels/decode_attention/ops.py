@@ -5,8 +5,10 @@ Replaces the TPU kernel ``src/repro/kernels/decode_attention/kernel.py``
 (``decode_attention_padded``, body ``_kernel``) and its wrapper
 ``ops.decode_attention``, which pads the whole cache to a 512 multiple on
 every call: the CUDA kernel masks the ragged S itself, so the wrapper
-allocates only the output and the split-S partials. Bound on the H100:
-bytes (see the source for the design).
+allocates only the output and, with more than one split, the split-KV
+partials. Bound on the H100: bytes (see the source for the design).
+``split_plan`` picks how many blocks share one (batch, kv head)'s
+slots.
 
 On a CUDA tensor ``decode_attention`` launches the kernel or raises; on a
 CPU tensor it runs the plain version (``ref.decode_attention_ref``). The
@@ -24,8 +26,10 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 HEAD_DIMS = (32, 64, 112, 128)
 DTYPES = (torch.float32, torch.bfloat16)
-CHUNK = 256          # cache slots per block of the split-S pass
-HEADS_PER_THREAD = 16
+TILE = 32            # slots per tile of the kernel's shared-memory ring
+MAX_GROUP = 16       # query heads per KV head the kernel holds in registers
+BLOCKS_PER_SM = 2    # the plan's one wave: two blocks on each SM
+MIN_TILES = 2        # tiles per split, so that a block's ring has work
 
 
 def _lib():
@@ -37,8 +41,22 @@ def _lib():
     return fn
 
 
-def n_chunks(S: int) -> int:
-    return (S + CHUNK - 1) // CHUNK
+def split_plan(B: int, Hkv: int, S: int, hd: int, n_sm: int):
+    """(n_splits, chunk): each (batch, kv head)'s S slots are cut into
+    ``n_splits`` splits of ``chunk`` slots (a multiple of TILE; the last
+    split may be shorter). The grid is one wave: as many splits as keep
+    B·Hkv·n_splits blocks within BLOCKS_PER_SM blocks on each of the
+    ``n_sm`` SMs, at least one, and no split shorter than MIN_TILES
+    tiles. ``hd`` does not enter: at every supported head size and group
+    an SM holds BLOCKS_PER_SM blocks (at most 72 KB of shared memory and
+    255 registers a thread each). Longer splits pay the ring's fill and
+    the partials once per more slots; on the H100 one wave beat 2-32
+    waves at both serve shapes (PERF.md)."""
+    tiles = -(-S // TILE)
+    wave = BLOCKS_PER_SM * n_sm
+    n = max(1, min(wave // max(1, B * Hkv), tiles // MIN_TILES))
+    chunk = -(-tiles // n) * TILE
+    return -(-S // chunk), chunk
 
 
 def decode_attention(q, k, v, kv_pos, q_pos: int, window: int = 0):
@@ -79,27 +97,32 @@ def _launch(q, k, v, kv_pos, q_pos, window):
     if hd not in HEAD_DIMS:
         raise ValueError(f"decode_attention kernel takes hd in {HEAD_DIMS}, "
                          f"got {hd}")
-    if G > HEADS_PER_THREAD * (128 // hd) or S < 1:
+    if G > MAX_GROUP or S < 1:
         raise ValueError(f"decode_attention kernel takes group <= "
-                         f"{HEADS_PER_THREAD * (128 // hd)} at hd={hd} and "
-                         f"S >= 1, got group {G}, S {S}")
+                         f"{MAX_GROUP} and S >= 1, got group {G}, S {S}")
     check_cuda_operands(dict(q=q, k=k, v=v, kv_pos=kv_pos),
                         dict(q=DTYPES, k=DTYPES, v=DTYPES,
                              kv_pos=(torch.int32,)))
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
-    nc = n_chunks(S)
     dev = q.device
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    nc, chunk = split_plan(B, Hkv, S, hd, n_sm)
     o = torch.empty_like(q)
-    part_acc = torch.empty((B, Hkv, nc, G, hd), dtype=torch.float32,
-                           device=dev)
-    part_ml = torch.empty((B, Hkv, nc, G, 2), dtype=torch.float32, device=dev)
+    # one split writes o itself; more write partials that the kernel's
+    # second launch combines
+    acc = ml = None
+    if nc > 1:
+        part_acc = torch.empty((B, Hkv, nc, G, hd), dtype=torch.float32,
+                               device=dev)
+        part_ml = torch.empty((B, Hkv, nc, G, 2), dtype=torch.float32,
+                              device=dev)
+        acc, ml = part_acc.data_ptr(), part_ml.data_ptr()
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_pos.data_ptr(),
-                 o.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
-                 int(q.dtype == torch.bfloat16),
+                 o.data_ptr(), acc, ml, int(q.dtype == torch.bfloat16),
                  int(k.dtype == torch.bfloat16), B, S, H, Hkv, hd, q_pos,
-                 int(window), CHUNK,
+                 int(window), chunk,
                  torch.cuda.current_stream(dev).cuda_stream)
     BUILD.check(err, "decode_attention_launch")
     decode_attention.launches += 1

@@ -4,8 +4,9 @@ a whole sequence, forward only.
 Replaces the TPU kernel ``src/repro/kernels/ssd_chunk/kernel.py``
 (``ssd_chunk_padded``, body ``_kernel``) and its wrapper ``ops.ssd_scan``,
 which runs one kernel call per 128-step chunk inside a ``lax.scan``: the
-CUDA kernel loops over the chunks inside one block per (batch, head), so a
-layer is one launch. Bound on the H100: operations (see the source).
+CUDA kernel loops over the chunks inside one block per (batch, pair of
+heads), its products on the tensor cores (bf16 operands split hi + lo),
+so a layer is one launch. Bound on the H100: bytes (see the source).
 
 On a CUDA tensor ``ssd_scan`` launches the kernel or raises; on a CPU
 tensor it runs the plain chunked version (``ref.ssd_chunked``). The
@@ -72,6 +73,9 @@ def _launch(xdt, a, B_, C_, state0):
         raise ValueError(f"ssd_scan kernel takes (P, N) in {SHAPES}, got "
                          f"{(P, N)}")
     check_cuda_operands(tensors, {n: (torch.float32,) for n in tensors})
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     y = torch.empty_like(xdt)
     state = torch.empty_like(state0)
     err = _lib()(xdt.data_ptr(), a.data_ptr(), B_.data_ptr(), C_.data_ptr(),

@@ -381,13 +381,51 @@ def test_cuda_decode_allocates_only_output_and_partials(cuda_device):
     kv_pos = torch.arange(S, dtype=torch.int32, device=cuda_device)
     out, peak = _alloc_peak(
         lambda: DA.decode_attention(q, k, v, kv_pos, S - 1))
-    nc = DA.n_chunks(S)
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    nc, _ = DA.split_plan(B, Hkv, S, hd, n_sm)
     allowed = (_rounded(B * H * hd * 2) + _rounded(4 * B * H * nc * hd)
                + _rounded(4 * B * H * nc * 2))
     assert peak <= allowed, (peak, allowed)
     want = DA.decode_attention_ref(q, k, v, kv_pos, S - 1)
     assert_rel_close(out.float().cpu().numpy(),
                      want.to(q.dtype).float().cpu().numpy(), RTOL["bf16"])
+
+
+# L3 at its split and tile boundaries: (id, B, S, H, Hkv, hd, layout,
+# window, q dtype, cache dtype). S one slot short of, at and past a 32-slot
+# tile and a split (split_plan's chunk at this shape and SM count), a
+# single slot, every head size and query/cache dtype pair, groups 1, 2, 4,
+# 6 and 16 (ChatGLM3's MQA-like 32/2), and windows that leave most splits
+# without a valid slot
+DECODE_EDGE_CASES = [
+    ("s31-gqa4-hd128-bf16", 2, 31, 8, 2, 128, "full", 0, "bf16", "bf16"),
+    ("s32-mha-hd112-bf16", 2, 32, 4, 4, 112, "full", 0, "bf16", "bf16"),
+    ("s33-gqa2-hd64-f32", 1, 33, 4, 2, 64, "ring", 0, "f32", "f32"),
+    ("s1-gqa4-hd32-bf16-f32", 3, 1, 4, 1, 32, "full", 0, "bf16", "f32"),
+    ("s4095-g16-hd128-bf16", 1, 4095, 32, 2, 128, "full", 0, "bf16", "bf16"),
+    ("s4097-g6-hd64-f32-bf16", 1, 4097, 12, 2, 64, "empty", 0, "f32",
+     "bf16"),
+    ("s4096-mha-hd112-window100-bf16", 2, 4096, 4, 4, 112, "ring", 100,
+     "bf16", "bf16"),
+    ("s2049-g16-hd32-window40-f32", 1, 2049, 16, 1, 32, "ring", 40, "f32",
+     "f32"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DECODE_EDGE_CASES,
+                         ids=[c[0] for c in DECODE_EDGE_CASES])
+def test_cuda_decode_kernel_split_boundaries(case, cuda_device):
+    window, qdt = case[7], case[8]
+    q, k, v, kv_pos, q_pos = decode_inputs(case, seed=3)
+    q, k, v, kv_pos = (t.to(cuda_device) for t in (q, k, v, kv_pos))
+    n0 = DA.decode_attention.launches
+    out = DA.decode_attention(q, k, v, kv_pos, q_pos, window=window)
+    assert DA.decode_attention.launches == n0 + 1
+    assert out.dtype == q.dtype and out.shape == q.shape
+    want = DA.decode_attention_ref(q, k, v, kv_pos, q_pos, window)
+    assert_rel_close(out.float().cpu().numpy(),
+                     want.to(q.dtype).float().cpu().numpy(), RTOL[qdt])
 
 
 # (Sq, Skv, H, Hkv, causal, window): GQA groups 1, 2 and 4, ragged edges on

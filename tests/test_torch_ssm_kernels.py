@@ -259,6 +259,29 @@ def test_cuda_wkv_kernel_matches_plain(case, zero_state, cuda_device):
     assert_rel_close(st.cpu().numpy(), st_p.cpu().numpy(), CUDA_RTOL)
 
 
+# L4 at its block and chunk boundaries: (B, S, H, P, N). Blocks hold two
+# heads (an odd H leaves the last block one), chunks are 64 steps (the
+# wrapper's S is a multiple of 128): one head, 3, 7 and 113 heads (zamba2's
+# 112 plus one), both (P, N), one chunk pair and many
+SSD_EDGE_CASES = [("1-128-1-64-64", 1, 128, 1, 64, 64, 1.0),
+                  ("2-128-7-32-16", 2, 128, 7, 32, 16, 1.0),
+                  ("1-640-3-64-64-strong", 1, 640, 3, 64, 64, 2.0),
+                  ("1-256-113-64-64", 1, 256, 113, 64, 64, 1.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_EDGE_CASES,
+                         ids=[c[0] for c in SSD_EDGE_CASES])
+def test_cuda_ssd_kernel_block_boundaries(case, cuda_device):
+    args = [t.to(cuda_device) for t in _t(ssd_inputs(case, seed=9))]
+    n0 = SSD.ssd_scan.launches
+    y, st = SSD.ssd_scan(*args)
+    assert SSD.ssd_scan.launches == n0 + 1
+    y_p, st_p = SSDR.ssd_chunked(*args)
+    assert_rel_close(y.cpu().numpy(), y_p.cpu().numpy(), CUDA_RTOL)
+    assert_rel_close(st.cpu().numpy(), st_p.cpu().numpy(), CUDA_RTOL)
+
+
 @pytest.mark.cuda
 def test_cuda_kernels_refuse_gradients(cuda_device):
     """No VJP, on the card as in the reference: a CUDA tensor that needs a
