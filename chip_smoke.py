@@ -7,12 +7,13 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
   1. card and build: the card's name and power limit, then the CUDA
      kernels built from ``src/repro_torch/csrc`` (one nvcc per source, in
      parallel), with the build seconds and ptxas's register report; the
-     bf16 tensor-core variants of L1 and L2 (``*_sm90``), L3 and L4 must
-     not spill;
+     bf16 tensor-core variants of L1 and L2 (``*_sm90``), B2, L3, L4 and
+     L5 must not spill;
   2. kernel parity: each kernel (B1 bmf_precision, B2 bmf_sweep) against
      its plain PyTorch version, fp32 and bf16, at the phase-c bucket shape
      of phase 4's data (which holds all-padding tiles and empty rows),
-     timed with CUDA events (warm-up, median of several runs);
+     timed with CUDA events (warm-up, median of several runs), B2 with its
+     achieved TB/s;
   3. the quickstart on the card: ``mini``, ``run_full_bmf`` and a 2×2
      stacked ``run_pp`` with the fused sweep; PP must beat the mean
      predictor;
@@ -73,8 +74,9 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      path's own call (zero state, a 4,000-token prompt padded with
      identity steps), a random state over 4,096 steps, and strong decay
      (a ~ -2 per step for L4, log w ~ -1 for L5); each timed beside its
-     plain version, its bound and its achieved TB/s (L4: the bytes bound,
-     its bf16 split products and the f32 bound of its first design);
+     plain version, its bound and its achieved TB/s (L4 and L5: the bytes
+     bound, their bf16 split products and the f32 operations of their
+     first designs);
  11. the hybrid serve path at full width and depth: zamba2-7b, all 81
      Mamba2 layers and the shared block (13 applications), and
  12. the ssm serve path: rwkv6-7b, all 32 layers; each with the traffic
@@ -264,7 +266,8 @@ def phase_build():
         full = name in SM90 or name in NO_SPILL
         log(f"[build] {name}: " + " | ".join(regs if full else regs[:4]))
         # the tensor-core kernels keep every accumulator in registers, and
-        # the redesigned L3 and L4 their q, partial sums and state
+        # the redesigned B2, L3, L4 and L5 their rows, q, partial sums and
+        # states
         spills = [ln for ln in regs if "spill" in ln
                   and not ln.startswith("0 bytes stack frame, 0 bytes spill "
                                         "stores, 0 bytes spill loads")]
@@ -368,22 +371,24 @@ def phase_parity(part, test_p, K, dev):
         scale2 = max(float(U_p.abs().max()), 1.0)
         del U, U_p
         ms2, pms2 = cuda_ms(b2, 5), cuda_ms(b2_plain, 3, warmup=1)
-        bnd2 = bound(base_bytes + 4 * B * N * (K * K + 3 * K),
-                     acc_flops + B * N * (2 * K ** 3 // 3 + 5 * K * K))
-        for name, err, sc, ms, pms, bd in (
-                ("bmf_precision", err1, scale1, ms1, pms1, bnd1),
-                ("bmf_sweep", err2, scale2, ms2, pms2, bnd2)):
+        bytes2 = base_bytes + 4 * B * N * (K * K + 3 * K)
+        bnd2 = bound(bytes2, acc_flops + B * N * (2 * K ** 3 // 3 + 5 * K * K))
+        for name, err, sc, ms, pms, bd, n_bytes in (
+                ("bmf_precision", err1, scale1, ms1, pms1, bnd1, None),
+                ("bmf_sweep", err2, scale2, ms2, pms2, bnd2, bytes2)):
             ok = err <= TOL[name] * sc
+            rate = {} if n_bytes is None else {"tb_per_s": n_bytes / ms / 1e9}
             log(f"[parity] {name} {dtype}: max_abs_err {err:.3e} (tolerance "
                 f"{TOL[name]:.0e} x {sc:.3g} = {TOL[name] * sc:.3e}) "
-                f"{'ok' if ok else 'FAIL'}; kernel {ms:.3f} ms, plain "
-                f"{pms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]})")
+                f"{'ok' if ok else 'FAIL'}; kernel {ms:.3f} ms"
+                + "".join(f" ({v:.3f} TB/s)" for v in rate.values())
+                + f", plain {pms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]})")
             if not ok:
                 raise AssertionError(f"{name} {dtype} disagrees with its "
                                      f"plain version")
             results[(name, dtype)] = dict(max_abs_err=err, ms=ms,
                                           plain_ms=pms, bound_ms=bd[0],
-                                          bound_by=bd[1])
+                                          bound_by=bd[1], **rate)
     del idx, val, mask, live, other32, prior_lam, prior_eta, z
     torch.cuda.empty_cache()
     return results
@@ -407,9 +412,10 @@ def _wrappers():
 # beside their totals; f32 calls go to the f32 kernels
 SM90 = {"flash_attention_sm90": "flash_attention",
         "flash_attention_bwd_sm90": "flash_attention_bwd"}
-# sources whose ptxas report must show no spill besides the sm90 ones: the
-# pipelined split-KV L3 and the tensor-core L4
-NO_SPILL = ("decode_attention", "ssd_chunk")
+# sources whose ptxas report must show no spill besides the sm90 ones: B2
+# (a row's Λ in one thread's registers), the pipelined split-KV L3 and the
+# tensor-core L4 and L5
+NO_SPILL = ("bmf_sweep", "decode_attention", "ssd_chunk", "wkv6")
 
 
 def reset_counts():
@@ -814,23 +820,27 @@ def phase_scan_parity(dev):
             # least any scan does; the chunked forms do more)
             n_bytes = 4 * (sum(t.numel() for t in args) + args[0].numel()
                            + args[-1].numel())
-            bd = bound(n_bytes, 4 * B * S * H * P * N)
             bytes_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
             note = f"bytes alone {bytes_ms:.4f} ms"
+            # both multiply on the tensor cores in bf16, each product three
+            # times (hi.hi + hi.lo + lo.hi) over 64-step chunks. L4: per
+            # head and chunk C S^T and (w x)^T B (128 P N each) and M X on
+            # the 10 lower-triangle 16 x 16 tiles (5,120 P); per batch row
+            # and chunk C B^T on 20 16 x 8 tiles (5,120 N). L5 (P = N): per
+            # head and chunk r2 (e^c S) and k2^T v (128 N^2 each), r2 k2^T
+            # on 20 16 x 8 tiles and A v on 10 16 x 16 tiles (5,120 N
+            # each). Their bound is the larger of those at the bf16 rate
+            # and the bytes
             if name == "ssd_chunk":
-                # L4 multiplies on the tensor cores in bf16, each product
-                # three times (hi.hi + hi.lo + lo.hi) over 64-step chunks:
-                # per head and chunk C S^T and (w x)^T B (128 P N each) and
-                # M X on the 10 lower-triangle 16 x 16 tiles (5,120 P); per
-                # batch row and chunk C B^T on 20 16 x 8 tiles (5,120 N).
-                # Its bound is the larger of those at the bf16 rate and the
-                # bytes
                 flops = 3 * B * (S // 64) * (H * (256 * P * N + 5120 * P)
                                              + 5120 * N)
-                note += (f", f32 sequential operations {bd[0]:.4f} ms "
-                         f"(the first design's bound), bf16 split products "
-                         f"{1e3 * flops / BF16_FLOPS:.4f} ms")
-                bd = bound(n_bytes, flops, BF16_FLOPS)
+            else:
+                flops = 3 * B * (S // 64) * H * (256 * N * N + 10240 * N)
+            seq_ms = 1e3 * 4 * B * S * H * P * N / FP32_FLOPS
+            note += (f", f32 sequential operations {seq_ms:.4f} ms (the "
+                     f"first designs multiplied on the CUDA cores), bf16 "
+                     f"split products {1e3 * flops / BF16_FLOPS:.4f} ms")
+            bd = bound(n_bytes, flops, BF16_FLOPS)
             ok = finite and err <= SCAN_TOL * scale
             log(f"[scan-parity] {name} {case} fp32: max_abs_err {err:.3e} "
                 f"(tolerance {SCAN_TOL:.0e} x {scale:.3g} = "
@@ -1473,7 +1483,11 @@ def main():
             replaces="src/repro/kernels/bmf_precision/kernel.py:100"),
         "bmf_sweep": dict(
             source="src/repro_torch/csrc/bmf_sweep.cu",
-            replaces="src/repro/kernels/bmf_sweep/kernel.py:232"),
+            replaces="src/repro/kernels/bmf_sweep/kernel.py:232",
+            design="one thread per row up to K = 16: the slots' factor rows "
+                   "added into Lam's lower triangle in registers, an "
+                   "in-thread Cholesky and solves with no shuffle; one warp "
+                   "per row above"),
     }
     kernels = []
     for name, m in meta.items():
@@ -1484,6 +1498,9 @@ def main():
                             plain_ms=fp32["plain_ms"],
                             bound_ms=fp32["bound_ms"],
                             bound_by=fp32["bound_by"], library_ms=None,
+                            **{k: fp32[k] for k in ("tb_per_s",) if k in fp32},
+                            **({"design": m["design"]} if "design" in m
+                               else {}),
                             bf16=bf16))
     # L1 and L2 run bf16 on the path (the sm90 kernels); their f32 kernels
     # stand beside them as a second variant
@@ -1513,7 +1530,11 @@ def main():
                    "buffer"),
         "wkv6": dict(
             source="src/repro_torch/csrc/wkv6.cu",
-            replaces="src/repro/kernels/wkv6/kernel.py:65"),
+            replaces="src/repro/kernels/wkv6/kernel.py:65",
+            design="tensor-core WKV scan: mma.sync bf16 hi + lo split "
+                   "operands (3 products) read by ldmatrix from tiles split "
+                   "once per chunk, state in mma accumulators, the next "
+                   "chunk's r, k, v by cp.async and logw in registers"),
     }
     timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")

@@ -11,53 +11,358 @@
 // memory: Lam, eta and L live in registers.
 //
 // Bound on Hopper: bytes. Per row it reads the live CSR slots (12 bytes
-// each) and their gathered K-float rows, the K x K prior precision and two
-// K-vectors, and writes K floats; the O(K^3) factorization is ~11k flops
-// at K = 32 against several KB of traffic. Design: one warp owns one row
-// and lane l owns column l of Lam (the accumulate of bmf_common.cuh). The
-// Cholesky is right-looking over the columns held in registers: step j
+// each) and their gathered K-value rows, the K x K prior precision and two
+// K-vectors, and writes K floats; the O(K^3) factorization is ~0.6k flops
+// at K = 10 against ~0.9 KB of traffic.
+//
+// K <= 16: one thread owns one row (sweep_row_kernel, one instantiation
+// per K). The first design put one warp on a row and one lane on each
+// column of Lam: at K = 10 most lanes idled, every pair of slots cost 19
+// shuffles, and the Cholesky and the solves were a chain of dependent
+// shuffles and divisions, ~450 shuffles a row (4.0-4.3 ms at the
+// MovieLens-20M phase-c bucket against a 0.105 ms bound). Now:
+//   - the thread keeps Lam's lower triangle (K(K+1)/2 floats, 55 at
+//     K = 10) and eta in registers and adds each live slot's factor row,
+//     loaded whole in the widest aligned loads (a 40-byte f32 row at
+//     K = 10 is five 8-byte loads); the slots' idx/val/mask come four at
+//     a time in 16-byte loads when M % 4 == 0, the next four in flight
+//     while this four's rows are gathered and added, in slot order. Two
+//     alternatives measured slower at the bucket (PERF.md): reading each
+//     row as the 16-byte aligned chunks that hold it (three loads and
+//     selects; 0.62 against 0.48 ms in f32), and staging a warp's 32 rows
+//     x 16 slots of idx/val/mask in shared memory by coalesced loads
+//     (0.72 ms), which runs every row to its warp's longest;
+//   - the right-looking Cholesky, the forward solve L y = b and one
+//     backward solve L^T u = y + z (the reference's two backward systems,
+//     mean and noise, are linear in their right sides, so they are one)
+//     run inside the thread: one sqrtf and one correctly rounded
+//     reciprocal per column, every other step a multiply or an fma, and
+//     no shuffle or division anywhere in the chain;
+//   - neighbouring rows have near-equal live lengths (core/partition.py
+//     sorts each stripe's rows by descending rating count), so a warp of
+//     32 rows loses little to divergence; a warp of unsorted rows is
+//     correct, only slower.
+// 16 < K <= 32: one warp per row (sweep_warp_kernel), the first design:
+// lane l owns column l of Lam (bmf_common.cuh's accumulate, shared with
+// B1) and the Cholesky broadcasts each column by shuffle. A thread cannot
+// hold Lam's 528 floats at K = 32 in registers.
+#include <utility>
+
+#include "bmf_common.cuh"
+
+namespace {
+
+template <typename T>
+struct SweepArgs {
+  const int32_t* idx;
+  const float* val;
+  const float* mask;
+  const int32_t* live;
+  const T* other;
+  const float* prior_eta;
+  const float* prior_lam;
+  const float* z;
+  float* u;
+  int64_t rows;
+  int N, M, D, K;
+  float tau, jitter;
+  int vec4;   // M % 4 == 0 and the planes 16-byte aligned
+};
+
+// ---------------------------------------------------------------------------
+// K <= 16: one thread per row
+// ---------------------------------------------------------------------------
+
+// 8 warps a block: at the bucket it ran 0.35 ms against 0.50 with 128
+// threads (three blocks, 12 warps an SM) and 0.49 with 512 (PERF.md); the
+// lanes' strided slot and prior reads live on L1 reuse, which fewer rows
+// in flight per SM keep. K = 16's 254 registers still fit 256 threads.
+constexpr int kRowThreads = 256;
+constexpr int kRowK = 16;
+
+__host__ __device__ constexpr int tri(int i, int j) {
+  return i * (i + 1) / 2 + j;
+}
+
+// v = row p[0..K) of the other factor in f32, in the widest aligned loads
+template <int K>
+__device__ __forceinline__ void load_row(const float* __restrict__ p,
+                                         float (&v)[K]) {
+  if constexpr (K % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < K; k += 4) {
+      const float4 q = __ldg(reinterpret_cast<const float4*>(p + k));
+      v[k] = q.x;
+      v[k + 1] = q.y;
+      v[k + 2] = q.z;
+      v[k + 3] = q.w;
+    }
+  } else if constexpr (K % 2 == 0) {
+#pragma unroll
+    for (int k = 0; k < K; k += 2) {
+      const float2 q = __ldg(reinterpret_cast<const float2*>(p + k));
+      v[k] = q.x;
+      v[k + 1] = q.y;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] = __ldg(p + k);
+  }
+}
+
+__device__ __forceinline__ float2 widen(uint32_t pair) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&pair));
+}
+
+template <int K>
+__device__ __forceinline__ void load_row(const __nv_bfloat16* __restrict__ p,
+                                         float (&v)[K]) {
+  if constexpr (K % 8 == 0) {
+#pragma unroll
+    for (int k = 0; k < K; k += 8) {
+      const uint4 q = __ldg(reinterpret_cast<const uint4*>(p + k));
+      const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = widen(w[e]);
+        v[k + 2 * e] = f.x;
+        v[k + 2 * e + 1] = f.y;
+      }
+    }
+  } else if constexpr (K % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < K; k += 4) {
+      const uint2 q = __ldg(reinterpret_cast<const uint2*>(p + k));
+      const float2 f0 = widen(q.x), f1 = widen(q.y);
+      v[k] = f0.x;
+      v[k + 1] = f0.y;
+      v[k + 2] = f1.x;
+      v[k + 3] = f1.y;
+    }
+  } else if constexpr (K % 2 == 0) {
+#pragma unroll
+    for (int k = 0; k < K; k += 2) {
+      const float2 f = widen(__ldg(reinterpret_cast<const unsigned*>(p + k)));
+      v[k] = f.x;
+      v[k + 1] = f.y;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] = __bfloat162float(p[k]);
+  }
+}
+
+// G slots, in order: gather their rows (a slot at or past live is not
+// read: its row is zero and w = r = 0) and add w v v^T and w r v
+template <int K, int G, typename T>
+__device__ __forceinline__ void add_slots(const T* __restrict__ ob,
+                                          const int (&j)[G],
+                                          const float (&w)[G],
+                                          const float (&r)[G],
+                                          const bool (&ok)[G],
+                                          float (&lam)[K * (K + 1) / 2],
+                                          float (&eta)[K]) {
+  float v[G][K];
+#pragma unroll
+  for (int q = 0; q < G; ++q) {
+    if (ok[q]) {
+      load_row<K>(ob + (int64_t)j[q] * K, v[q]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < K; ++k) v[q][k] = 0.f;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < G; ++q) {
+    const float wq = ok[q] ? w[q] : 0.f;
+    const float wr = wq * (ok[q] ? r[q] : 0.f);
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      const float wv = wq * v[q][i];
+#pragma unroll
+      for (int c = 0; c <= i; ++c)
+        lam[tri(i, c)] = fmaf(wv, v[q][c], lam[tri(i, c)]);
+      eta[i] = fmaf(wr, v[q][i], eta[i]);
+    }
+  }
+}
+
+template <int K, typename T>
+__global__ void __launch_bounds__(kRowThreads)
+sweep_row_kernel(const SweepArgs<T> a) {
+  constexpr int KT = K * (K + 1) / 2;
+  constexpr int G = K <= 12 ? 4 : 2;   // factor rows gathered at once
+  const int64_t row = (int64_t)blockIdx.x * kRowThreads + threadIdx.x;
+  if (row >= a.rows) return;
+  const T* ob = a.other + (row / a.N) * (int64_t)a.D * K;
+  const int32_t* ix = a.idx + row * a.M;
+  const float* vl = a.val + row * a.M;
+  const float* mk = a.mask + row * a.M;
+  const int n = a.live[row];
+
+  float lam[KT], eta[K];
+#pragma unroll
+  for (int i = 0; i < KT; ++i) lam[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < K; ++i) eta[i] = 0.f;
+
+  if (a.vec4) {
+    // four slots per 16-byte load of each plane; the next four in flight
+    int4 jn = make_int4(0, 0, 0, 0);
+    float4 wn = make_float4(0.f, 0.f, 0.f, 0.f), rn = wn;
+    if (n > 0) {
+      jn = __ldg(reinterpret_cast<const int4*>(ix));
+      wn = __ldg(reinterpret_cast<const float4*>(mk));
+      rn = __ldg(reinterpret_cast<const float4*>(vl));
+    }
+    for (int m0 = 0; m0 < n; m0 += 4) {
+      const int js[4] = {jn.x, jn.y, jn.z, jn.w};
+      const float ws[4] = {wn.x, wn.y, wn.z, wn.w};
+      const float rs[4] = {rn.x, rn.y, rn.z, rn.w};
+      if (m0 + 4 < n) {
+        jn = __ldg(reinterpret_cast<const int4*>(ix + m0 + 4));
+        wn = __ldg(reinterpret_cast<const float4*>(mk + m0 + 4));
+        rn = __ldg(reinterpret_cast<const float4*>(vl + m0 + 4));
+      }
+#pragma unroll
+      for (int q0 = 0; q0 < 4; q0 += G) {
+        int j[G];
+        float w[G], r[G];
+        bool ok[G];
+#pragma unroll
+        for (int q = 0; q < G; ++q) {
+          j[q] = js[q0 + q];
+          w[q] = ws[q0 + q];
+          r[q] = rs[q0 + q];
+          ok[q] = m0 + q0 + q < n;
+        }
+        add_slots<K, G, T>(ob, j, w, r, ok, lam, eta);
+      }
+    }
+  } else {
+    for (int m0 = 0; m0 < n; m0 += G) {
+      int j[G];
+      float w[G], r[G];
+      bool ok[G];
+#pragma unroll
+      for (int q = 0; q < G; ++q) {
+        ok[q] = m0 + q < n;
+        j[q] = ok[q] ? __ldg(ix + m0 + q) : 0;
+        w[q] = ok[q] ? __ldg(mk + m0 + q) : 0.f;
+        r[q] = ok[q] ? __ldg(vl + m0 + q) : 0.f;
+      }
+      add_slots<K, G, T>(ob, j, w, r, ok, lam, eta);
+    }
+  }
+
+  // A = tau Lam + prior + jitter I (lower triangle), b = tau eta + prior
+  const float* PL = a.prior_lam + row * K * K;
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+#pragma unroll
+    for (int c = 0; c <= i; ++c) {
+      float x = fmaf(a.tau, lam[tri(i, c)], __ldg(PL + i * K + c));
+      if (c == i) x += a.jitter;
+      lam[tri(i, c)] = x;
+    }
+  }
+  float x[K], inv[K];
+#pragma unroll
+  for (int i = 0; i < K; ++i)
+    x[i] = fmaf(a.tau, eta[i], __ldg(a.prior_eta + row * K + i));
+
+  // right-looking Cholesky in place: lam[tri(i, c)] = L[i][c] for c < i
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    const float rc = __frcp_rn(sqrtf(lam[tri(c, c)]));
+    inv[c] = rc;
+#pragma unroll
+    for (int i = c + 1; i < K; ++i) lam[tri(i, c)] *= rc;
+#pragma unroll
+    for (int i = c + 1; i < K; ++i)
+#pragma unroll
+      for (int q = c + 1; q <= i; ++q)
+        lam[tri(i, q)] = fmaf(-lam[tri(i, c)], lam[tri(q, c)], lam[tri(i, q)]);
+  }
+  // forward: y = L^-1 b
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    float acc = x[i];
+#pragma unroll
+    for (int c = 0; c < i; ++c) acc = fmaf(-lam[tri(i, c)], x[c], acc);
+    x[i] = acc * inv[i];
+  }
+  // backward: u = L^-T (y + z) = A^-1 b + L^-T z
+#pragma unroll
+  for (int i = 0; i < K; ++i) x[i] += __ldg(a.z + row * K + i);
+#pragma unroll
+  for (int i = K - 1; i >= 0; --i) {
+    float acc = x[i];
+#pragma unroll
+    for (int c = i + 1; c < K; ++c) acc = fmaf(-lam[tri(c, i)], x[c], acc);
+    x[i] = acc * inv[i];
+  }
+#pragma unroll
+  for (int i = 0; i < K; ++i) a.u[row * K + i] = x[i];
+}
+
+template <int K, typename T>
+void launch_rows(const SweepArgs<T>& a, cudaStream_t st) {
+  const dim3 grid((unsigned)((a.rows + kRowThreads - 1) / kRowThreads));
+  sweep_row_kernel<K, T><<<grid, kRowThreads, 0, st>>>(a);
+}
+
+template <typename T, int... Ks>
+void dispatch_rows(const SweepArgs<T>& a, cudaStream_t st,
+                   std::integer_sequence<int, Ks...>) {
+  (void)((a.K == Ks + 1 ? (launch_rows<Ks + 1, T>(a, st), true) : false) ||
+         ...);
+}
+
+// ---------------------------------------------------------------------------
+// 16 < K <= 32: one warp per row, lane l owns column l of Lam
+// ---------------------------------------------------------------------------
+
+constexpr int kWarpsPerBlock = 8;
+
+// The Cholesky is right-looking over the columns held in registers: step j
 // broadcasts column j of L from lane j by shuffle, and every lane picks
 // L[l][j] out of that broadcast, so each lane ends with both its column
 // and its row of L. The forward solve runs on the rows, the two backward
 // solves (mean and noise) on the columns, one shuffle per step each.
 // There is no lane padding: lanes >= K never feed a shuffle that is read.
-#include "bmf_common.cuh"
-
-namespace {
-
-constexpr int kWarpsPerBlock = 8;
-
-template <int KP, typename T>
+template <typename T>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
-sweep_kernel(const int32_t* __restrict__ idx, const float* __restrict__ val,
-             const float* __restrict__ mask, const int32_t* __restrict__ live,
-             const T* __restrict__ other, const float* __restrict__ prior_eta,
-             const float* __restrict__ prior_lam, const float* __restrict__ z,
-             float* __restrict__ u_out, int64_t rows, int N, int M, int D,
-             int K, float tau, float jitter) {
+sweep_warp_kernel(const SweepArgs<T> a) {
+  constexpr int KP = 32;
+  const int K = a.K;
   const int lane = threadIdx.x & 31;
-  const int64_t row = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= rows) return;  // uniform per warp
-  const int64_t b = row / N;
+  const int64_t row =
+      (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (row >= a.rows) return;  // uniform per warp
+  const int64_t b = row / a.N;
   float lam[KP];
   float eta;
-  bmf_warp_accum_row<KP, T>(idx + row * M, val + row * M, mask + row * M,
-                            live[row], other + b * (int64_t)D * K, K, lane,
-                            lam, eta);
-  const int l = lane % KP;
+  bmf_warp_accum_row<KP, T>(a.idx + row * a.M, a.val + row * a.M,
+                            a.mask + row * a.M, a.live[row],
+                            a.other + b * (int64_t)a.D * K, K, lane, lam,
+                            eta);
+  const int l = lane;
   const bool col = l < K;
+  const float tau = a.tau;
 
   // c[i] = A[i][l]: column l of the conditional precision
-  const float* PL = prior_lam + row * K * K;
+  const float* PL = a.prior_lam + row * K * K;
   float c[KP];
 #pragma unroll
   for (int i = 0; i < KP; ++i) {
-    float a = 0.f;
-    if (i < K && col) a = tau * lam[i] + PL[i * K + l] + (i == l ? jitter : 0.f);
-    c[i] = a;
+    float v = 0.f;
+    if (i < K && col)
+      v = tau * lam[i] + PL[i * K + l] + (i == l ? a.jitter : 0.f);
+    c[i] = v;
   }
-  const float bl = col ? tau * eta + prior_eta[row * K + l] : 0.f;
-  const float zl = col ? z[row * K + l] : 0.f;
+  const float bl = col ? tau * eta + a.prior_eta[row * K + l] : 0.f;
+  const float zl = col ? a.z[row * K + l] : 0.f;
 
   // Cholesky A = L L^T. Afterwards c[i] = L[i][l] for i >= l and
   // r[j] = L[l][j] for j <= l.
@@ -114,45 +419,33 @@ sweep_kernel(const int32_t* __restrict__ idx, const float* __restrict__ val,
       }
     }
   }
-  if (lane < K) u_out[row * K + lane] = um + uz;
+  if (lane < K) a.u[row * K + lane] = um + uz;
 }
 
 template <typename T>
-void launch(const void* idx, const void* val, const void* mask,
-            const void* live, const void* other, const void* prior_eta,
-            const void* prior_lam, const void* z, void* u, int64_t rows,
-            int N, int M, int D, int K, float tau, float jitter,
-            cudaStream_t st) {
-  const int32_t* ix = static_cast<const int32_t*>(idx);
-  const float* vl = static_cast<const float*>(val);
-  const float* mk = static_cast<const float*>(mask);
-  const int32_t* lv = static_cast<const int32_t*>(live);
-  const T* ot = static_cast<const T*>(other);
-  const float* pe = static_cast<const float*>(prior_eta);
-  const float* pl = static_cast<const float*>(prior_lam);
-  const float* zz = static_cast<const float*>(z);
-  float* uo = static_cast<float*>(u);
-  const dim3 grid((unsigned)((rows + kWarpsPerBlock - 1) / kWarpsPerBlock));
-  const dim3 block(32 * kWarpsPerBlock);
-  if (K <= 8)
-    sweep_kernel<8, T><<<grid, block, 0, st>>>(ix, vl, mk, lv, ot, pe, pl, zz,
-                                               uo, rows, N, M, D, K, tau,
-                                               jitter);
-  else if (K <= 16)
-    sweep_kernel<16, T><<<grid, block, 0, st>>>(ix, vl, mk, lv, ot, pe, pl,
-                                                zz, uo, rows, N, M, D, K, tau,
-                                                jitter);
-  else
-    sweep_kernel<32, T><<<grid, block, 0, st>>>(ix, vl, mk, lv, ot, pe, pl,
-                                                zz, uo, rows, N, M, D, K, tau,
-                                                jitter);
+cudaError_t launch(const SweepArgs<T>& a, cudaStream_t st) {
+  // the vector loads of the gathered rows need the factor 16-byte aligned
+  if (reinterpret_cast<uintptr_t>(a.other) % 16)
+    return cudaErrorMisalignedAddress;
+  if (a.K <= kRowK) {
+    dispatch_rows<T>(a, st, std::make_integer_sequence<int, kRowK>{});
+  } else {
+    const dim3 grid(
+        (unsigned)((a.rows + kWarpsPerBlock - 1) / kWarpsPerBlock));
+    sweep_warp_kernel<T><<<grid, 32 * kWarpsPerBlock, 0, st>>>(a);
+  }
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
 
 // idx/val/mask: (B, N, M); live: (B, N) int32; other: (B, D, K) f32 or
-// bf16; prior_eta/z/u: (B, N, K) f32; prior_lam: (B, N, K, K) f32.
-// Returns a cudaError_t.
+// bf16, 16-byte aligned; prior_eta/z/u: (B, N, K) f32; prior_lam:
+// (B, N, K, K) f32. Returns a cudaError_t.
 extern "C" int bmf_sweep_launch(const void* idx, const void* val,
                                 const void* mask, const void* live,
                                 const void* other, int other_bf16,
@@ -165,11 +458,21 @@ extern "C" int bmf_sweep_launch(const void* idx, const void* val,
   const int64_t rows = (int64_t)B * N;
   if (rows == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int vec4 = M % 4 == 0 && aligned16(idx) && aligned16(val) &&
+                   aligned16(mask);
+  const int32_t* ix = static_cast<const int32_t*>(idx);
+  const float* vl = static_cast<const float*>(val);
+  const float* mk = static_cast<const float*>(mask);
+  const int32_t* lv = static_cast<const int32_t*>(live);
+  const float* pe = static_cast<const float*>(prior_eta);
+  const float* pl = static_cast<const float*>(prior_lam);
+  const float* zz = static_cast<const float*>(z);
+  float* uo = static_cast<float*>(u);
   if (other_bf16)
-    launch<__nv_bfloat16>(idx, val, mask, live, other, prior_eta, prior_lam,
-                          z, u, rows, N, M, D, K, tau, jitter, st);
-  else
-    launch<float>(idx, val, mask, live, other, prior_eta, prior_lam, z, u,
-                  rows, N, M, D, K, tau, jitter, st);
-  return (int)cudaGetLastError();
+    return (int)launch(SweepArgs<__nv_bfloat16>{
+        ix, vl, mk, lv, static_cast<const __nv_bfloat16*>(other), pe, pl, zz,
+        uo, rows, N, M, D, K, tau, jitter, vec4}, st);
+  return (int)launch(SweepArgs<float>{
+      ix, vl, mk, lv, static_cast<const float*>(other), pe, pl, zz, uo, rows,
+      N, M, D, K, tau, jitter, vec4}, st);
 }

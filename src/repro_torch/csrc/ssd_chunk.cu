@@ -31,9 +31,10 @@
 //     value, which one bf16 (or TF32) rounding does not hold, so each
 //     operand is split as x = hi + lo, both bf16 (round to nearest even),
 //     and each product is hi.hi + hi.lo + lo.hi (about 16 bits; the lo.lo
-//     term is dropped). bf16 rather than TF32 because the k-16 bf16 mma
-//     does twice the work per instruction at the same issue rate, and the
-//     kernel is bound by what its warps issue, not by bytes (PERF.md).
+//     term is dropped; mma_split.cuh, shared with L5). bf16 rather than
+//     TF32 because the k-16 bf16 mma does twice the work per instruction
+//     at the same issue rate, and the kernel is bound by what its warps
+//     issue, not by bytes (PERF.md).
 //   - C B^T is the same for every head of a batch row: the block forms it
 //     once per chunk, on the 20 lower-triangle 16 x 8 tiles only, for its
 //     two heads, and each head applies its own mask exp(L_t - L_j) when it
@@ -41,10 +42,9 @@
 //     159 KB (one block per SM: 448 blocks at B = 8, H = 112, 3.4 waves).
 //   - the next chunk's xdt, B, C and a are in flight (cp.async, two
 //     buffers) while this chunk computes; two barriers per chunk.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "mma_split.cuh"
 
 namespace {
 
@@ -81,104 +81,6 @@ struct Layout {
   static_assert(b % 4 == 0 && c % 4 == 0 && a % 4 == 0 && buf % 4 == 0,
                 "cp.async destinations are 16-byte aligned");
 };
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (x, y) = hi + lo, each a bf16 pair (x in the low half: the lower k)
-__device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  hi = as_u32(h);
-  lo = as_u32(__floats2bfloat162_rn(x - hf.x, y - hf.y));
-}
-
-// Fragments of mma m16n8k16 (PTX), lane = 4 g + t. A (16 x 16, rows r,
-// depth k): registers (g, 2t..2t+1), (g + 8, 2t..), (g, 2t + 8..),
-// (g + 8, 2t + 8..). B (16 x 8): (2t..2t+1, g), (2t + 8.., g). The
-// accumulator: (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
-struct FragA {   // split
-  uint32_t hi[4], lo[4];
-  __device__ __forceinline__ void set(float2 p0, float2 p1, float2 p2,
-                                      float2 p3) {
-    split2(p0.x, p0.y, hi[0], lo[0]);
-    split2(p1.x, p1.y, hi[1], lo[1]);
-    split2(p2.x, p2.y, hi[2], lo[2]);
-    split2(p3.x, p3.y, hi[3], lo[3]);
-  }
-  // rows r0 + g (+ 8), depth k0 + 2t (+ 1, + 8, + 9) of a row-major matrix
-  __device__ __forceinline__ void rows(const float* m, int ld, int r0,
-                                       int k0, int g, int t) {
-    const float* p = m + (r0 + g) * ld + k0 + 2 * t;
-    set(*reinterpret_cast<const float2*>(p),
-        *reinterpret_cast<const float2*>(p + 8 * ld),
-        *reinterpret_cast<const float2*>(p + 8),
-        *reinterpret_cast<const float2*>(p + 8 * ld + 8));
-  }
-};
-
-struct FragB {   // split
-  uint32_t hi[2], lo[2];
-  __device__ __forceinline__ void set(float2 p0, float2 p1) {
-    split2(p0.x, p0.y, hi[0], lo[0]);
-    split2(p1.x, p1.y, hi[1], lo[1]);
-  }
-  // column n0 + g, depth k0 + 2t (+ 1, + 8, + 9) of a matrix stored as
-  // rows n (depth contiguous)
-  __device__ __forceinline__ void rows(const float* m, int ld, int n0,
-                                       int k0, int g, int t) {
-    const float* p = m + (n0 + g) * ld + k0 + 2 * t;
-    set(*reinterpret_cast<const float2*>(p),
-        *reinterpret_cast<const float2*>(p + 8));
-  }
-  // column n0 + g, depth k0 + 2t (+ 1, + 8, + 9) of a matrix stored as
-  // rows k (columns n contiguous)
-  __device__ __forceinline__ void cols(const float* m, int ld, int n0,
-                                       int k0, int g, int t) {
-    const float* p = m + (k0 + 2 * t) * ld + n0 + g;
-    set(make_float2(p[0], p[ld]), make_float2(p[8 * ld], p[9 * ld]));
-  }
-};
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d += a b in about 16 bits: the two small cross terms, then hi.hi
-__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
-                                     const FragB& b) {
-  mma(d, a.lo, b.hi);
-  mma(d, a.hi, b.lo);
-  mma(d, a.hi, b.hi);
-}
 
 // Warp wi of a head owns state rows and y columns 16 wi .. 16 wi + 15, so
 // P / 16 of its 4 warps (all 4 at P = 64) scan; all 8 warps form C B^T.

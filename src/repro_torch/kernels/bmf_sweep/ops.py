@@ -8,8 +8,10 @@ Replaces the TPU kernel ``src/repro/kernels/bmf_sweep/kernel.py``
 Bound on the H100: bytes — per row the live CSR slots, their gathered
 factor rows, the K×K prior precision and two K-vectors come in and K
 floats go out; the O(K³) factorization is small against that traffic.
-One warp owns one row and keeps Λ, η and the Cholesky factor in
-registers, so only U is written (see the source for the layout).
+Up to K = 16 one thread owns one row and keeps Λ's lower
+triangle, η and the Cholesky factor in registers; above it, up to
+``SWEEP_K_MAX``, one warp owns a row and a lane each column of Λ. Only U
+is written (see the source for both designs).
 
 Routes, chosen from what the call can observe:
   - CUDA tensor, K ≤ ``SWEEP_K_MAX``: the B2 kernel;
@@ -32,7 +34,8 @@ from repro_torch.kernels.bmf_precision import ops as PREC
 from repro_torch.kernels.bmf_sweep.ref import sweep_ref_padded
 
 SWEEP_DTYPES = ("fp32", "bf16")
-# one warp per row, one lane per column of Λ
+# one thread per row up to K = 16; one warp per row, one lane per column
+# of Λ, up to SWEEP_K_MAX
 SWEEP_K_MAX = 32
 
 
@@ -99,6 +102,8 @@ def _launch(z, idx, val, mask, prior_eta, prior_lam, other, tau, jitter,
         dict(idx=(torch.int32,), val=f32, mask=f32, live=(torch.int32,),
              other=(torch.float32, torch.bfloat16), prior_eta=f32,
              prior_lam=f32, z=f32))
+    if other.data_ptr() % 16:      # the kernel gathers in 16-byte loads
+        other = other.clone()
     U = torch.empty((B, N, K), dtype=torch.float32, device=idx.device)
     err = _lib()(idx.data_ptr(), val.data_ptr(), mask.data_ptr(),
                  live.data_ptr(), other.data_ptr(),

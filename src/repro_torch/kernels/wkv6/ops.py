@@ -4,9 +4,10 @@ a whole sequence, forward only.
 Replaces the TPU kernel ``src/repro/kernels/wkv6/kernel.py``
 (``wkv_chunk_padded``, body ``_kernel``) and its wrapper ``ops.wkv6``,
 which runs one kernel call per 128-step chunk inside a ``lax.scan``: the
-CUDA kernel loops over the chunks inside one block per (batch, head), so a
-layer is one launch. Bound on the H100: bytes and operations about
-balanced (see the source).
+CUDA kernel loops over 64-step chunks inside one block per (batch, head),
+so a layer is one launch. Bound on the H100: bytes, once its products run
+on the tensor cores (bf16 hi + lo operands, the next chunk's inputs in
+flight while this one multiplies; see the source).
 
 On a CUDA tensor ``wkv6`` launches the kernel or raises; on a CPU tensor
 it runs the plain chunked version (``ref.wkv_chunked``). The reference
