@@ -7,12 +7,12 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
   1. card and build: the card's name and power limit, then the CUDA
      kernels built from ``src/repro_torch/csrc`` (one nvcc per source, in
      parallel), with the build seconds and ptxas's register report; the
-     bf16 tensor-core variants of L1 and L2 (``*_sm90``), B2, L3, L4 and
-     L5 must not spill;
+     bf16 tensor-core variants of L1 and L2 (``*_sm90``), B1, B2, L3, L4
+     and L5 must not spill;
   2. kernel parity: each kernel (B1 bmf_precision, B2 bmf_sweep) against
      its plain PyTorch version, fp32 and bf16, at the phase-c bucket shape
      of phase 4's data (which holds all-padding tiles and empty rows),
-     timed with CUDA events (warm-up, median of several runs), B2 with its
+     timed with CUDA events (warm-up, median of several runs), with its
      achieved TB/s;
   3. the quickstart on the card: ``mini``, ``run_full_bmf`` and a 2×2
      stacked ``run_pp`` with the fused sweep; PP must beat the mean
@@ -22,7 +22,18 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      held out, a 16×4 grid, and a stacked ``run_pp`` once with the fused
      sweep (B2) and once with the sufficient-statistics kernel (B1). Each
      run must give a finite RMSE below the mean predictor and launch its
-     kernel;
+     kernel. Then the paper's K = 100 shape: Netflix (Table 1: 480,189 x
+     17,770, 209 ratings/row, K = 100, true rank 12) with its rows cut to
+     1/8 (60,023 x 17,770, ~12.5M ratings), 10% held out, on the 8 x 2
+     grid that ``suggest_grid`` picks for 16 blocks (the 32 x 2 grid that
+     64 blocks give the full matrix has the same column split and ~104
+     ratings per block-row; a 16 x 4 grid would make phase c's Lam 6.8
+     and 8.0 GB): B1, its tensor-core Gram kernel above K = 16, against
+     its plain version at this run's phase-c bucket, fp32 and bf16, timed
+     beside its bound (the plain version once); then a stacked
+     ``run_pp`` with ``use_kernel=True``, 8 sweeps, which must beat the
+     mean predictor, launch B1, record no health-guard fault and keep
+     the peak device memory below 80 GB (as every BMF run must);
   5. LLM kernel parity: L1 flash_attention and L3 decode_attention against
      their plain versions, bf16 and fp32 (L1 and L2 have two CUDA
      variants: bf16 runs the sm90 tensor-core kernel, fp32 the f32
@@ -108,7 +119,8 @@ SRC = ROOT / "src"
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
-BF16_FLOPS = 989e12       # dense tensor-core rate
+TF32_FLOPS = 495e12       # dense tensor-core rates
+BF16_FLOPS = 989e12
 
 # kernel vs plain version on the card, relative to the largest plain
 # value: both sum the same f32 products in other orders (up to thousands
@@ -185,6 +197,13 @@ TRAIN_STEPS = 6
 TABLE1_MOVIELENS = dict(name="movielens-20m", n_rows=138_493, n_cols=27_278,
                         ratings_per_row=144, scale_lo=1, scale_hi=5, K=10,
                         true_rank=8)
+# Netflix (Table 1: 480,189 x 17,770, 209 ratings/row, K = 100, the netflix
+# preset's true rank 12) with its rows cut to 1/8, on the 8 x 2 grid that
+# suggest_grid picks for 16 blocks; see phase_netflix
+TABLE1_NETFLIX_CUT = dict(name="netflix-1/8", n_rows=480_189 // 8,
+                          n_cols=17_770, ratings_per_row=209, scale_lo=1,
+                          scale_hi=5, K=100, true_rank=12)
+NETFLIX_BLOCKS = 16
 
 
 def log(*args):
@@ -249,6 +268,42 @@ def bound(n_bytes, flops, peak=FP32_FLOPS):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+# B1 runs one thread per row up to this K, the tensor-core Gram kernel
+# above (csrc/bmf_precision.cu)
+B1_ROW_K = 16
+
+
+def b1_bound(idx, live, other):
+    """B1's bound on this call's inputs: each live slot's idx, val and mask,
+    the live lengths and the factor read once, Λ and η written once.
+    Operations: up to B1_ROW_K the f32 fmas on the CUDA cores; above it the
+    Gram kernel's tensor-core products at their rate (fp32 factors: three
+    TF32 products per product, hi + lo split; bf16: one, exact for the
+    path's 0/1 masks), with the f32 CUDA-core figure beside it."""
+    import torch
+    B, N, _ = idx.shape
+    D, K = other.shape[1:]
+    n_live = int(live.sum())
+    n_bytes = (12 * n_live + 4 * B * N + other.element_size() * B * D * K
+               + 4 * B * N * (K * K + K))
+    fp32_flops = n_live * (2 * K * K + 3 * K) + B * N * (K * K + K)
+    fp32_ms = 1e3 * fp32_flops / FP32_FLOPS
+    bytes_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
+    if K <= B1_ROW_K:
+        ms, by = bound(n_bytes, fp32_flops)
+        detail = f"bytes {bytes_ms:.4f} ms, f32 fmas {fp32_ms:.4f} ms"
+        return dict(bound_ms=ms, bound_by=by, bytes=n_bytes, detail=detail)
+    if other.dtype == torch.bfloat16:
+        products, rate, kind = 2 * K * K * n_live, BF16_FLOPS, "bf16 x1"
+    else:
+        products, rate, kind = 3 * 2 * K * K * n_live, TF32_FLOPS, "3xTF32"
+    ms, by = bound(n_bytes, products, rate)
+    detail = (f"bytes {bytes_ms:.4f} ms, {kind} products "
+              f"{1e3 * products / rate:.4f} ms; f32 CUDA-core fmas "
+              f"{fp32_ms:.4f} ms")
+    return dict(bound_ms=ms, bound_by=by, bytes=n_bytes, detail=detail)
+
+
 def phase_build():
     from repro_torch.kernels import build as BUILD
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -275,39 +330,36 @@ def phase_build():
             raise AssertionError(f"{name}: ptxas spills: {spills}")
 
 
-def make_data():
+def make_data(table=TABLE1_MOVIELENS, n_blocks=64):
+    """Table 1 shape ``table`` generated from seed 0, 10% held out, and
+    partitioned on the grid ``suggest_grid`` picks for ``n_blocks``."""
     from repro_torch.core.partition import partition, suggest_grid
     from repro_torch.data import synthetic as SYN
     from repro_torch.data.sparse import apply_permutation, train_test_split
-    preset = SYN.DatasetPreset(**TABLE1_MOVIELENS)
+    preset = SYN.DatasetPreset(**table)
     t0 = time.time()
     coo, _ = SYN.generate(preset, seed=0)
     train, test = train_test_split(coo, 0.1, seed=1)
     t1 = time.time()
-    I, J = suggest_grid(train.n_rows, train.n_cols, 64)
+    I, J = suggest_grid(train.n_rows, train.n_cols, n_blocks)
     part = partition(train, I, J)
     t2 = time.time()
-    log(f"[data] MovieLens-20M shape: {train.n_rows} x "
+    log(f"[data] {preset.name} shape: {train.n_rows} x "
         f"{train.n_cols}, {train.nnz} train / {test.nnz} test ratings, "
-        f"grid {I}x{J}; generate+split {t1 - t0:.1f}s, partition "
-        f"{t2 - t1:.1f}s")
+        f"K = {preset.K}, grid {I}x{J}; generate+split {t1 - t0:.1f}s, "
+        f"partition {t2 - t1:.1f}s")
     test_p = apply_permutation(test, part.row_perm, part.col_perm)
     return preset, train, test, test_p, part
 
 
-def phase_parity(part, test_p, K, dev):
-    """B1 and B2 against their plain versions at the phase-c bucket."""
-    import torch
+def bucket_planes(part, test_p, K, dev, tag="parity"):
+    """The user-side padded CSR planes (B, N, M) of every phase-c block at
+    the phase-c bucket, as the stacked executor builds them, their live
+    lengths, and the other side's row count D."""
     from repro_torch.core import engine as ENG
     from repro_torch.core import pp as PP
     from repro_torch.data.sparse import row_live
-    from repro_torch.kernels.bmf_precision import ops as B1
-    from repro_torch.kernels.bmf_precision.ref import precision_accum_plain
-    from repro_torch.kernels.bmf_sweep import ops as B2
-    from repro_torch.kernels.bmf_sweep.ref import sweep_ref_padded
-
-    shapes = PP.BlockShapes.per_phase(part, test_p)
-    s = shapes["c"]
+    s = PP.BlockShapes.per_phase(part, test_p)["c"]
     tasks = [t for _, ts in ENG.build_phase_graph(part) for t in ts
              if t.phase == "c"]
     buf = PP.new_block_inputs(s, K, len(tasks), dev, False, False)
@@ -316,15 +368,64 @@ def phase_parity(part, test_p, K, dev):
     idx, val, mask = buf["idx_r"], buf["val_r"], buf["mask_r"]
     del buf
     B, N, M = idx.shape
-    D = s.n_cols
     live = row_live(mask)
-    L = int(live.sum())
+    n_live = int(live.sum())
     n_empty = int((live == 0).sum())
     dead_tiles = int(((M + 31) // 32 - (live + 31) // 32).sum())
-    log(f"[parity] phase-c bucket: B={B} N={N} M={M} D={D} K={K}; "
-        f"{L} live slots, {n_empty} empty rows, {dead_tiles} all-padding "
-        f"32-slot tiles skipped")
-    assert n_empty > 0 and dead_tiles > 0
+    log(f"[{tag}] phase-c bucket: B={B} N={N} M={M} D={s.n_cols} K={K}; "
+        f"{n_live} live slots, {n_empty} empty rows, {dead_tiles} "
+        f"all-padding 32-slot tiles skipped")
+    return idx, val, mask, live, s.n_cols
+
+
+def b1_parity(idx, val, mask, live, other, tau, tag, plain_reps=3):
+    """B1 on the card against its plain version on the same inputs, under
+    TOL; both timed with CUDA events (the plain version ``plain_reps``
+    times), beside ``b1_bound``."""
+    from repro_torch.kernels.bmf_precision import ops as B1
+    from repro_torch.kernels.bmf_precision.ref import precision_accum_plain
+
+    def kern():
+        return B1.precision_accum(idx, val, mask, other, tau, live)
+
+    def plain():
+        return precision_accum_plain(idx, val, mask, other.float(), tau, live)
+
+    (lam, eta), (lam_p, eta_p) = kern(), plain()
+    err = max(float((lam - lam_p).abs().max()),
+              float((eta - eta_p).abs().max()))
+    scale = max(float(lam_p.abs().max()), float(eta_p.abs().max()), 1.0)
+    del lam, eta, lam_p, eta_p
+    ms = cuda_ms(kern, 5)
+    pms = cuda_ms(plain, plain_reps, warmup=1 if plain_reps > 1 else 0)
+    bnd = b1_bound(idx, live, other)
+    tol = TOL["bmf_precision"]
+    ok = err <= tol * scale
+    tb = bnd["bytes"] / ms / 1e9
+    dtype = "bf16" if other.element_size() == 2 else "fp32"
+    log(f"[{tag}] bmf_precision {dtype}: max_abs_err {err:.3e} (tolerance {tol:.0e} x {scale:.3g} "
+        f"= {tol * scale:.3e}) {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms "
+        f"({tb:.3f} TB/s), plain {pms:.3f} ms, bound {bnd['bound_ms']:.4f} "
+        f"ms ({bnd['bound_by']}; {bnd['detail']})")
+    if not ok:
+        raise AssertionError(f"{tag}: bmf_precision {dtype} disagrees with "
+                             f"its plain version")
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"],
+                tb_per_s=tb)
+
+
+def phase_parity(part, test_p, K, dev):
+    """B1 and B2 against their plain versions at the phase-c bucket."""
+    import torch
+    from repro_torch.kernels.bmf_sweep import ops as B2
+    from repro_torch.kernels.bmf_sweep.ref import sweep_ref_padded
+
+    idx, val, mask, live, D = bucket_planes(part, test_p, K, dev)
+    B, N, M = idx.shape
+    L = int(live.sum())
+    assert int((live == 0).sum()) > 0
+    assert int(((M + 31) // 32 - (live + 31) // 32).sum()) > 0
 
     g = torch.Generator(device=dev).manual_seed(0)
     other32 = torch.randn((B, D, K), generator=g, device=dev) / K ** 0.5
@@ -341,21 +442,8 @@ def phase_parity(part, test_p, K, dev):
         base_bytes = 12 * L + 4 * B * N + elt * B * D * K
         acc_flops = L * (2 * K * K + 3 * K)
 
-        def b1():
-            return B1.precision_accum(idx, val, mask, other, tau, live)
-
-        def b1_plain():
-            return precision_accum_plain(idx, val, mask, other.float(), tau,
-                                         live)
-
-        (lam, eta), (lam_p, eta_p) = b1(), b1_plain()
-        err1 = max(float((lam - lam_p).abs().max()),
-                   float((eta - eta_p).abs().max()))
-        scale1 = max(float(lam_p.abs().max()), float(eta_p.abs().max()), 1.0)
-        del lam, eta, lam_p, eta_p
-        ms1, pms1 = cuda_ms(b1, 5), cuda_ms(b1_plain, 3, warmup=1)
-        bnd1 = bound(base_bytes + 4 * B * N * (K * K + K),
-                     acc_flops + B * N * (K * K + K))
+        results[("bmf_precision", dtype)] = b1_parity(
+            idx, val, mask, live, other, tau, "parity")
 
         def b2():
             return B2.fused_sweep(z, idx, val, mask, prior_eta, prior_lam,
@@ -367,28 +455,24 @@ def phase_parity(part, test_p, K, dev):
 
         U, U_p = b2(), b2_plain()
         assert bool(torch.isfinite(U).all())
-        err2 = float((U - U_p).abs().max())
-        scale2 = max(float(U_p.abs().max()), 1.0)
+        err = float((U - U_p).abs().max())
+        sc = max(float(U_p.abs().max()), 1.0)
         del U, U_p
-        ms2, pms2 = cuda_ms(b2, 5), cuda_ms(b2_plain, 3, warmup=1)
-        bytes2 = base_bytes + 4 * B * N * (K * K + 3 * K)
-        bnd2 = bound(bytes2, acc_flops + B * N * (2 * K ** 3 // 3 + 5 * K * K))
-        for name, err, sc, ms, pms, bd, n_bytes in (
-                ("bmf_precision", err1, scale1, ms1, pms1, bnd1, None),
-                ("bmf_sweep", err2, scale2, ms2, pms2, bnd2, bytes2)):
-            ok = err <= TOL[name] * sc
-            rate = {} if n_bytes is None else {"tb_per_s": n_bytes / ms / 1e9}
-            log(f"[parity] {name} {dtype}: max_abs_err {err:.3e} (tolerance "
-                f"{TOL[name]:.0e} x {sc:.3g} = {TOL[name] * sc:.3e}) "
-                f"{'ok' if ok else 'FAIL'}; kernel {ms:.3f} ms"
-                + "".join(f" ({v:.3f} TB/s)" for v in rate.values())
-                + f", plain {pms:.3f} ms, bound {bd[0]:.3f} ms ({bd[1]})")
-            if not ok:
-                raise AssertionError(f"{name} {dtype} disagrees with its "
-                                     f"plain version")
-            results[(name, dtype)] = dict(max_abs_err=err, ms=ms,
-                                          plain_ms=pms, bound_ms=bd[0],
-                                          bound_by=bd[1], **rate)
+        ms, pms = cuda_ms(b2, 5), cuda_ms(b2_plain, 3, warmup=1)
+        n_bytes = base_bytes + 4 * B * N * (K * K + 3 * K)
+        bd = bound(n_bytes, acc_flops + B * N * (2 * K ** 3 // 3 + 5 * K * K))
+        ok = err <= TOL["bmf_sweep"] * sc
+        log(f"[parity] bmf_sweep {dtype}: max_abs_err {err:.3e} (tolerance "
+            f"{TOL['bmf_sweep']:.0e} x {sc:.3g} = {TOL['bmf_sweep'] * sc:.3e}"
+            f") {'ok' if ok else 'FAIL'}; kernel {ms:.3f} ms "
+            f"({n_bytes / ms / 1e9:.3f} TB/s), plain {pms:.3f} ms, bound "
+            f"{bd[0]:.3f} ms ({bd[1]})")
+        if not ok:
+            raise AssertionError(f"bmf_sweep {dtype} disagrees with its "
+                                 f"plain version")
+        results[("bmf_sweep", dtype)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bd[0],
+            bound_by=bd[1], tb_per_s=n_bytes / ms / 1e9)
     del idx, val, mask, live, other32, prior_lam, prior_eta, z
     torch.cuda.empty_cache()
     return results
@@ -412,10 +496,11 @@ def _wrappers():
 # beside their totals; f32 calls go to the f32 kernels
 SM90 = {"flash_attention_sm90": "flash_attention",
         "flash_attention_bwd_sm90": "flash_attention_bwd"}
-# sources whose ptxas report must show no spill besides the sm90 ones: B2
-# (a row's Λ in one thread's registers), the pipelined split-KV L3 and the
-# tensor-core L4 and L5
-NO_SPILL = ("bmf_sweep", "decode_attention", "ssd_chunk", "wkv6")
+# sources whose ptxas report must show no spill besides the sm90 ones: B1
+# and B2 (a row's Λ in one thread's registers; B1's Gram accumulators), the
+# pipelined split-KV L3 and the tensor-core L4 and L5
+NO_SPILL = ("bmf_precision", "bmf_sweep", "decode_attention", "ssd_chunk",
+            "wkv6")
 
 
 def reset_counts():
@@ -486,7 +571,39 @@ def phase_main(train, test, part, cfg, label, kernel, dev):
         f"{label}: RMSE {res.rmse} does not beat the mean predictor {base}"
     assert counts[kernel] > 0, f"{label}: {kernel} was never launched"
     assert not res.faults, f"{label}: health-guard faults {res.faults}"
+    assert peak < 80e9, f"{label}: peak device memory {peak / 1e9:.1f} GB"
     return counts
+
+
+def phase_netflix(dev):
+    """The paper's K = 100 shape (docstring, phase 4): B1 at the run's
+    phase-c bucket against its plain version, then the use-kernel run.
+    Returns B1's two parity cases and its launches in the run."""
+    import torch
+    from repro_torch.core import bmf as BMF
+    preset, train, test, test_p, part = make_data(TABLE1_NETFLIX_CUT,
+                                                  NETFLIX_BLOCKS)
+    K = preset.K
+    idx, val, mask, live, D = bucket_planes(part, test_p, K, dev,
+                                            tag="netflix-parity")
+    g = torch.Generator(device=dev).manual_seed(0)
+    other32 = torch.randn((idx.shape[0], D, K), generator=g,
+                          device=dev) / K ** 0.5
+    cases = []
+    for dtype in ("fp32", "bf16"):
+        other = other32.to(torch.bfloat16) if dtype == "bf16" else other32
+        cases.append(dict(case="netflix-k100-phase-c", dtype=dtype,
+                          **b1_parity(idx, val, mask, live, other, 2.0,
+                                      "netflix-parity", plain_reps=1)))
+    del idx, val, mask, live, other32, other
+    torch.cuda.empty_cache()
+    cfg = BMF.BMFConfig(K=K, n_samples=SAMPLES, burnin=BURNIN,
+                        use_kernel=True)
+    counts = phase_main(train, test, part, cfg, "netflix-k100",
+                        "bmf_precision", dev)
+    del train, test, test_p, part
+    torch.cuda.empty_cache()
+    return cases, counts["bmf_precision"]
 
 
 def _sdpa_ms(q, k, v, reps, **kw):
@@ -1445,6 +1562,7 @@ def main():
         "bmf_precision", dev)["bmf_precision"]})
     del train, test, test_p, part
     torch.cuda.empty_cache()
+    b1_cases, netflix_launches = phase_netflix(dev)
     llm_parity = phase_llm_parity(dev)
     llm_counts = phase_serve(dev, LLM_ARCH, "llm")
     launches.update({n: llm_counts[n] for n in llm_parity})
@@ -1480,7 +1598,19 @@ def main():
     meta = {
         "bmf_precision": dict(
             source="src/repro_torch/csrc/bmf_precision.cu",
-            replaces="src/repro/kernels/bmf_precision/kernel.py:100"),
+            replaces="src/repro/kernels/bmf_precision/kernel.py:100",
+            design="K <= 16: one thread per row, Lam's lower triangle and "
+                   "eta in registers (B2's accumulate), a warp's rows "
+                   "written through shared memory in 16-byte stores; "
+                   "16 < K <= 128: persistent blocks, a producer warp "
+                   "gathering factor rows by the TMA into a 3-stage ring "
+                   "of 32-slot chunks, 4 consumer warps adding Lam's lower "
+                   "16 x 16 tiles on mma.sync (fp32 3xTF32 split, bf16 "
+                   "exact) and eta on the CUDA cores, Lam staged in "
+                   "shared memory and stored as one contiguous span",
+            cases=b1_cases,
+            launches_by_path={"use-kernel": launches["bmf_precision"],
+                              "netflix-k100": netflix_launches}),
         "bmf_sweep": dict(
             source="src/repro_torch/csrc/bmf_sweep.cu",
             replaces="src/repro/kernels/bmf_sweep/kernel.py:232",
@@ -1498,10 +1628,10 @@ def main():
                             plain_ms=fp32["plain_ms"],
                             bound_ms=fp32["bound_ms"],
                             bound_by=fp32["bound_by"], library_ms=None,
-                            **{k: fp32[k] for k in ("tb_per_s",) if k in fp32},
-                            **({"design": m["design"]} if "design" in m
-                               else {}),
-                            bf16=bf16))
+                            tb_per_s=fp32["tb_per_s"], design=m["design"],
+                            bf16=bf16,
+                            **{k: m[k] for k in ("cases", "launches_by_path")
+                               if k in m}))
     # L1 and L2 run bf16 on the path (the sm90 kernels); their f32 kernels
     # stand beside them as a second variant
     llm_meta = {

@@ -26,7 +26,8 @@
 //     loaded whole in the widest aligned loads (a 40-byte f32 row at
 //     K = 10 is five 8-byte loads); the slots' idx/val/mask come four at
 //     a time in 16-byte loads when M % 4 == 0, the next four in flight
-//     while this four's rows are gathered and added, in slot order. Two
+//     while this four's rows are gathered and added, in slot order
+//     (bmf_common.cuh's bmf_row_accum, which B1 shares). Two
 //     alternatives measured slower at the bucket (PERF.md): reading each
 //     row as the 16-byte aligned chunks that hold it (three loads and
 //     selects; 0.62 against 0.48 ms in f32), and staging a warp's 32 rows
@@ -43,8 +44,8 @@
 //     32 rows loses little to divergence; a warp of unsorted rows is
 //     correct, only slower.
 // 16 < K <= 32: one warp per row (sweep_warp_kernel), the first design:
-// lane l owns column l of Lam (bmf_common.cuh's accumulate, shared with
-// B1) and the Cholesky broadcasts each column by shuffle. A thread cannot
+// lane l owns column l of Lam (bmf_common.cuh's bmf_warp_accum_row) and
+// the Cholesky broadcasts each column by shuffle. A thread cannot
 // hold Lam's 528 floats at K = 32 in registers.
 #include <utility>
 
@@ -80,118 +81,10 @@ struct SweepArgs {
 constexpr int kRowThreads = 256;
 constexpr int kRowK = 16;
 
-__host__ __device__ constexpr int tri(int i, int j) {
-  return i * (i + 1) / 2 + j;
-}
-
-// v = row p[0..K) of the other factor in f32, in the widest aligned loads
-template <int K>
-__device__ __forceinline__ void load_row(const float* __restrict__ p,
-                                         float (&v)[K]) {
-  if constexpr (K % 4 == 0) {
-#pragma unroll
-    for (int k = 0; k < K; k += 4) {
-      const float4 q = __ldg(reinterpret_cast<const float4*>(p + k));
-      v[k] = q.x;
-      v[k + 1] = q.y;
-      v[k + 2] = q.z;
-      v[k + 3] = q.w;
-    }
-  } else if constexpr (K % 2 == 0) {
-#pragma unroll
-    for (int k = 0; k < K; k += 2) {
-      const float2 q = __ldg(reinterpret_cast<const float2*>(p + k));
-      v[k] = q.x;
-      v[k + 1] = q.y;
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < K; ++k) v[k] = __ldg(p + k);
-  }
-}
-
-__device__ __forceinline__ float2 widen(uint32_t pair) {
-  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&pair));
-}
-
-template <int K>
-__device__ __forceinline__ void load_row(const __nv_bfloat16* __restrict__ p,
-                                         float (&v)[K]) {
-  if constexpr (K % 8 == 0) {
-#pragma unroll
-    for (int k = 0; k < K; k += 8) {
-      const uint4 q = __ldg(reinterpret_cast<const uint4*>(p + k));
-      const uint32_t w[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = widen(w[e]);
-        v[k + 2 * e] = f.x;
-        v[k + 2 * e + 1] = f.y;
-      }
-    }
-  } else if constexpr (K % 4 == 0) {
-#pragma unroll
-    for (int k = 0; k < K; k += 4) {
-      const uint2 q = __ldg(reinterpret_cast<const uint2*>(p + k));
-      const float2 f0 = widen(q.x), f1 = widen(q.y);
-      v[k] = f0.x;
-      v[k + 1] = f0.y;
-      v[k + 2] = f1.x;
-      v[k + 3] = f1.y;
-    }
-  } else if constexpr (K % 2 == 0) {
-#pragma unroll
-    for (int k = 0; k < K; k += 2) {
-      const float2 f = widen(__ldg(reinterpret_cast<const unsigned*>(p + k)));
-      v[k] = f.x;
-      v[k + 1] = f.y;
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < K; ++k) v[k] = __bfloat162float(p[k]);
-  }
-}
-
-// G slots, in order: gather their rows (a slot at or past live is not
-// read: its row is zero and w = r = 0) and add w v v^T and w r v
-template <int K, int G, typename T>
-__device__ __forceinline__ void add_slots(const T* __restrict__ ob,
-                                          const int (&j)[G],
-                                          const float (&w)[G],
-                                          const float (&r)[G],
-                                          const bool (&ok)[G],
-                                          float (&lam)[K * (K + 1) / 2],
-                                          float (&eta)[K]) {
-  float v[G][K];
-#pragma unroll
-  for (int q = 0; q < G; ++q) {
-    if (ok[q]) {
-      load_row<K>(ob + (int64_t)j[q] * K, v[q]);
-    } else {
-#pragma unroll
-      for (int k = 0; k < K; ++k) v[q][k] = 0.f;
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < G; ++q) {
-    const float wq = ok[q] ? w[q] : 0.f;
-    const float wr = wq * (ok[q] ? r[q] : 0.f);
-#pragma unroll
-    for (int i = 0; i < K; ++i) {
-      const float wv = wq * v[q][i];
-#pragma unroll
-      for (int c = 0; c <= i; ++c)
-        lam[tri(i, c)] = fmaf(wv, v[q][c], lam[tri(i, c)]);
-      eta[i] = fmaf(wr, v[q][i], eta[i]);
-    }
-  }
-}
-
 template <int K, typename T>
 __global__ void __launch_bounds__(kRowThreads)
 sweep_row_kernel(const SweepArgs<T> a) {
   constexpr int KT = K * (K + 1) / 2;
-  constexpr int G = K <= 12 ? 4 : 2;   // factor rows gathered at once
   const int64_t row = (int64_t)blockIdx.x * kRowThreads + threadIdx.x;
   if (row >= a.rows) return;
   const T* ob = a.other + (row / a.N) * (int64_t)a.D * K;
@@ -201,59 +94,7 @@ sweep_row_kernel(const SweepArgs<T> a) {
   const int n = a.live[row];
 
   float lam[KT], eta[K];
-#pragma unroll
-  for (int i = 0; i < KT; ++i) lam[i] = 0.f;
-#pragma unroll
-  for (int i = 0; i < K; ++i) eta[i] = 0.f;
-
-  if (a.vec4) {
-    // four slots per 16-byte load of each plane; the next four in flight
-    int4 jn = make_int4(0, 0, 0, 0);
-    float4 wn = make_float4(0.f, 0.f, 0.f, 0.f), rn = wn;
-    if (n > 0) {
-      jn = __ldg(reinterpret_cast<const int4*>(ix));
-      wn = __ldg(reinterpret_cast<const float4*>(mk));
-      rn = __ldg(reinterpret_cast<const float4*>(vl));
-    }
-    for (int m0 = 0; m0 < n; m0 += 4) {
-      const int js[4] = {jn.x, jn.y, jn.z, jn.w};
-      const float ws[4] = {wn.x, wn.y, wn.z, wn.w};
-      const float rs[4] = {rn.x, rn.y, rn.z, rn.w};
-      if (m0 + 4 < n) {
-        jn = __ldg(reinterpret_cast<const int4*>(ix + m0 + 4));
-        wn = __ldg(reinterpret_cast<const float4*>(mk + m0 + 4));
-        rn = __ldg(reinterpret_cast<const float4*>(vl + m0 + 4));
-      }
-#pragma unroll
-      for (int q0 = 0; q0 < 4; q0 += G) {
-        int j[G];
-        float w[G], r[G];
-        bool ok[G];
-#pragma unroll
-        for (int q = 0; q < G; ++q) {
-          j[q] = js[q0 + q];
-          w[q] = ws[q0 + q];
-          r[q] = rs[q0 + q];
-          ok[q] = m0 + q0 + q < n;
-        }
-        add_slots<K, G, T>(ob, j, w, r, ok, lam, eta);
-      }
-    }
-  } else {
-    for (int m0 = 0; m0 < n; m0 += G) {
-      int j[G];
-      float w[G], r[G];
-      bool ok[G];
-#pragma unroll
-      for (int q = 0; q < G; ++q) {
-        ok[q] = m0 + q < n;
-        j[q] = ok[q] ? __ldg(ix + m0 + q) : 0;
-        w[q] = ok[q] ? __ldg(mk + m0 + q) : 0.f;
-        r[q] = ok[q] ? __ldg(vl + m0 + q) : 0.f;
-      }
-      add_slots<K, G, T>(ob, j, w, r, ok, lam, eta);
-    }
-  }
+  bmf_row_accum<K, T>(ob, ix, vl, mk, n, a.vec4, lam, eta);
 
   // A = tau Lam + prior + jitter I (lower triangle), b = tau eta + prior
   const float* PL = a.prior_lam + row * K * K;

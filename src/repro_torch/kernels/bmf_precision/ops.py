@@ -4,12 +4,21 @@ Replaces the TPU kernel ``src/repro/kernels/bmf_precision/kernel.py``
 (``precision_accum_fused_padded``, body ``_fused_kernel``) and its
 wrappers ``ops.precision_accum`` / ``ops.precision_accum_fused``.
 
-Bound on the H100: bytes — each live slot moves 12 bytes of CSR planes and
-a gathered K-float factor row for 2·K² flops. The kernel reads only the
-live prefix of each row (the per-row ``live`` lengths take the place of
-``tile_occupancy``'s M-tile skip), gathers inside the kernel so no
-(N, M, K) tensor exists, and writes Λ/η once. See the source for the
-thread layout.
+Two designs, both gathering inside the kernel (no (N, M, K) tensor) and
+reading only the live prefix of each row (the per-row ``live`` lengths
+take the place of ``tile_occupancy``'s M-tile skip):
+
+  - K ≤ ``ROW_K_MAX``: one thread per row keeps Λ's lower triangle and η
+    in registers (the accumulate of B2, ``csrc/bmf_common.cuh``); a warp
+    writes its rows' Λ through shared memory in coalesced stores. Bound
+    on the H100: bytes.
+  - ``ROW_K_MAX`` < K ≤ ``K_MAX``: persistent blocks form Λ = τ(w⊙V)ᵀV
+    from each row's gathered factor rows on the tensor cores (fp32
+    factors as 3xTF32 split products, bf16 as bf16 products) and η on
+    the CUDA cores; a producer warp gathers the rows by the TMA, so their
+    bytes must be a multiple of 16: the wrapper pads the factor's rows
+    with zeros where they are not (bf16 at K = 100: 100 → 104 columns).
+    Bound: bytes, mostly Λ's write.
 
 On a CUDA tensor ``precision_accum`` launches the kernel or raises; on a
 CPU tensor it runs the plain version (``ref.precision_accum_plain``).
@@ -27,18 +36,23 @@ from repro_torch.kernels.bmf_precision.ref import (gather_rows,
                                                    precision_accum_ref)
 
 K_MAX = 128
+ROW_K_MAX = 16      # one thread per row up to here, the Gram kernel above
 _OTHER_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _lib():
-    lib = BUILD.load("bmf_precision")
+def bind(lib: ctypes.CDLL):
+    """The typed C entry point of a loaded ``bmf_precision`` library."""
     fn = lib.bmf_precision_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, i, p, p, ctypes.c_longlong, i, i, i, i,
-                       ctypes.c_float, p]
+                       i, ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _lib():
+    return bind(BUILD.load("bmf_precision"))
 
 
 def as_batched(idx, val, mask, other, live=None):
@@ -98,7 +112,8 @@ def precision_accum(idx, val, mask, other, tau: float, live=None):
 precision_accum.launches = 0
 
 
-def _launch(idx, val, mask, other, tau, live):
+def _launch(idx, val, mask, other, tau, live, fn=None):
+    """Launch B1 through ``fn`` (default: this checkout's library)."""
     B, N, M = idx.shape
     D, K = other.shape[1:]
     if not 1 <= K <= K_MAX:
@@ -111,12 +126,21 @@ def _launch(idx, val, mask, other, tau, live):
         dict(idx=(torch.int32,), val=(torch.float32,),
              mask=(torch.float32,), live=(torch.int32,),
              other=_OTHER_DTYPES))
+    ldo = K
+    if K > ROW_K_MAX:
+        # the Gram kernel's TMA copies rows of a multiple of 16 bytes
+        per = 16 // other.element_size()
+        ldo = -(-K // per) * per
+        if ldo != K:
+            other = torch.nn.functional.pad(other, (0, ldo - K))
+    if other.data_ptr() % 16:      # the kernel gathers in 16-byte loads
+        other = other.clone()
     lam = torch.empty((B, N, K, K), dtype=torch.float32, device=idx.device)
     eta = torch.empty((B, N, K), dtype=torch.float32, device=idx.device)
-    fn = _lib()
+    fn = fn or _lib()
     err = fn(idx.data_ptr(), val.data_ptr(), mask.data_ptr(), live.data_ptr(),
              other.data_ptr(), int(other.dtype == torch.bfloat16),
-             lam.data_ptr(), eta.data_ptr(), B, N, M, D, K, float(tau),
+             lam.data_ptr(), eta.data_ptr(), B, N, M, D, K, ldo, float(tau),
              torch.cuda.current_stream(idx.device).cuda_stream)
     BUILD.check(err, "bmf_precision_launch")
     precision_accum.launches += 1

@@ -166,11 +166,13 @@ def test_cuda_kernel_matches_plain(cuda_device, K, dtype):
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_never_materializes_the_gather(cuda_device):
+@pytest.mark.parametrize("K,M", [(32, 1024), (100, 2048)])
+def test_cuda_kernel_never_materializes_the_gather(cuda_device, K, M):
     """The (B, N, M, K) gathered tensor never exists on the card: the peak
     allocation of a call stays near its outputs (the invariant the
-    reference checks in test_kernels.py on its jaxpr)."""
-    B, N, M, D, K = 2, 2048, 1024, 300, 32
+    reference checks in test_kernels.py on its jaxpr), for the Gram kernel
+    at K = 32 and at the paper's K = 100."""
+    B, N, D = 2, 2048, 300
     g = torch.Generator(device=cuda_device).manual_seed(0)
     idx = torch.randint(0, D, (B, N, M), generator=g, device=cuda_device,
                         dtype=torch.int32)

@@ -55,10 +55,13 @@ def fma(a, b, c):
     return (a.double() * b.double() + c.double()).float()
 
 
-def emulate_sweep(idx, val, mask, pe, pL, z, other, tau, jitter=1e-6):
-    """B2's arithmetic for K <= 16 on one block: idx/val/mask (N, M),
-    pe/z (N, K), pL (N, K, K), other (D, K) f32 (bf16 mode: already
-    rounded). Returns U (N, K) f32."""
+def emulate_accum(idx, val, mask, other):
+    """The row accumulate of B1 and B2 for K <= 16 (``bmf_row_accum`` in
+    ``csrc/bmf_common.cuh``) on one block: idx/val/mask (N, M), other
+    (D, K) f32 (bf16 mode: already rounded). Each live slot in order adds
+    one fma per entry: lam[i][c] += (w v_i) v_c, eta[i] += (w r) v_i.
+    Returns the unscaled lam (N, K, K) (the kernels keep i >= c) and eta
+    (N, K)."""
     N, M = idx.shape
     K = other.shape[1]
     live = torch.where(mask != 0, torch.arange(1, M + 1), 0).amax(1)
@@ -72,6 +75,16 @@ def emulate_sweep(idx, val, mask, pe, pL, z, other, tau, jitter=1e-6):
         wv = w[:, None] * v
         lam = fma(wv[:, :, None], v[:, None, :], lam)
         eta = fma(wr[:, None], v, eta)
+    return lam, eta
+
+
+def emulate_sweep(idx, val, mask, pe, pL, z, other, tau, jitter=1e-6):
+    """B2's arithmetic for K <= 16 on one block: idx/val/mask (N, M),
+    pe/z (N, K), pL (N, K, K), other (D, K) f32 (bf16 mode: already
+    rounded). Returns U (N, K) f32."""
+    N = idx.shape[0]
+    K = other.shape[1]
+    lam, eta = emulate_accum(idx, val, mask, other)
     A = fma(torch.full_like(lam, tau), lam, pL)
     A = A + jitter * torch.eye(K)
     x = fma(torch.full_like(eta, tau), eta, pe)
