@@ -52,8 +52,7 @@
 //     its mirror, cropped to K) and out as one contiguous span in 16-byte
 //     streaming stores: from the accumulators, 8 scattered sectors per
 //     store, it took 2 of ~3 ms at the Netflix-shape bucket.
-// The measurements behind each choice are in PERF.md (tools/
-// bench_bmf_precision.py).
+// The measurements behind each choice are in PERF.md.
 #include <algorithm>
 #include <type_traits>
 #include <utility>
@@ -181,25 +180,6 @@ void dispatch_rows(const PrecArgs<T>& a, cudaStream_t st,
 // 16 < K <= 128: one block per row, Lam's lower triangle on the tensor cores
 // ---------------------------------------------------------------------------
 
-// BMF_GRAM_PROFILE=1: each consumer warp's clock64 cycles per phase of
-// its loop (the loop's own work, the wait for a full chunk, products, eta
-// and the release, staging, the consumers' barrier, Lam's stores, the
-// barrier after), summed over a launch's blocks; bmf_precision_profile
-// reads and clears them (tools/bench_bmf_precision.py --profile)
-#ifndef BMF_GRAM_PROFILE
-#define BMF_GRAM_PROFILE 0
-#endif
-constexpr int kProfPhases = 8;
-__device__ unsigned long long g_prof[4][kProfPhases];
-
-// timing ablations for tools/bench_bmf_precision.py (their results are
-// wrong), a bit mask: 1 skips Lam's stores to device memory, 2 the
-// products, 4 eta's side sum, 8 the gather
-#ifndef BMF_GRAM_ABLATE
-#define BMF_GRAM_ABLATE 0
-#endif
-
-
 constexpr int kGramWarps = 4;                 // consumer warps
 constexpr int kGramThreads = 32 * kGramWarps;  // consumer threads
 constexpr int kChunk = 32;          // slots per pipeline stage (one per lane)
@@ -209,8 +189,12 @@ constexpr int kMaxBlk = 5, kMaxTiles = 9;
 
 // What warp w computes of Lam's NB x NB grid of 16 x 16 tiles: it loads the
 // fragments of the column blocks blk[0 .. nb) and accumulates the nt lower
-// tiles (rows blk[a[q]], columns blk[b[q]]). Found by a search for the
-// fewest blocks per warp with the tiles balanced; plan_covers checks it.
+// tiles (rows blk[a[q]], columns blk[b[q]]). The table came from a search
+// for the fewest block loads with the tiles balanced and at most kMaxBlk
+// blocks a warp (NB = 7: 17 in all, NB = 8: 19); plan_covers checks it.
+// Dealing the tiles greedily at compile time (bottom row first, each to
+// the warp it adds the fewest blocks to) loads 18 and 20 and ran 2-4%
+// slower at K = 100 (PERF.md).
 struct WarpPlan {
   int nb;
   int blk[kMaxBlk];
@@ -696,8 +680,7 @@ __device__ __forceinline__ void gram_producer(const PrecArgs<T>& a,
     if (w == 0.f)
       for (int o = 0; o < bytes; o += 16)
         *reinterpret_cast<uint4*>(row + o) = make_uint4(0, 0, 0, 0);
-    const unsigned live = __ballot_sync(BMF_FULL_MASK,
-                                        w != 0.f && !(BMF_GRAM_ABLATE & 8));
+    const unsigned live = __ballot_sync(BMF_FULL_MASK, w != 0.f);
     __syncwarp();
     if (lane == 0) mbar_expect_tx(m.bar + st, __popc(live) * bytes);
     if (live >> lane & 1)
@@ -734,40 +717,24 @@ __device__ __forceinline__ void gram_consumer(const PrecArgs<T>& a,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[q][h][e] = 0.f;
   float2 eacc = make_float2(0.f, 0.f);   // eta[2 tid], eta[2 tid + 1]
-#if BMF_GRAM_PROFILE
-  long long prof[kProfPhases] = {}, t_prof = clock64();
-#define BMF_PROF(i)                     \
-  do {                                  \
-    const long long t_now = clock64();  \
-    prof[i] += t_now - t_prof;          \
-    t_prof = t_now;                     \
-  } while (0)
-#else
-#define BMF_PROF(i) \
-  do {              \
-  } while (0)
-#endif
   const int64_t r0 = blockIdx.x;
   Cursor C{r0, 0, live_of(a.live, r0, rows),
            live_of(a.live, r0 + gridDim.x, rows)};
   for (int i = 0; C.row < rows; ++i) {
     const int st = i % kStages;
-    BMF_PROF(0);
     mbar_wait(m.bar + st, (i / kStages) & 1);
-    BMF_PROF(1);
     const int n_in = min(kChunk, C.n - C.c * kChunk);
     const T* tl = m.tile + st * kChunk * SP;
     const float* w = m.sw + st * kChunk;
     const float* wr = m.swr + st * kChunk;
-    if constexpr (P.nt > 0 && !(BMF_GRAM_ABLATE & 2)) {
+    if constexpr (P.nt > 0) {
       const float wl = w[lane];
       if (__ballot_sync(BMF_FULL_MASK, wl != 0.f && wl != 1.f) == 0)
         gram_chunk<NB, W, true>(tl, w, n_in, g, t, acc);
       else
         gram_chunk<NB, W, false>(tl, w, n_in, g, t, acc);
     }
-    BMF_PROF(2);
-    if (2 * tid < K && !(BMF_GRAM_ABLATE & 4)) {
+    if (2 * tid < K) {
 #pragma unroll 8
       for (int s = 0; s < n_in; ++s) {
         const float2 v = pair_f32(tl + s * SP + 2 * tid);
@@ -777,7 +744,6 @@ __device__ __forceinline__ void gram_consumer(const PrecArgs<T>& a,
     }
     __threadfence_block();
     bar_arrive(kEmpty + st, kGramThreads + 32);
-    BMF_PROF(3);
     if ((C.c + 1) * kChunk >= C.n) {   // the row's last chunk
       stage_lam<NB, W>(m.stg, K, S, a.tau, g, t, acc);
 #pragma unroll
@@ -786,26 +752,15 @@ __device__ __forceinline__ void gram_consumer(const PrecArgs<T>& a,
         for (int h = 0; h < 2; ++h)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[q][h][e] = 0.f;
-      BMF_PROF(4);
       bar_sync(kConsumerBar, kGramThreads);
-      BMF_PROF(5);
       if (2 * tid < K) a.eta[C.row * K + 2 * tid] = a.tau * eacc.x;
       if (2 * tid + 1 < K) a.eta[C.row * K + 2 * tid + 1] = a.tau * eacc.y;
       eacc = make_float2(0.f, 0.f);
-      if (!(BMF_GRAM_ABLATE & 1))
-        write_lam(a.lam + C.row * K * K, m.stg, K, S, magic, tid);
-      BMF_PROF(6);
+      write_lam(a.lam + C.row * K * K, m.stg, K, S, magic, tid);
       bar_sync(kConsumerBar, kGramThreads);   // the staging is free again
-      BMF_PROF(7);
     }
     advance(C, a.live, rows);
   }
-#if BMF_GRAM_PROFILE
-  if (lane == 0)
-    for (int i = 0; i < kProfPhases; ++i)
-      atomicAdd(&g_prof[W][i], (unsigned long long)prof[i]);
-#endif
-#undef BMF_PROF
 }
 
 // registers for 2 blocks a SM (ptxas allows the 160-thread blocks 168);
@@ -880,17 +835,6 @@ bool aligned16(const void* p) {
 }
 
 }  // namespace
-
-// The Gram kernel's phase cycles since the last call (BMF_GRAM_PROFILE
-// builds): out[4][8], warp role by phase. Returns a cudaError_t.
-extern "C" int bmf_precision_profile(unsigned long long* out) {
-  cudaError_t err = cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));
-  if (err == cudaSuccess) {
-    static const unsigned long long zero[4][kProfPhases] = {};
-    err = cudaMemcpyToSymbol(g_prof, zero, sizeof(g_prof));
-  }
-  return (int)err;
-}
 
 // idx/val/mask: (B, N, M); live: (B, N) int32; other: (B, D, ldo) f32 or
 // bf16, 16-byte aligned, its first K columns the factor (ldo = K up to

@@ -40,8 +40,8 @@ ROW_K_MAX = 16      # one thread per row up to here, the Gram kernel above
 _OTHER_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def bind(lib: ctypes.CDLL):
-    """The typed C entry point of a loaded ``bmf_precision`` library."""
+def _lib():
+    lib = BUILD.load("bmf_precision")
     fn = lib.bmf_precision_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
@@ -49,10 +49,6 @@ def bind(lib: ctypes.CDLL):
                        i, ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return fn
-
-
-def _lib():
-    return bind(BUILD.load("bmf_precision"))
 
 
 def as_batched(idx, val, mask, other, live=None):
@@ -112,8 +108,7 @@ def precision_accum(idx, val, mask, other, tau: float, live=None):
 precision_accum.launches = 0
 
 
-def _launch(idx, val, mask, other, tau, live, fn=None):
-    """Launch B1 through ``fn`` (default: this checkout's library)."""
+def _launch(idx, val, mask, other, tau, live):
     B, N, M = idx.shape
     D, K = other.shape[1:]
     if not 1 <= K <= K_MAX:
@@ -137,7 +132,7 @@ def _launch(idx, val, mask, other, tau, live, fn=None):
         other = other.clone()
     lam = torch.empty((B, N, K, K), dtype=torch.float32, device=idx.device)
     eta = torch.empty((B, N, K), dtype=torch.float32, device=idx.device)
-    fn = fn or _lib()
+    fn = _lib()
     err = fn(idx.data_ptr(), val.data_ptr(), mask.data_ptr(), live.data_ptr(),
              other.data_ptr(), int(other.dtype == torch.bfloat16),
              lam.data_ptr(), eta.data_ptr(), B, N, M, D, K, ldo, float(tau),
