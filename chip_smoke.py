@@ -34,6 +34,20 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      ``run_pp`` with ``use_kernel=True``, 8 sweeps, which must beat the
      mean predictor, launch B1, record no health-guard fault and keep
      the peak device memory below 80 GB (as every BMF run must);
+     then the same run through the streaming executor (W = 2, depth 2:
+     ``[netflix-streaming]``), held to the stacked run's RMSE within
+     PP_RMSE_TOL, its peak memory printed beside the stacked run's and
+     its ``peak_window_blocks`` within W·(depth + 1);
+     between the two shapes, at the MovieLens-20M shape with the fused
+     sweep: ``[main:async]`` and ``[main:streaming]`` (W = 4, depth 2),
+     each held to the stacked fused-sweep run's RMSE within PP_RMSE_TOL
+     and below the mean predictor (pad and chain seconds: the host's
+     padding time and the first dispatch to last resolve; streaming also
+     prints ``peak_window_blocks`` × the largest ``block_bytes``);
+     ``[bmf-sync]``: one async block dispatch and one ``_aggregate_axis``
+     under ``torch.cuda.set_sync_debug_mode("error")``; ``[bmf-profile]``:
+     one profiled repeat of the stacked, async and streaming runs, the
+     device's busy share of the wall (union of device intervals);
   5. LLM kernel parity: L1 flash_attention and L3 decode_attention against
      their plain versions, bf16 and fp32 (L1 and L2 have two CUDA
      variants: bf16 runs the sm90 tensor-core kernel, fp32 the f32
@@ -130,6 +144,10 @@ TOL = {"bmf_precision": 1e-4, "bmf_sweep": 1e-4}
 
 # the main path's chain, cut to fit the smoke's time limit
 SAMPLES, BURNIN = 8, 3
+# an overlapped executor's PP RMSE against the stacked run of the same
+# data and config on the card (ROADMAP §C: the port's card limit on a PP
+# RMSE): the chains differ only in batch sizes, i.e. rounding
+PP_RMSE_TOL = 1e-4
 
 # the LLM serve path: Qwen3-4B at full width and depth, 8 sequences, a
 # 4,000-token prompt into a 4,096-slot cache, then 96 decode steps; the
@@ -546,12 +564,16 @@ def phase_quickstart(dev):
     return counts
 
 
-def phase_main(train, test, part, cfg, label, kernel, dev):
+def phase_main(train, test, part, cfg, label, kernel, dev, executor=None):
+    """One ``run_pp`` of the main path through ``executor`` (default: a
+    stacked executor): RMSE below the mean predictor, the kernel
+    launched, no health-guard fault, peak device memory below 80 GB.
+    Returns (launch counts, result, peak bytes)."""
     import numpy as np
     import torch
     from repro_torch.core import engine as ENG
     from repro_torch.core import pp as PP
-    ex = ENG.StackedExecutor()
+    ex = ENG.StackedExecutor() if executor is None else executor
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -560,27 +582,149 @@ def phase_main(train, test, part, cfg, label, kernel, dev):
     peak = torch.cuda.max_memory_allocated()
     base = mean_rmse(train, test)
     chain = ex.timings["chain_s"]
-    log(f"[main:{label}] RMSE {res.rmse:.4f} (mean predictor {base:.4f}); "
-        f"wall {res.wall_time_s:.2f}s, phases "
+    # the overlapped executors run padding and chains side by side: pad is
+    # the host's padding time, chains the first dispatch to last resolve
+    extra = ""
+    if isinstance(ex, ENG.StreamingExecutor):
+        shapes = {id(s): s for s in ex.window_shapes.values()}.values()
+        blk = max(s.block_bytes(cfg.K) for s in shapes)
+        extra = (f"; window {ex.window} depth {ex.depth}: "
+                 f"peak_window_blocks {ex.peak_window_blocks} (bound "
+                 f"{ex.window * (ex.depth + 1)}), x block_bytes "
+                 f"{blk / 2**20:.1f} MiB = "
+                 f"{ex.peak_window_blocks * blk / 2**30:.2f} GiB; window "
+                 f"slots {ex.window_bytes / 2**30:.2f} GiB")
+    log(f"[main:{label}] RMSE {res.rmse:.4f} (mean "
+        f"predictor {base:.4f}); wall {res.wall_time_s:.2f}s, phases "
         + ", ".join(f"{k} {v:.2f}s" for k, v in res.phase_times_s.items())
         + f"; pad {ex.timings['pad_s']:.2f}s, chains {chain:.2f}s; "
         f"ratings/s {train.nnz * cfg.n_samples / chain:.4g} over the chains, "
         f"{train.nnz * cfg.n_samples / res.wall_time_s:.4g} over the wall; "
-        f"peak device memory {peak / 2**30:.2f} GiB; launches {counts}")
+        f"peak device memory {peak / 2**30:.2f} GiB; launches {counts}"
+        + extra)
     assert np.isfinite(res.rmse) and res.rmse < base, \
         f"{label}: RMSE {res.rmse} does not beat the mean predictor {base}"
     assert counts[kernel] > 0, f"{label}: {kernel} was never launched"
     assert not res.faults, f"{label}: health-guard faults {res.faults}"
     assert peak < 80e9, f"{label}: peak device memory {peak / 1e9:.1f} GB"
-    return counts
+    return counts, res, peak
+
+
+def same_rmse(label, res, ref, ref_label):
+    """An overlapped run against the stacked run of the same data and
+    config: RMSE within PP_RMSE_TOL."""
+    gap = abs(res.rmse - ref.rmse)
+    log(f"[{label}] RMSE {res.rmse:.6f} vs {ref_label} {ref.rmse:.6f}: "
+        f"|gap| {gap:.3e} (limit {PP_RMSE_TOL:.0e}) "
+        f"{'ok' if gap <= PP_RMSE_TOL else 'FAIL'}")
+    assert gap <= PP_RMSE_TOL, f"{label}: RMSE {gap:.3e} from {ref_label}"
+
+
+def phase_overlapped(train, test, part, cfg, ref, ref_peak, dev):
+    """The main path through the async executor and the streaming
+    executor (W = 4, depth 2), each held to the stacked run ``ref``
+    (peak device memory ``ref_peak``). Returns their B2 launch counts."""
+    from repro_torch.core import engine as ENG
+    launches = {}
+    for label, ex in (("async", ENG.AsyncExecutor()),
+                      ("streaming", ENG.StreamingExecutor(window=4,
+                                                          depth=2))):
+        counts, res, peak = phase_main(train, test, part, cfg, label,
+                                       "bmf_sweep", dev, executor=ex)
+        same_rmse(f"main:{label}", res, ref, "stacked")
+        log(f"[main:{label}] peak device memory {peak / 2**30:.2f} GiB "
+            f"beside the stacked run's {ref_peak / 2**30:.2f} GiB")
+        if label == "streaming":
+            bound = ex.window * (ex.depth + 1)
+            assert ex.peak_window_blocks <= bound, \
+                f"peak_window_blocks {ex.peak_window_blocks} > {bound}"
+        launches[label] = counts["bmf_sweep"]
+    return launches
+
+
+def phase_bmf_sync(part, test, cfg, dev):
+    """One async block dispatch (a phase-c block, both priors propagated)
+    and one ``_aggregate_axis`` under
+    ``torch.cuda.set_sync_debug_mode("error")``: either raising fails the
+    smoke. The blocks it depends on are dispatched first, unchecked (they
+    also pay the first call's lazy initialisation)."""
+    import torch
+    from repro_torch.core import engine as ENG
+    from repro_torch.core import pp as PP
+    from repro_torch.data.sparse import apply_permutation
+    test_p = apply_permutation(test, part.row_perm, part.col_perm)
+    ctx = ENG.PhaseContext(part=part, cfg=cfg, test_p=test_p, seed=0,
+                           shapes=PP.BlockShapes.per_phase(part, test_p),
+                           device=dev)
+    tasks = {t.coord: t for _, ts in ENG.build_phase_graph(part) for t in ts}
+    ex = ENG.AsyncExecutor()
+    ex._reset_run_state()
+    for c in ((0, 0), (1, 0), (0, 1)):
+        ex._dispatch(ctx, tasks[c])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, _, out = ex._dispatch(ctx, tasks[(1, 1)])
+        posts = [[out.U_post] * part.J for _ in range(part.I)]
+        PP._aggregate_axis(part, posts, axis="row")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("[bmf-sync] one async dispatch of block (1, 1) and one "
+        "_aggregate_axis ran under set_sync_debug_mode('error'): no "
+        "synchronizing call")
+
+
+def phase_bmf_profile(train, test, part, cfg, dev):
+    """One profiled repeat of the stacked, async and streaming runs: the
+    device's busy share of the wall (union of device intervals)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import engine as ENG
+    from repro_torch.core import pp as PP
+    shares = {}
+    for label, ex in (("stacked", ENG.StackedExecutor()),
+                      ("async", ENG.AsyncExecutor()),
+                      ("streaming", ENG.StreamingExecutor(window=4,
+                                                          depth=2))):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            PP.run_pp(0, part, cfg, test, executor=ex, device=dev)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        kernels, busy = device_time(prof)
+        if not kernels:
+            log(f"[bmf-profile] {label}: the profiler recorded no device "
+                "time: busy share not measured")
+            continue
+        top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:5]
+        shares[label] = busy / (1e3 * wall)
+        # B2's device time per block and factor step: the stacked run
+        # launches it on whole buckets, the async run on one block
+        b2 = [(us, c) for k, (us, c) in kernels.items() if "sweep" in k]
+        b2_us, b2_n = sum(u for u, _ in b2), sum(c for _, c in b2)
+        steps = part.I * part.J * 2 * cfg.n_samples
+        log(f"[bmf-profile] {label}: profiled wall {wall:.2f}s, device busy "
+            f"{busy / 1e3:.3f}s ({100 * shares[label]:.1f}% of the wall), "
+            f"{sum(c for _, c in kernels.values())} kernels; B2 "
+            f"{b2_us / 1e3:.2f} ms in {b2_n} launches, "
+            f"{b2_us / steps:.2f} us per block-step; top: "
+            + "; ".join(f"{k[:50]} {us / 1e3:.1f} ms x{c}"
+                        for k, (us, c) in top))
+        del prof
+    return shares
 
 
 def phase_netflix(dev):
     """The paper's K = 100 shape (docstring, phase 4): B1 at the run's
-    phase-c bucket against its plain version, then the use-kernel run.
-    Returns B1's two parity cases and its launches in the run."""
+    phase-c bucket against its plain version, then the use-kernel run,
+    stacked and streaming. Returns B1's two parity cases and its launches
+    in the two runs."""
     import torch
     from repro_torch.core import bmf as BMF
+    from repro_torch.core import engine as ENG
     preset, train, test, test_p, part = make_data(TABLE1_NETFLIX_CUT,
                                                   NETFLIX_BLOCKS)
     K = preset.K
@@ -599,11 +743,22 @@ def phase_netflix(dev):
     torch.cuda.empty_cache()
     cfg = BMF.BMFConfig(K=K, n_samples=SAMPLES, burnin=BURNIN,
                         use_kernel=True)
-    counts = phase_main(train, test, part, cfg, "netflix-k100",
-                        "bmf_precision", dev)
+    counts, ref, peak = phase_main(train, test, part, cfg, "netflix-k100",
+                                   "bmf_precision", dev)
+    # the same cut through the streaming executor: W = 2 blocks a chunk
+    ex = ENG.StreamingExecutor(window=2, depth=2)
+    s_counts, res, s_peak = phase_main(train, test, part, cfg,
+                                       "netflix-streaming", "bmf_precision",
+                                       dev, executor=ex)
+    same_rmse("netflix-streaming", res, ref, "stacked")
+    bound = ex.window * (ex.depth + 1)
+    log(f"[netflix-streaming] peak device memory {s_peak / 2**30:.2f} GiB "
+        f"beside the stacked run's {peak / 2**30:.2f} GiB; "
+        f"peak_window_blocks {ex.peak_window_blocks} (bound {bound})")
+    assert ex.peak_window_blocks <= bound
     del train, test, test_p, part
     torch.cuda.empty_cache()
-    return cases, counts["bmf_precision"]
+    return cases, counts["bmf_precision"], s_counts["bmf_precision"]
 
 
 def _sdpa_ms(q, k, v, reps, **kw):
@@ -1553,16 +1708,23 @@ def main():
     parity = phase_parity(part, test_p, K, dev)
     phase_quickstart(dev)
     cfg = BMF.BMFConfig(K=K, n_samples=SAMPLES, burnin=BURNIN)
+    fused = cfg._replace(sweep_fused=True)
     launches = {}
-    launches.update({"bmf_sweep": phase_main(
-        train, test, part, cfg._replace(sweep_fused=True), "fused-sweep",
-        "bmf_sweep", dev)["bmf_sweep"]})
-    launches.update({"bmf_precision": phase_main(
-        train, test, part, cfg._replace(use_kernel=True), "use-kernel",
-        "bmf_precision", dev)["bmf_precision"]})
-    del train, test, test_p, part
+    counts, stacked_fused, stacked_peak = phase_main(
+        train, test, part, fused, "fused-sweep", "bmf_sweep", dev)
+    launches["bmf_sweep"] = counts["bmf_sweep"]
+    b2_by_path = {"stacked": counts["bmf_sweep"],
+                  **phase_overlapped(train, test, part, fused, stacked_fused,
+                                     stacked_peak, dev)}
+    counts, _, _ = phase_main(train, test, part,
+                              cfg._replace(use_kernel=True), "use-kernel",
+                              "bmf_precision", dev)
+    launches["bmf_precision"] = counts["bmf_precision"]
+    phase_bmf_sync(part, test, fused, dev)
+    phase_bmf_profile(train, test, part, fused, dev)
+    del train, test, test_p, part, stacked_fused
     torch.cuda.empty_cache()
-    b1_cases, netflix_launches = phase_netflix(dev)
+    b1_cases, netflix_launches, netflix_streaming = phase_netflix(dev)
     llm_parity = phase_llm_parity(dev)
     llm_counts = phase_serve(dev, LLM_ARCH, "llm")
     launches.update({n: llm_counts[n] for n in llm_parity})
@@ -1610,14 +1772,16 @@ def main():
                    "shared memory and stored as one contiguous span",
             cases=b1_cases,
             launches_by_path={"use-kernel": launches["bmf_precision"],
-                              "netflix-k100": netflix_launches}),
+                              "netflix-k100": netflix_launches,
+                              "netflix-k100-streaming": netflix_streaming}),
         "bmf_sweep": dict(
             source="src/repro_torch/csrc/bmf_sweep.cu",
             replaces="src/repro/kernels/bmf_sweep/kernel.py:232",
             design="one thread per row up to K = 16: the slots' factor rows "
                    "added into Lam's lower triangle in registers, an "
                    "in-thread Cholesky and solves with no shuffle; one warp "
-                   "per row above"),
+                   "per row above",
+            launches_by_path=b2_by_path),
     }
     kernels = []
     for name, m in meta.items():

@@ -12,6 +12,7 @@ of carrying on on the CPU (``resolve_device``).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -29,3 +30,21 @@ def resolve_device(device=None) -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def host_tensor(arr, dev) -> torch.Tensor:
+    """``arr`` as a CPU tensor ready for a copy to ``dev``: on a CUDA
+    device a pinned buffer from the caching host allocator (which keeps it
+    until the copies that read it are done), else the array itself."""
+    src = torch.from_numpy(np.ascontiguousarray(arr))
+    if torch.device(dev).type != "cuda":
+        return src
+    pinned = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+    return pinned.copy_(src)
+
+
+def to_device(arr, dev) -> torch.Tensor:
+    """A host array on ``dev`` without blocking the host: a CUDA copy is
+    non-blocking from pinned memory, so a caller that enqueues work for
+    the card never waits for the card to drain."""
+    return host_tensor(arr, dev).to(dev, non_blocking=True)

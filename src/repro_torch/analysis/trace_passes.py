@@ -1,13 +1,34 @@
-"""Phase-graph validation (port of ``check_graph`` from
-``repro.analysis.trace_passes`` and the ``Violation`` record of
-``repro.analysis.registry``). The pass registry waits for the analyzer
-port (ROADMAP §A)."""
+"""Dispatch/resolve-trace passes and phase-graph validation (port of
+``repro.analysis.trace_passes`` and of the ``Violation`` and
+``TraceArtifact`` records of ``repro.analysis.registry``). Plain
+functions over a trace; the pass registry waits for the analyzer port
+(ROADMAP §A step 12).
+
+The executor trace schema (``core.engine.Executor``): barrier executors
+record ``(event, coord)``, the overlapped ones ``(event, coord, group)``:
+
+  ("dispatch", c[, g])    the block's chain was handed to the device
+  ("expire", c[, g])      the watchdog expired the in-flight attempt
+  ("redispatch", c[, g])  the expired attempt was dispatched again
+  ("resolve", c[, g])     the block's outcome passed the commit guard
+
+and the reference's multi-group events ("quarantine", "steal",
+"speculate", "cancel"), which the passes check as the reference does.
+
+Happens-before contract per coord: dispatch first; every dep resolved
+before it; expire only while in flight; redispatch only after an
+expire; exactly one resolve, last. An expire followed directly by
+resolve is the degraded/terminal-retire path and is legal.
+"""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 Coord = Tuple[int, int]
+
+_EVENTS = ("dispatch", "expire", "redispatch", "resolve",
+           "quarantine", "steal", "speculate", "cancel")
 
 
 @dataclass(frozen=True)
@@ -22,6 +43,190 @@ class Violation:
     def as_dict(self) -> Dict[str, str]:
         return {"pass": self.pass_name, "artifact": self.artifact,
                 "message": self.message, "fix_hint": self.fix_hint}
+
+
+@dataclass
+class TraceArtifact:
+    """An executor's recorded event trace plus the dep map it ran
+    against. ``window_bound`` is the streaming occupancy cap
+    G·W·(depth+1); ``reported_peak`` the executor's own high-water mark
+    (``peak_window_blocks``)."""
+    label: str
+    trace: Sequence[Tuple]
+    deps: Dict[Coord, Sequence[Coord]]
+    window_bound: Optional[int] = None
+    reported_peak: Optional[int] = None
+
+
+def _entries(trace):
+    """Normalize (ev, c) / (ev, c, g) entries to (ev, c, g-or-None)."""
+    for entry in trace:
+        ev, c = entry[0], entry[1]
+        yield ev, c, (entry[2] if len(entry) > 2 else None)
+
+
+def _happens_before(art: TraceArtifact) -> List[Violation]:
+    """Every dep resolves before its dependent dispatches; watchdog
+    re-dispatch is totally ordered with the expired attempt; every block
+    resolves exactly once; no work reaches a quarantined group;
+    speculative twins collapse via cancel; steal targets are staged."""
+    out = []
+    dispatched: Set[Coord] = set()
+    resolved: Set[Coord] = set()
+    expired: Set[Coord] = set()
+    inflight: Dict[Coord, int] = {}
+    twins: Dict[Coord, int] = {}        # open speculative pairs per coord
+    quarantined: Set[int] = set()
+
+    def bad(msg, hint):
+        out.append(Violation("happens-before", art.label, msg, hint))
+
+    def check_group(ev, c, g):
+        if g is not None and g in quarantined:
+            bad(f"{c} {ev} to quarantined group {g}",
+                "a quarantined group is drained and must receive no "
+                "further work — route dispatch/steal/speculation "
+                "through health.healthy() only")
+
+    for ev, c, g in _entries(art.trace):
+        if ev == "dispatch":
+            if c in dispatched:
+                bad(f"{c} dispatched twice without an intervening expire",
+                    "re-dispatch must go through the watchdog protocol: "
+                    "record ('expire', c) before the second attempt "
+                    "(a quarantine-released STAGED block was never "
+                    "dispatched, so its later launch is a first "
+                    "dispatch)")
+            missing = [d for d in art.deps.get(c, ()) if d not in resolved]
+            if missing:
+                bad(f"{c} dispatched before dep(s) {missing} resolved",
+                    "a block's propagated priors come from its deps — "
+                    "gate dispatch on _dep_state readiness, never on "
+                    "phase position alone")
+            check_group(ev, c, g)
+            dispatched.add(c)
+            inflight[c] = inflight.get(c, 0) + 1
+        elif ev == "expire":
+            if not inflight.get(c) or c in resolved:
+                bad(f"{c} expired while not in flight",
+                    "the watchdog may only expire a dispatched, "
+                    "unresolved attempt")
+            inflight[c] = max(0, inflight.get(c, 0) - 1)
+            expired.add(c)
+        elif ev == "redispatch":
+            if c not in expired:
+                bad(f"{c} redispatched without an expired attempt",
+                    "watchdog re-dispatch must be totally ordered with "
+                    "the expiry it replaces: record ('expire', c) first")
+            check_group(ev, c, g)
+            expired.discard(c)
+            inflight[c] = inflight.get(c, 0) + 1
+        elif ev == "speculate":
+            if not inflight.get(c):
+                bad(f"{c} speculated while not in flight",
+                    "speculative re-dispatch hedges a LIVE straggler — "
+                    "twin only blocks with an unresolved in-flight "
+                    "attempt")
+            check_group(ev, c, g)
+            inflight[c] = inflight.get(c, 0) + 1
+            twins[c] = twins.get(c, 0) + 1
+        elif ev == "cancel":
+            if not twins.get(c):
+                bad(f"{c} cancelled without an open speculative twin",
+                    "cancel collapses a speculate pair — record "
+                    "('speculate', c, g) before either side may cancel")
+            twins[c] = max(0, twins.get(c, 0) - 1)
+            inflight[c] = max(0, inflight.get(c, 0) - 1)
+        elif ev == "steal":
+            if inflight.get(c):
+                bad(f"{c} stolen while in flight",
+                    "steal targets must be STAGED blocks — an in-flight "
+                    "block's handles live on the victim group and "
+                    "cannot move; wait for expiry or speculation")
+            if c in resolved:
+                bad(f"{c} stolen after resolving",
+                    "a resolved block has left the scheduler — the "
+                    "steal scanned a stale staged slot")
+            check_group(ev, c, g)
+        elif ev == "quarantine":
+            if g is None:
+                bad(f"quarantine event for {c} carries no group",
+                    "quarantine is a group-level event: record "
+                    "('quarantine', trigger_coord, g)")
+            elif g in quarantined:
+                bad(f"group {g} quarantined twice",
+                    "a quarantined group stays quarantined — "
+                    "note_expiry must not re-trip on a drained group")
+            else:
+                quarantined.add(g)
+        elif ev == "resolve":
+            if c not in dispatched:
+                bad(f"{c} resolved without a dispatch",
+                    "every outcome must come from a recorded dispatch — "
+                    "a resolve out of nowhere means the executor "
+                    "committed a stale or foreign buffer")
+            if c in resolved:
+                bad(f"{c} resolved twice",
+                    "double commit: the commit guard must run exactly "
+                    "once per block")
+            if twins.get(c):
+                bad(f"{c} resolved with an open speculative twin",
+                    "a speculative resolve must cancel its twin: record "
+                    "('cancel', c, loser_group) for the losing side "
+                    "before committing the deterministic winner")
+            expired.discard(c)     # terminal retire of an expired attempt
+            inflight[c] = max(0, inflight.get(c, 0) - 1)
+            resolved.add(c)
+        else:
+            bad(f"unknown trace event {ev!r} for {c}",
+                f"executor traces may only contain {_EVENTS}")
+    for c in art.deps:
+        if c not in resolved:
+            bad(f"{c} never resolved",
+                "the run ended with an unresolved block — the executor "
+                "dropped an in-flight handle or lost a retire path")
+    for c in sorted(expired):
+        bad(f"{c} left with an expired attempt neither redispatched nor "
+            f"retired",
+            "an expiry must be followed by a redispatch or a terminal "
+            "retire before the run ends")
+    for c in sorted(k for k, n in twins.items() if n):
+        bad(f"{c} left with an uncollapsed speculative twin",
+            "every speculate pair must end in exactly one cancel — the "
+            "run finished with both twins still live")
+    return out
+
+
+def _window_occupancy(art: TraceArtifact) -> List[Violation]:
+    """In-flight (and staged) blocks never exceed the streaming window
+    bound G·W·(depth+1)."""
+    if art.window_bound is None:
+        return []
+    out = []
+    live: Dict[Coord, int] = {}
+    peak = 0
+    for ev, c, _ in _entries(art.trace):
+        if ev in ("dispatch", "redispatch", "speculate"):
+            live[c] = live.get(c, 0) + 1
+        elif ev in ("resolve", "expire", "cancel"):
+            live[c] = max(0, live.get(c, 0) - 1)
+        peak = max(peak, sum(live.values()))
+    if peak > art.window_bound:
+        out.append(Violation(
+            "window-occupancy", art.label,
+            f"{peak} blocks in flight exceeds the window bound "
+            f"{art.window_bound} (G*W*(depth+1))",
+            "the streaming window must stay bounded for the flat-memory "
+            "claim to hold — a chunk was dispatched without waiting for "
+            "a window slot"))
+    if art.reported_peak is not None and art.reported_peak > art.window_bound:
+        out.append(Violation(
+            "window-occupancy", art.label,
+            f"executor-reported peak_window_blocks={art.reported_peak} "
+            f"exceeds the bound {art.window_bound}",
+            "staged + in-flight chunks together must fit "
+            "G*W*(depth+1) blocks — the prefetch staged past its slot"))
+    return out
 
 
 def check_graph(deps: Dict[Coord, Sequence[Coord]],

@@ -136,9 +136,19 @@ def _prior_to(p: Optional[RowGaussians], dev) -> Optional[RowGaussians]:
 
 def _check_indices(csr: PaddedCSR, n_other: int):
     """Every slot must gather a row of the other factor: the kernels read
-    ``other[idx]`` without bounds checks. One device sync per chain."""
-    if csr.idx.numel() and not (int(csr.idx.min()) >= 0
-                                and int(csr.idx.max()) < n_other):
+    ``other[idx]`` without bounds checks. Planes given on the host (numpy
+    or a CPU tensor) are checked here, before they move; planes already
+    on the card were checked where the port built them on the host
+    (``data.sparse.padded_csr_host``), so a chain never reads its ids
+    back from the device (which would block the host until the card's
+    queue drained)."""
+    idx = csr.idx
+    if isinstance(idx, torch.Tensor):
+        if idx.device.type != "cpu":
+            return
+        idx = idx.numpy()
+    idx = np.asarray(idx)
+    if idx.size and not (int(idx.min()) >= 0 and int(idx.max()) < n_other):
         raise ValueError(f"CSR column ids outside [0, {n_other})")
 
 
@@ -157,6 +167,8 @@ def run_gibbs(noise,
     U_prior / V_prior: propagated per-row priors (PP phases b/c). When None,
     the factor gets the NW hierarchical prior resampled each sweep."""
     dev = resolve_device(device)
+    _check_indices(csr_rows, csr_cols.n_rows)
+    _check_indices(csr_cols, csr_rows.n_rows)
     one = lambda t: tree_map(lambda x: x[None], t)   # noqa: E731
     rows, cols = one(_csr_to(csr_rows, dev)), one(_csr_to(csr_cols, dev))
     noise = as_noise(noise, 1, dev)
@@ -193,6 +205,8 @@ def run_gibbs_stacked(noise,
     uses the fixed prior where its flag is 1 and the resampled NW
     hyperprior where it is 0."""
     dev = resolve_device(device)
+    _check_indices(csr_rows, csr_cols.n_rows)
+    _check_indices(csr_cols, csr_rows.n_rows)
     rows, cols = _csr_to(csr_rows, dev), _csr_to(csr_cols, dev)
     B, N, D, K = rows.idx.shape[0], rows.n_rows, cols.n_rows, cfg.K
     noise = as_noise(noise, B, dev)
@@ -219,8 +233,6 @@ def _run_gibbs_impl(noise, csr_rows, csr_cols, test_rows, test_cols, cfg,
     summaries — is this code."""
     N, D, K = csr_rows.n_rows, csr_cols.n_rows, cfg.K
     dev = csr_rows.idx.device
-    _check_indices(csr_rows, D)
-    _check_indices(csr_cols, N)
     nw = POST.default_nw(K, device=dev)
     # per-row live lengths, once per chain: the planes never change, and
     # the kernels skip each row's all-padding tail with them

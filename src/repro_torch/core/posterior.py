@@ -136,11 +136,13 @@ class NormalWishart(NamedTuple):
 
 
 def default_nw(K: int, device=None, dtype=torch.float32) -> NormalWishart:
+    # scalars by ``full``, a fill on the device: ``torch.tensor`` would
+    # copy from the host and wait for the device's queue to drain
     return NormalWishart(
         mu0=torch.zeros((K,), dtype=dtype, device=device),
-        beta0=torch.tensor(2.0, dtype=dtype, device=device),
+        beta0=torch.full((), 2.0, dtype=dtype, device=device),
         W0=torch.eye(K, dtype=dtype, device=device),
-        nu0=torch.tensor(float(K), dtype=dtype, device=device),
+        nu0=torch.full((), float(K), dtype=dtype, device=device),
     )
 
 

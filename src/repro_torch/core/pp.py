@@ -11,8 +11,9 @@ Three phases over an I×J block grid (paper §2.2, Fig. 1):
 
 Communication happens ONLY at the two phase boundaries: what moves between
 blocks is O((N/I + D/J)·K²) posterior summaries. Orchestration lives in
-``core.engine``; ``run_pp`` picks an executor — the serial reference loop
-or the stacked executor (one batched chain per phase shape bucket).
+``core.engine``; ``run_pp`` picks an executor — the serial reference loop,
+the stacked executor (one batched chain per phase shape bucket), or the
+overlapped async and streaming executors.
 
 Aggregation (Qin et al. 2019): per factor row, the final posterior
 multiplies the per-block posteriors (natural-parameter sums) and divides
@@ -27,7 +28,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import host_tensor, resolve_device, to_device
 from repro_torch.core import bmf as BMF
 from repro_torch.core import gibbs as GIBBS
 from repro_torch.core.partition import Block, Partition
@@ -47,8 +48,7 @@ class PPResult:
     n_test: int
     block_times_s: Dict[Tuple[int, int], float] = field(default_factory=dict)
     executor: str = "serial"
-    # dispatch→resolve spans per block (overlapped executors only; empty
-    # for the barrier executors ported so far)
+    # dispatch→resolve spans per block (overlapped executors only)
     block_spans_s: Dict[Tuple[int, int], Tuple[float, float]] = \
         field(default_factory=dict)
     # fault-tolerance ledger (engine.FaultRecord entries)
@@ -228,10 +228,14 @@ def _test_entries(block: Block, shapes: BlockShapes, test: Optional[COO]):
 
 
 def pad_block_inputs_host(block: Block, shapes: BlockShapes,
-                          test: Optional[COO]):
+                          test: Optional[COO], poison_nan: bool = False):
     """Host-side (numpy) padding of one block's CSR planes and test
     entries to a shape bucket. Returns ``(csr_rows, csr_cols, tr, tc, tv,
-    tmask)`` with numpy leaves, equal to the reference's."""
+    tmask)`` with numpy leaves, equal to the reference's.
+
+    ``poison_nan``: the fault-injection seam (``engine.FaultPlan``):
+    NaN-fill the rating planes, so the chain goes non-finite and its
+    health guard trips — the failure surface of a real diverged chain."""
     csr_rows = coo_to_padded_csr(block.coo, max_nnz=shapes.m_rows,
                                  n_rows_pad=shapes.n_rows,
                                  n_cols_pad=shapes.n_cols, as_numpy=True)
@@ -239,6 +243,9 @@ def pad_block_inputs_host(block: Block, shapes: BlockShapes,
                                  max_nnz=shapes.m_cols,
                                  n_rows_pad=shapes.n_cols,
                                  n_cols_pad=shapes.n_rows, as_numpy=True)
+    if poison_nan:
+        csr_rows.val[:] = np.nan
+        csr_cols.val[:] = np.nan
     return (csr_rows, csr_cols) + _test_entries(block, shapes, test)
 
 
@@ -266,35 +273,52 @@ def new_block_inputs(shapes: BlockShapes, K: int, batch: int, device,
     return buf
 
 
-def _fill_csr(coo: COO, m: int, n_pad: int, idx, val, mask):
-    """Write the padded CSR of ``coo`` into zeroed device planes: the
-    reference's slot layout, computed on the host in O(nnz), then
-    scattered on the device — the dense (n_pad, m) planes never exist on
-    the host."""
-    r, s, c, v, _ = padded_csr_host(coo, max_nnz=m, n_rows_pad=n_pad)
+def csr_entries(coo: COO, m: int, n_pad: int, n_cols: int):
+    """The padded CSR of ``coo`` as its live entries: (flat slot
+    ``row·M + slot`` (int64), column id, value) on the host, O(nnz), with
+    the reference's slot layout and M the bucket's ``m`` rounded up to 8
+    (``padded_csr_host``)."""
+    r, s, c, v, (_, M) = padded_csr_host(coo, max_nnz=m, n_rows_pad=n_pad,
+                                         n_cols=n_cols)
+    return r.astype(np.int64) * M + s, c, v
+
+
+def scatter_entries(idx, val, mask, lin, col, v):
+    """Write entries (``csr_entries``, already on the planes' device) into
+    zeroed planes: the dense planes never exist on the host."""
+    idx.view(-1).index_put_((lin,), col)
+    val.view(-1).index_put_((lin,), v)
+    mask.view(-1).index_fill_(0, lin, 1.0)
+
+
+def _fill_csr(coo: COO, m: int, n_pad: int, n_cols: int, idx, val, mask):
+    """Write the padded CSR of ``coo`` into zeroed device planes. The
+    entries move by non-blocking copies, so filling never waits for the
+    card."""
     dev = idx.device
-    r = torch.from_numpy(r.astype(np.int64)).to(dev)
-    s = torch.from_numpy(s.astype(np.int64)).to(dev)
-    idx[r, s] = torch.from_numpy(c).to(dev)
-    val[r, s] = torch.from_numpy(v).to(dev)
-    mask[r, s] = 1.0
+    scatter_entries(idx, val, mask,
+                    *(to_device(a, dev) for a in csr_entries(coo, m, n_pad,
+                                                             n_cols)))
 
 
 def fill_block_inputs(buf: dict, b: int, block: Block, shapes: BlockShapes,
                       test: Optional[COO],
                       U_prior: Optional[RowGaussians] = None,
-                      V_prior: Optional[RowGaussians] = None):
+                      V_prior: Optional[RowGaussians] = None) -> int:
     """Pad block ``block`` into slot ``b`` of the buffers of
     ``new_block_inputs`` — the single source of truth for bucket padding,
-    shared by ``run_block`` (serial) and the stacked executor."""
+    shared by ``run_block`` (serial), the stacked executor and the async
+    executor. Returns the block's test-entry count (host int). Never
+    waits for the device."""
     s = shapes
-    _fill_csr(block.coo, s.m_rows, s.n_rows, buf["idx_r"][b], buf["val_r"][b],
-              buf["mask_r"][b])
-    _fill_csr(block.coo.transpose(), s.m_cols, s.n_cols, buf["idx_c"][b],
-              buf["val_c"][b], buf["mask_c"][b])
-    for name, arr in zip(("tr", "tc", "tv", "tmask"),
-                         _test_entries(block, s, test)):
-        buf[name][b].copy_(torch.from_numpy(arr))
+    _fill_csr(block.coo, s.m_rows, s.n_rows, s.n_cols, buf["idx_r"][b],
+              buf["val_r"][b], buf["mask_r"][b])
+    _fill_csr(block.coo.transpose(), s.m_cols, s.n_cols, s.n_rows,
+              buf["idx_c"][b], buf["val_c"][b], buf["mask_c"][b])
+    entries = _test_entries(block, s, test)
+    for name, arr in zip(("tr", "tc", "tv", "tmask"), entries):
+        buf[name][b].copy_(host_tensor(arr, buf[name].device),
+                           non_blocking=True)
     for key, prior in (("up", U_prior), ("vp", V_prior)):
         if prior is None:
             continue
@@ -304,6 +328,15 @@ def fill_block_inputs(buf: dict, b: int, block: Block, shapes: BlockShapes,
         lam[:n].copy_(prior.Lambda)
         # pad rows carry N(0, I): finite and never read back
         lam[n:].diagonal(dim1=-2, dim2=-1).fill_(1.0)
+    return int(entries[3].sum())
+
+
+def poison_block_inputs(buf: dict, b: int):
+    """The fault-injection seam on the device buffers: NaN-fill slot
+    ``b``'s rating planes, as ``pad_block_inputs_host(poison_nan=True)``
+    does on the host."""
+    buf["val_r"][b].fill_(float("nan"))
+    buf["val_c"][b].fill_(float("nan"))
 
 
 def unpack_block_inputs(buf: dict, s: BlockShapes):
@@ -322,15 +355,31 @@ def unpack_block_inputs(buf: dict, s: BlockShapes):
 def pad_block_inputs(block: Block, shapes: BlockShapes, K: int,
                      test: Optional[COO],
                      U_prior: Optional[RowGaussians],
-                     V_prior: Optional[RowGaussians], device=None):
+                     V_prior: Optional[RowGaussians], device=None,
+                     poison_nan: bool = False):
     """Pad one block's CSR planes, priors and test entries to its phase
-    shape bucket, on ``device``. Returns ``(csr_rows, csr_cols, tr, tc,
-    tv, tmask, U_prior, V_prior)`` without a batch axis."""
+    shape bucket, on ``device``, without waiting for the device. Returns
+    ``(csr_rows, csr_cols, tr, tc, tv, tmask, U_prior, V_prior)`` without
+    a batch axis. ``poison_nan``: as in ``pad_block_inputs_host``."""
+    return pad_block_inputs_n(block, shapes, K, test, U_prior, V_prior,
+                              device, poison_nan)[0]
+
+
+def pad_block_inputs_n(block: Block, shapes: BlockShapes, K: int,
+                       test: Optional[COO],
+                       U_prior: Optional[RowGaussians],
+                       V_prior: Optional[RowGaussians], device=None,
+                       poison_nan: bool = False):
+    """``(pad_block_inputs(...), n_test)``: the block's test-entry count
+    as a host int, so no caller reads it back from the device."""
     dev = resolve_device(device)
     buf = new_block_inputs(shapes, K, 1, dev, U_prior is not None,
                            V_prior is not None)
-    fill_block_inputs(buf, 0, block, shapes, test, U_prior, V_prior)
-    return GIBBS.tree_map(lambda x: x[0], unpack_block_inputs(buf, shapes))
+    n = fill_block_inputs(buf, 0, block, shapes, test, U_prior, V_prior)
+    if poison_nan:
+        poison_block_inputs(buf, 0)
+    return (GIBBS.tree_map(lambda x: x[0], unpack_block_inputs(buf, shapes)),
+            n)
 
 
 def run_block(noise, block: Block, cfg: BMF.BMFConfig,
@@ -338,12 +387,15 @@ def run_block(noise, block: Block, cfg: BMF.BMFConfig,
               U_prior: Optional[RowGaussians],
               V_prior: Optional[RowGaussians],
               shapes: Optional[BlockShapes] = None,
-              device=None) -> GIBBS.GibbsResult:
+              device=None, poison_nan: bool = False) -> GIBBS.GibbsResult:
     """Gibbs on one block; ``noise`` is its seed or a batch-1 source."""
     dev = resolve_device(device)
     if shapes is None:
         csr_rows = coo_to_padded_csr(block.coo, device=dev)
         csr_cols = coo_to_padded_csr(block.coo.transpose(), device=dev)
+        if poison_nan:
+            csr_rows.val.fill_(float("nan"))
+            csr_cols.val.fill_(float("nan"))
         if test is not None:
             tr, tc, _ = _block_test(test, block)
         else:
@@ -352,7 +404,7 @@ def run_block(noise, block: Block, cfg: BMF.BMFConfig,
     else:
         csr_rows, csr_cols, tr, tc, _, _, U_prior, V_prior = \
             pad_block_inputs(block, shapes, cfg.K, test, U_prior, V_prior,
-                             device=dev)
+                             device=dev, poison_nan=poison_nan)
     return GIBBS.run_gibbs(noise, csr_rows, csr_cols, tr, tc, cfg,
                            U_prior=U_prior, V_prior=V_prior, device=dev)
 
@@ -363,7 +415,7 @@ def run_pp(seed: int, part: Partition, cfg: BMF.BMFConfig, test: COO,
            fault_policy=None, device=None, noise=None,
            distributed_mesh=None, block_mesh=None, window=None,
            topology=None, fault_plan=None, checkpoint_dir=None,
-           resume_from=None) -> PPResult:
+           ckpt_every: int = 1, resume_from=None) -> PPResult:
     """Full three-phase Posterior Propagation over the partition, through
     the phase-graph engine (``core.engine``).
 
@@ -371,41 +423,54 @@ def run_pp(seed: int, part: Partition, cfg: BMF.BMFConfig, test: COO,
       (seed, i, j) (``noise.block_seed``), so its chain is the same under
       every executor.
     executor: "serial" (reference: one chain per block), "stacked" (one
-      batched chain per phase shape bucket), or an ``engine.Executor``.
+      batched chain per phase shape bucket), "async" (each block
+      dispatched the moment its prior sources resolve; phases b and c
+      overlap), "streaming" (chunks of ``window`` blocks through a bounded
+      window of device buffers, the next chunk copied in while the
+      current one computes), or an ``engine.Executor``.
+    window: the streaming executor's window size W (default 4).
     on_fault / max_retries / fault_policy: the chain-health guard's policy
       (``engine.FaultPolicy``).
+    fault_plan: deterministic fault injection (``engine.FaultPlan``):
+      NaN'd chains, hung and failed dispatches by coord and attempt.
+    checkpoint_dir: persist each resolved block's posteriors through
+      ``checkpoint.ckpt.PPCheckpoint`` (every ``ckpt_every`` resolves).
+    resume_from: a checkpoint directory of an earlier run with the same
+      seed, grid, K and chain: its blocks are restored, not re-run, and
+      the finished run is bitwise identical to an uninterrupted one.
     device: where the run lives (default: the GPU; raises without one).
     noise: optional ``callable([(coord, attempt), ...]) -> noise source``
       replacing the per-block generators (the tests replay the reference's
       key schedule through it).
 
-    ``distributed_mesh``, ``block_mesh``, ``window``, ``topology``,
-    ``fault_plan``, ``checkpoint_dir`` and ``resume_from`` are the
-    reference's and are not ported yet (ROADMAP §A): passing any of them
-    raises ``NotImplementedError``."""
+    ``distributed_mesh``, ``block_mesh`` and ``topology`` are the
+    reference's multi-device placements; they come with ROADMAP step 10
+    and raise ``NotImplementedError`` until then."""
     from repro_torch.core import engine as ENG
     later = {k: v for k, v in dict(
         distributed_mesh=distributed_mesh, block_mesh=block_mesh,
-        window=window, topology=topology, fault_plan=fault_plan,
-        checkpoint_dir=checkpoint_dir, resume_from=resume_from).items()
-        if v is not None}
+        topology=topology).items() if v is not None}
     if later:
         raise NotImplementedError(
-            f"run_pp: {sorted(later)} not ported yet (ROADMAP §A: "
-            f"distributed, topology, checkpointing and fault injection "
-            f"come later)")
+            f"run_pp: {sorted(later)} not ported yet (ROADMAP §A step 10: "
+            f"topologies and the intra-block distributed chain)")
     if int(max_retries) < 0:
         raise ValueError(f"max_retries must be >= 0, got {max_retries}")
     if on_fault not in ("raise", "degrade"):
         raise ValueError(f"on_fault must be 'raise' or 'degrade', "
                          f"got {on_fault!r}")
+    if int(ckpt_every) < 1:
+        raise ValueError(f"ckpt_every must be >= 1, got {ckpt_every}")
     if fault_policy is None:
         fault_policy = ENG.FaultPolicy(on_fault=on_fault,
                                        max_retries=int(max_retries))
-    ex = ENG.make_executor(executor)
+    ex = ENG.make_executor(executor, window=window)
     return ENG.run_phase_graph(seed, part, cfg, test, ex, verbose=verbose,
                                policy=fault_policy, device=device,
-                               noise=noise)
+                               noise=noise, fault_plan=fault_plan,
+                               checkpoint_dir=checkpoint_dir,
+                               ckpt_every=int(ckpt_every),
+                               resume_from=resume_from)
 
 
 def _aggregate_axis(part: Partition, posts, axis: str) -> RowGaussians:

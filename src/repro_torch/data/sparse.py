@@ -69,11 +69,21 @@ class PaddedCSR:
 
 def padded_csr_host(coo: COO, max_nnz: Optional[int] = None,
                     pad_to_multiple: int = 8,
-                    n_rows_pad: Optional[int] = None):
+                    n_rows_pad: Optional[int] = None,
+                    n_cols: Optional[int] = None):
     """Slot layout of the padded CSR without the dense planes: the row,
     slot, column and value of every entry that fits, and the padded shape
     (NR, M). Entry e of the row-sorted order lands in slot
-    e - starts[row[e]]; slots >= M are truncated (rows beyond max_nnz)."""
+    e - starts[row[e]]; slots >= M are truncated (rows beyond max_nnz).
+
+    The column ids are checked here, on the host, against ``n_cols``
+    (default ``coo.n_cols``): the kernels gather ``other[idx]`` without
+    bounds checks, and a check of the finished planes on the card would
+    make every chain wait for the device."""
+    n_cols = coo.n_cols if n_cols is None else n_cols
+    if coo.nnz and not (int(coo.col.min()) >= 0
+                        and int(coo.col.max()) < n_cols):
+        raise ValueError(f"CSR column ids outside [0, {n_cols})")
     order = np.argsort(coo.row, kind="stable")
     rows, cols, vals = coo.row[order], coo.col[order], coo.val[order]
     counts = np.bincount(rows, minlength=coo.n_rows)
@@ -99,15 +109,15 @@ def coo_to_padded_csr(coo: COO, max_nnz: Optional[int] = None,
     to ONE shape so a stacked chain serves all blocks of a bucket.
     ``as_numpy=True`` keeps the planes on the host; otherwise they land on
     ``device`` (default: the GPU)."""
+    n_cols = n_cols_pad if n_cols_pad is not None else coo.n_cols
     r, s, c, v, (NR, M) = padded_csr_host(coo, max_nnz, pad_to_multiple,
-                                          n_rows_pad)
+                                          n_rows_pad, n_cols)
     idx = np.zeros((NR, M), np.int32)
     val = np.zeros((NR, M), np.float32)
     mask = np.zeros((NR, M), np.float32)
     idx[r, s] = c
     val[r, s] = v
     mask[r, s] = 1.0
-    n_cols = n_cols_pad if n_cols_pad is not None else coo.n_cols
     if as_numpy:
         return PaddedCSR(idx=idx, val=val, mask=mask, n_cols=n_cols)
     dev = resolve_device(device)

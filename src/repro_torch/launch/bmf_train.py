@@ -3,22 +3,32 @@
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.bmf_train \
       --dataset movielens --blocks 4 --samples 8 --fused-sweep \
-      [--executor serial|stacked] [--device cuda|cpu]
+      [--executor serial|stacked|async|streaming] [--window W] \
+      [--ckpt-dir DIR [--ckpt-every N] [--resume]] [--device cuda|cpu]
 
 --executor picks the phase-graph engine executor (core.engine): 'stacked'
 (default) runs each PP phase's shape bucket as ONE batched chain; 'serial'
-is the reference per-block loop. --fused-sweep runs each factor step as
-one pass of kernel B2 (--sweep-dtype bf16 for the mixed-precision mode).
+is the reference per-block loop; 'async' dispatches each block the moment
+its prior sources resolve (phases b and c overlap); 'streaming' moves the
+blocks through a bounded window of --window device buffers, copying the
+next chunk while the current one computes. --fused-sweep runs each factor
+step as one pass of kernel B2 (--sweep-dtype bf16 for the mixed-precision
+mode).
 
-The reference CLI's --window, --distributed, --topology, --ckpt,
---ckpt-dir, --ckpt-every, --resume, --on-fault and --max-retries wait for
-the modules they drive (ROADMAP §A).
+Fault tolerance: --on-fault/--max-retries set the engine's chain-health
+policy; --ckpt-dir persists each resolved block's posteriors so a killed
+run restarts with --resume and finishes bitwise identical to an
+uninterrupted one; --ckpt saves the aggregated posteriors.
+
+The reference CLI's --distributed and --topology wait for the topologies
+of ROADMAP §A step 10.
 """
 from __future__ import annotations
 
 import argparse
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint import ckpt
 from repro_torch.core import bmf as BMF
 from repro_torch.core import pp as PP
 from repro_torch.core.partition import (nnz_balance_stats, partition,
@@ -35,8 +45,10 @@ def main(argv=None):
     ap.add_argument("--samples", type=int, default=60)
     ap.add_argument("--k", type=int, default=0, help="0 = preset K (capped 16)")
     ap.add_argument("--executor", default="stacked",
-                    choices=["serial", "stacked"],
+                    choices=["serial", "stacked", "async", "streaming"],
                     help="phase-graph engine executor (core.engine)")
+    ap.add_argument("--window", type=int, default=0,
+                    help="streaming executor window size W (0 = default)")
     ap.add_argument("--phase-bc-samples", type=int, default=0)
     ap.add_argument("--fused-sweep", action="store_true",
                     help="one-kernel Gibbs sweep (kernel B2, bmf_sweep)")
@@ -44,11 +56,36 @@ def main(argv=None):
                     choices=["fp32", "bf16"],
                     help="fused-sweep precision: bf16 gather + accumulate, "
                          "f32 factorization; only with --fused-sweep")
+    ap.add_argument("--ckpt", default="",
+                    help="save the aggregated posteriors here (npz + json)")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="block-level phase-graph checkpoint directory: "
+                         "each resolved block's posteriors persist there "
+                         "(atomic per-block files), making the run "
+                         "resumable with --resume")
+    ap.add_argument("--ckpt-every", type=int, default=1,
+                    help="flush block checkpoints every N resolves "
+                         "(a kill loses at most N-1 blocks)")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from --ckpt-dir: restored blocks are "
+                         "skipped and the finished run is bitwise identical "
+                         "to an uninterrupted one")
+    ap.add_argument("--on-fault", default="raise",
+                    choices=["raise", "degrade"],
+                    help="after --max-retries failed re-runs of a faulty "
+                         "block: raise, or degrade it to its propagated "
+                         "prior (recorded in the fault ledger)")
+    ap.add_argument("--max-retries", type=int, default=2,
+                    help="bounded re-runs of an unhealthy block (fresh "
+                         "seed + jittered prior)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device (cuda, or cpu for the plain "
                          "PyTorch versions)")
     args = ap.parse_args(argv)
+    if args.resume and not args.ckpt_dir:
+        raise SystemExit("--resume needs --ckpt-dir (the directory the "
+                         "interrupted run checkpointed into)")
     device = resolve_device(args.device)
 
     coo, p = SYN.generate(args.dataset, seed=args.seed)
@@ -67,16 +104,31 @@ def main(argv=None):
     print("block nnz balance:", nnz_balance_stats(part))
 
     res = PP.run_pp(args.seed, part, cfg, test, verbose=True,
-                    executor=args.executor, device=device)
+                    executor=args.executor, device=device,
+                    window=args.window or None, on_fault=args.on_fault,
+                    max_retries=args.max_retries,
+                    checkpoint_dir=args.ckpt_dir or None,
+                    ckpt_every=args.ckpt_every,
+                    resume_from=args.ckpt_dir if args.resume else None)
     print(f"executor={res.executor}  RMSE={res.rmse:.4f}  "
           f"wall={res.wall_time_s:.1f}s  "
           f"phases={ {k: round(v, 2) for k, v in res.phase_times_s.items()} }")
+    if res.resumed_blocks:
+        print(f"resumed {res.resumed_blocks} block(s) from {args.ckpt_dir}")
     if res.faults:
         print(f"faults: {len(res.faults)} event(s), "
               f"{res.n_retries} retr{'y' if res.n_retries == 1 else 'ies'} — "
               + "; ".join(f"{f.kind}@{f.coord}:{f.action}"
                           for f in res.faults))
     print(f"modeled 16-worker wall: {res.modeled_parallel_s(16):.1f}s")
+    if res.block_spans_s:
+        print(f"measured critical path: {res.critical_path_s():.1f}s "
+              f"(dispatch→resolve spans, dependency chain)")
+    if args.ckpt:
+        ckpt.save(args.ckpt, {"U_eta": res.U_agg.eta, "U_Lam": res.U_agg.Lambda,
+                              "V_eta": res.V_agg.eta, "V_Lam": res.V_agg.Lambda},
+                  extra={"rmse": res.rmse, "grid": [I, J]})
+        print("checkpoint ->", args.ckpt)
     return res
 
 

@@ -6,8 +6,9 @@ Usage (smoke scale; ``--device cpu`` runs the plain PyTorch versions):
       --smoke --steps 20 --batch 2 --seq 128 [--device cuda|cpu]
 
 The port trains the dense family (qwen3_4b, llama3_8b, minitron_8b,
-chatglm3_6b); the other architectures raise ``NotImplementedError``. The
-reference's ``--ckpt`` waits for the checkpoint port (ROADMAP A.9).
+chatglm3_6b); the other architectures raise ``NotImplementedError``.
+``--ckpt PATH`` saves the trained parameters (``checkpoint.ckpt.save``:
+PATH.npz and its PATH.json manifest), which ``ckpt.restore`` reads back.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint import ckpt
 from repro_torch.configs.base import ARCH_IDS, TrainConfig, get_config
 from repro_torch.data.tokens import synthetic_token_batches
 from repro_torch.models import model as MODEL
@@ -26,10 +28,7 @@ from repro_torch.optim import adamw
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(
-        description=__doc__.split("\n\n")[0],
-        epilog="--ckpt (save a checkpoint) is not ported yet: it waits for "
-               "the checkpoint port, ROADMAP A.9.")
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", choices=list(ARCH_IDS), required=True)
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (2 layers, d<=256)")
@@ -38,6 +37,8 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--ckpt", default="",
+                    help="save the trained parameters here (npz + json)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device (cuda, or cpu for the plain "
@@ -75,6 +76,10 @@ def main(argv=None):
     last = np.mean(losses[-5:])
     print(f"loss {first:.4f} -> {last:.4f} "
           f"({'improved' if last < first else 'NOT improved'})")
+    if args.ckpt:
+        ckpt.save(args.ckpt, dict(params.named_parameters()),
+                  step=args.steps)
+        print("checkpoint ->", args.ckpt)
     return losses
 
 

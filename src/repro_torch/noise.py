@@ -78,7 +78,9 @@ class GeneratorNoise:
                 self._normals(_INIT, 0, 1, (D, K)))
 
     def hyper(self, sweep: int, f: str, nu: float, K: int):
-        df = POST.wishart_df(torch.tensor(float(nu), device=self.device), K)
+        # a fill on the device, not a copy from the host (which waits)
+        df = POST.wishart_df(torch.full((), float(nu), device=self.device),
+                             K)
         chi2, lower, z = [], [], []
         for b in range(self.batch):
             g = self._gen(b, _HYPER, sweep, _FACTORS[f])

@@ -34,7 +34,10 @@ from repro_torch.core import pp as TPP
 from repro_torch.data import sparse as TSP
 from repro_torch.data import synthetic as TSYN
 from repro_torch.noise import TapeNoise
-from torch_helpers import cuda_device, jax_chain_tape  # noqa: F401
+from torch_helpers import (cuda_device, jax_chain_tape,  # noqa: F401
+                           one_torch_thread)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 K = 8
 NS, BURN = 24, 4          # 20 kept draws >= K + 4
@@ -286,11 +289,13 @@ def test_entry_points_need_a_gpu_unless_told_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(executor="async"), NotImplementedError),
     (dict(executor="sharded"), NotImplementedError),
     (dict(executor="bogus"), ValueError),
     (dict(topology=(2, 2)), NotImplementedError),
-    (dict(checkpoint_dir="x"), NotImplementedError),
+    (dict(distributed_mesh=object()), NotImplementedError),
+    (dict(block_mesh=object()), NotImplementedError),
+    (dict(window=0, executor="streaming"), ValueError),
+    (dict(window=2, executor=TENG.StreamingExecutor()), ValueError),
     (dict(on_fault="ignore"), ValueError)])
 def test_run_pp_rejects_what_is_not_ported(kw, err):
     tr, te = _mini()
@@ -468,7 +473,7 @@ def test_executor_trace_is_dependency_safe_and_reruns_bitwise(executor):
     deps = {t.coord: t.deps for _, ts in TENG.build_phase_graph(part)
             for t in ts}
     resolved = set()
-    for event, coord in trace:
+    for event, coord, *_ in trace:     # overlapped executors add the group
         if event == "dispatch":
             assert set(deps[coord]) <= resolved, (coord, trace)
         else:

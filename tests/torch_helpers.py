@@ -11,6 +11,20 @@ import pytest
 import torch
 
 
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """Run a module's CPU torch ops on one intra-op thread, restoring the
+    count after the module. PP chains are thousands of tiny ops: with
+    several test workers sharing the cores, each op's parallel region
+    waits for threads the scheduler has parked, which made such a module
+    ~100× slower than alone (12 fault-battery tests: 564 s in each of 6
+    concurrent processes, 7.5 s on one thread)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def cuda_device():
     """The GPU for a ``cuda``-marked leg; the leg skips without one (a CUDA
