@@ -48,6 +48,28 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      under ``torch.cuda.set_sync_debug_mode("error")``; ``[bmf-profile]``:
      one profiled repeat of the stacked, async and streaming runs, the
      device's busy share of the wall (union of device intervals);
+     ``[serve]``: the stacked fused-sweep result (no retraining) as a
+     ``PosteriorStore`` with 8 item slots (build seconds and bytes), then
+     a ``MicroBatchRouter`` with ``bmf_serve``'s defaults (k = 10, batches
+     of up to 32, 64 seen, 8 folded, a 2 ms budget) serving 4,096
+     real-user requests (``bmf_serve.build_requests``: each masks up to 64
+     of its training items) in mean and in Thompson mode after one warm-up
+     batch each, and 256 cold starts (user -1, 8 folded ratings of a real
+     user); QPS, p50/p99, dispatches, batch shapes and peak memory; every
+     mean answer, cold starts included, within 1e-5 of a float64
+     brute-force k-th best on the host; every Thompson answer 10 valid,
+     distinct, unseen items; one warm scoring call per mode under
+     ``set_sync_debug_mode("error")``;
+     ``[table2]``: ``benchmarks/bench_rmse.py``'s methods and
+     configurations on the MovieLens-20M shape with its rows cut to 1/8
+     (17,311 x 27,278: the baselines' padded CSR of the whole matrix does
+     not fit at full size), 10% held out: PP on the 4-block grid and full
+     BMF (40 samples, burn-in 13), ALS 20 iterations on its dense path
+     and through B1 (within 1e-4 of each other; B1's launches in the
+     kernels line under ``als``), blocked SGD 30 epochs (each round's
+     minibatch loop one CUDA graph replay) and CCD++ 10 iterations, each
+     below the mean predictor; then B1 at the whole matrix's padded CSR,
+     both sides, against its plain version;
   5. LLM kernel parity: L1 flash_attention and L3 decode_attention against
      their plain versions, bf16 and fp32 (L1 and L2 have two CUDA
      variants: bf16 runs the sm90 tensor-core kernel, fp32 the f32
@@ -222,6 +244,25 @@ TABLE1_NETFLIX_CUT = dict(name="netflix-1/8", n_rows=480_189 // 8,
                           n_cols=17_770, ratings_per_row=209, scale_lo=1,
                           scale_hi=5, K=100, true_rank=12)
 NETFLIX_BLOCKS = 16
+
+# [serve]: bmf_serve's defaults (k, max_batch 32, max_seen, the 2 ms
+# budget) and the router's max_fold, S item slots, 4,096 real-user
+# requests per mode and 256 cold starts; check_parity's tolerance
+SERVE_K, SERVE_MAX_SEEN, SERVE_FOLD, SERVE_BUDGET_S = 10, 64, 8, 0.002
+SERVE_SLOTS, SERVE_REQUESTS, SERVE_COLD = 8, 4096, 256
+SERVE_TOL = 1e-5
+# [table2]: bench_rmse's methods and configurations on the MovieLens-20M
+# shape with its rows cut to 1/8. The baselines pad one CSR of the whole
+# matrix to its longest row: at the full shape (longest user row 17,101
+# ratings, longest item row 52,041) its planes take 28.4 + 17.0 GB and
+# CCD++'s (N, M, K) gather of the users' side 94.7 GB
+TABLE2_MOVIELENS_CUT = dict(TABLE1_MOVIELENS, name="movielens-20m-rows/8",
+                            n_rows=138_493 // 8)
+TABLE2_BLOCKS, TABLE2_SAMPLES, TABLE2_BURNIN = 4, 40, 13
+ALS_ITERS, SGD_EPOCHS, CCD_ITERS = 20, 30, 10
+# ALS through B1 against its dense path: the same normal equations, the
+# per-row sums in another order
+ALS_PATH_TOL = 1e-4
 
 
 def log(*args):
@@ -759,6 +800,273 @@ def phase_netflix(dev):
     del train, test, test_p, part
     torch.cuda.empty_cache()
     return cases, counts["bmf_precision"], s_counts["bmf_precision"]
+
+
+def cold_requests(train, n, seed):
+    """``n`` cold-start requests (user_id = -1), each folding in the first
+    SERVE_FOLD training ratings of a real user, those items seen."""
+    import numpy as np
+    from repro_torch.launch.bmf_serve import user_ratings
+    from repro_torch.serving import Request
+    users, starts, items, vals = user_ratings(train)
+    ok = np.flatnonzero(np.diff(starts) >= SERVE_FOLD)
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in rng.choice(ok, size=n, replace=False):
+        lo = starts[i]
+        its = [int(c) for c in items[lo:lo + SERVE_FOLD]]
+        out.append(Request(user_id=-1, seen=its, fold_items=its,
+                           fold_ratings=[float(v) for v in
+                                         vals[lo:lo + SERVE_FOLD]]))
+    return out
+
+
+def brute_force_check(store, reqs, tickets, k, jitter=1e-6):
+    """Every mean-mode answer against a dense top-k over the store means,
+    computed independently in float64 on the host (a cold start's mean
+    from its folded ratings): each served item's score must reach the
+    k-th best within SERVE_TOL, and the count of valid ids must be
+    min(k, unseen items). Returns the largest |served f32 score - float64
+    score| and the largest |float64 score| served."""
+    import numpy as np
+    U = store.U_mean.double().cpu().numpy()
+    V = store.V_mean.double().cpu().numpy()
+    tau = float(store.tau)
+    K = V.shape[1]
+    gap = top = 0.0
+    for lo in range(0, len(reqs), 256):
+        part = list(zip(reqs[lo:lo + 256], tickets[lo:lo + 256]))
+        mu = np.empty((len(part), K))
+        for i, (r, _) in enumerate(part):
+            if r.user_id >= 0:
+                mu[i] = U[r.user_id]
+                continue
+            v = V[np.asarray(r.fold_items, int)]
+            lam = (1.0 + jitter) * np.eye(K) + tau * v.T @ v
+            mu[i] = np.linalg.solve(
+                lam, tau * v.T @ np.asarray(r.fold_ratings, np.float64))
+        scores = mu @ V.T
+        for i, (r, t) in enumerate(part):
+            s = scores[i]
+            s[np.asarray(r.seen, int)] = -np.inf
+            kth = -np.partition(-s, k - 1)[k - 1]
+            served = s[t.ids[t.valid]]
+            want = min(k, int(np.isfinite(s).sum()))
+            if served.size != want or not (served >= kth - SERVE_TOL).all():
+                raise AssertionError(
+                    f"[serve] request {lo + i} (user {r.user_id}): served "
+                    f"{t.ids[t.valid]} scores {served}, k-th best {kth}")
+            gap = max(gap, float(np.abs(t.scores[t.valid] - served).max()))
+            top = max(top, float(np.abs(served).max()))
+    return gap, top
+
+
+def _serve_run(router, reqs):
+    """Serve ``reqs`` through ``router`` on the wall clock after one
+    warm-up batch: (tickets, wall seconds, latencies, dispatches)."""
+    for r in reqs[:router.max_batch]:
+        router.submit(r)
+    router.flush()
+    router.latencies_s.clear()
+    router.dispatches.clear()
+    t0 = time.time()
+    tickets = []
+    for r in reqs:
+        tickets.append(router.submit(r))
+        router.poll()
+    router.flush()
+    return tickets, time.time() - t0
+
+
+def _serve_profile(router, reqs, n=512):
+    """``n`` requests through ``router`` under ``torch.profiler``: the
+    device's busy share of the wall and its top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for r in reqs[:n]:
+            router.submit(r)
+        router.flush()
+        wall = time.time() - t0
+    kernels, busy = device_time(prof)
+    if not kernels:
+        log("[serve-profile] the profiler recorded no device time: busy "
+            "share not measured")
+        return
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:5]
+    log(f"[serve-profile] {n} requests, {router.mode}: profiled wall "
+        f"{wall * 1e3:.1f} ms, device busy {busy:.2f} ms "
+        f"({100 * busy / (1e3 * wall):.1f}% of the wall), "
+        f"{sum(c for _, c in kernels.values())} device activities; top: "
+        + "; ".join(f"{k[:50]} {us / 1e3:.2f} ms x{c}"
+                    for k, (us, c) in top))
+
+
+def phase_bmf_serve(train, res, dev):
+    """BMF serving at the MovieLens-20M shape from phase 4's stacked
+    fused-sweep result (docstring, phase 4): the store, SERVE_REQUESTS
+    real-user requests per mode through a ``MicroBatchRouter`` with
+    ``bmf_serve``'s defaults, SERVE_COLD cold-start fold-ins, each mean
+    answer against a float64 brute force, the Thompson answers' validity,
+    and one warm scoring call per mode under
+    ``set_sync_debug_mode("error")``."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import bmf_serve as SERVE
+    from repro_torch.serving import MicroBatchRouter, PosteriorStore
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    store = PosteriorStore.from_pp_result(res, seed=2, n_slots=SERVE_SLOTS)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    n_bytes = sum(t.numel() * t.element_size() for t in
+                  (*store.U, *store.V, store.U_mean, store.V_mean,
+                   store.V_samples))
+    log(f"[serve] store: {store.n_users} users x {store.n_items} items, "
+        f"K = {store.K}, {store.n_slots} slots: built in {build_s:.3f}s, "
+        f"{n_bytes / 2**20:.1f} MiB")
+    reqs = SERVE.build_requests(train, SERVE_REQUESTS, SERVE_MAX_SEEN,
+                                seed=4)
+    cold = cold_requests(train, SERVE_COLD, seed=5)
+    kw = dict(k=SERVE_K, latency_budget_s=SERVE_BUDGET_S, max_batch=32,
+              max_seen=SERVE_MAX_SEEN, max_fold=SERVE_FOLD, seed=3)
+    for mode in ("mean", "thompson"):
+        router = MicroBatchRouter(store, mode=mode, **kw)
+        runs = [("real", reqs)] + ([("cold", cold)] if mode == "mean"
+                                   else [])
+        for label, rs in runs:
+            tickets, wall = _serve_run(router, rs)
+            lat = np.asarray(router.latencies_s)
+            shapes = sorted({s for s, _ in router.dispatches})
+            log(f"[serve] {mode} {label}: {len(lat)} requests in "
+                f"{wall:.3f}s, QPS {len(lat) / wall:.0f}, p50 "
+                f"{1e3 * np.percentile(lat, 50):.3f} ms, p99 "
+                f"{1e3 * np.percentile(lat, 99):.3f} ms; "
+                f"{len(router.dispatches)} dispatches over shapes {shapes} "
+                f"(plan {router.plan_signatures})")
+            if (mode, label) == ("mean", "real"):
+                _serve_profile(router, rs)
+            if mode == "mean":
+                gap, top = brute_force_check(store, rs, tickets, SERVE_K)
+                log(f"[serve] {mode} {label}: every answer within "
+                    f"{SERVE_TOL:.0e} of the float64 brute-force k-th best; "
+                    f"largest |served score - float64 score| {gap:.3e} "
+                    f"(largest |score| served {top:.3g})")
+            else:
+                for r, t in zip(rs, tickets):
+                    ids = t.ids[t.valid]
+                    assert t.valid.all() and len(set(ids.tolist())) == SERVE_K
+                    assert (ids < store.n_items).all()
+                    assert not set(ids.tolist()) & set(r.seen)
+                log(f"[serve] thompson: every answer holds {SERVE_K} valid, "
+                    f"distinct, unseen items")
+        # one warm scoring call (padding, copies in, scoring) that must not
+        # synchronize the host with the card
+        shape = router.bucket_for(32, SERVE_MAX_SEEN, 1)
+        router.workers[0].score(router._pad_batch(reqs[:32], shape))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            router.workers[0].score(router._pad_batch(reqs[:32], shape))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        log(f"[serve] {mode}: one warm scoring call ran under "
+            f"set_sync_debug_mode('error')")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[serve] peak device memory {peak / 2**30:.3f} GiB (the training "
+        f"result's posteriors included)")
+
+
+def phase_table2(dev):
+    """``benchmarks/bench_rmse.py``'s methods and configurations on the
+    MovieLens-20M shape with its rows cut to 1/8 (docstring, phase 4):
+    RMSE and seconds per method beside the mean predictor, each below it;
+    ALS on its dense path and through B1, within ALS_PATH_TOL of each
+    other; then B1 at the whole matrix's padded CSR (both sides, ALS's
+    final factors) against its plain version. Returns (B1's launches in
+    the B1 ALS run, B1's two parity cases)."""
+    import numpy as np
+    import torch
+    from repro_torch.baselines import (ALSConfig, CCDConfig, SGDConfig,
+                                       run_als, run_ccd, run_sgd)
+    from repro_torch.core import bmf as BMF
+    from repro_torch.core import pp as PP
+    from repro_torch.data.sparse import coo_to_padded_csr, row_live
+    preset, train, test, _, part = make_data(TABLE2_MOVIELENS_CUT,
+                                             TABLE2_BLOCKS)
+    K = preset.K
+    base = mean_rmse(train, test)
+
+    def rmse(pred):
+        return float(np.sqrt(np.mean((pred.cpu().numpy() - test.val) ** 2)))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.time() - t0
+
+    cfg = BMF.BMFConfig(K=K, n_samples=TABLE2_SAMPLES, burnin=TABLE2_BURNIN)
+    results = {}
+    res, secs = timed(lambda: PP.run_pp(0, part, cfg, test, device=dev))
+    results["bmf_pp"] = (res.rmse, secs)
+    (r_full, _, _), secs = timed(lambda: PP.run_full_bmf(0, train, test, cfg,
+                                                         device=dev))
+    results["bmf"] = (r_full, secs)
+    csr_r = coo_to_padded_csr(train, device=dev)
+    csr_c = coo_to_padded_csr(train.transpose(), device=dev)
+    log(f"[table2] global padded CSR: users {tuple(csr_r.idx.shape)}, items "
+        f"{tuple(csr_c.idx.shape)}")
+    als = ALSConfig(K=K, n_iters=ALS_ITERS)
+    (_, _, pred), secs = timed(lambda: run_als(0, csr_r, csr_c, test.row,
+                                               test.col, als, device=dev))
+    results["als"] = (rmse(pred), secs)
+    reset_counts()
+    (U, V, pred), secs = timed(lambda: run_als(
+        0, csr_r, csr_c, test.row, test.col, als._replace(use_kernel=True),
+        device=dev))
+    b1_launches = read_counts()["bmf_precision"]
+    results["als_b1"] = (rmse(pred), secs)
+    (_, _, pred), secs = timed(lambda: run_sgd(
+        0, train, test.row, test.col, SGDConfig(K=K, n_epochs=SGD_EPOCHS),
+        device=dev))
+    results["fpsgd"] = (rmse(pred), secs)
+    (_, _, pred), secs = timed(lambda: run_ccd(
+        0, csr_r, csr_c, test.row, test.col, CCDConfig(K=K, n_iters=CCD_ITERS),
+        device=dev))
+    results["ccd"] = (rmse(pred), secs)
+    for method, (r, secs) in results.items():
+        extra = (f", {secs / SGD_EPOCHS:.3f} s/epoch" if method == "fpsgd"
+                 else "")
+        log(f"[table2] {method}: RMSE {r:.4f} (mean predictor {base:.4f}) "
+            f"in {secs:.2f}s{extra}")
+        assert np.isfinite(r) and r < base, \
+            f"table2 {method}: RMSE {r} does not beat the mean predictor"
+    gap = abs(results["als"][0] - results["als_b1"][0])
+    log(f"[table2] ALS dense vs B1: |RMSE gap| {gap:.3e} (limit "
+        f"{ALS_PATH_TOL:.0e}); B1 launches {b1_launches}")
+    assert gap <= ALS_PATH_TOL, f"ALS paths differ by {gap}"
+    assert b1_launches == 2 * ALS_ITERS
+    cases = []
+    for side, csr, other in (("users", csr_r, V), ("items", csr_c, U)):
+        idx, val, mask = csr.idx[None], csr.val[None], csr.mask[None]
+        live = row_live(mask)
+        log(f"[table2-parity] B1 {side}: N = {idx.shape[1]}, M = "
+            f"{idx.shape[2]}, longest row {int(live.max())}, mean "
+            f"{float(live.float().mean()):.1f} live slots")
+        cases.append(dict(case=f"als-global-csr-{side}", dtype="fp32",
+                          **b1_parity(idx, val, mask, live,
+                                      other[None].contiguous(), 1.0,
+                                      "table2-parity", plain_reps=1)))
+    del csr_r, csr_c, U, V, res
+    torch.cuda.empty_cache()
+    return b1_launches, cases
 
 
 def _sdpa_ms(q, k, v, reps, **kw):
@@ -1722,8 +2030,10 @@ def main():
     launches["bmf_precision"] = counts["bmf_precision"]
     phase_bmf_sync(part, test, fused, dev)
     phase_bmf_profile(train, test, part, fused, dev)
+    phase_bmf_serve(train, stacked_fused, dev)
     del train, test, test_p, part, stacked_fused
     torch.cuda.empty_cache()
+    als_launches, table2_cases = phase_table2(dev)
     b1_cases, netflix_launches, netflix_streaming = phase_netflix(dev)
     llm_parity = phase_llm_parity(dev)
     llm_counts = phase_serve(dev, LLM_ARCH, "llm")
@@ -1770,10 +2080,11 @@ def main():
                    "16 x 16 tiles on mma.sync (fp32 3xTF32 split, bf16 "
                    "exact) and eta on the CUDA cores, Lam staged in "
                    "shared memory and stored as one contiguous span",
-            cases=b1_cases,
+            cases=b1_cases + table2_cases,
             launches_by_path={"use-kernel": launches["bmf_precision"],
                               "netflix-k100": netflix_launches,
-                              "netflix-k100-streaming": netflix_streaming}),
+                              "netflix-k100-streaming": netflix_streaming,
+                              "als": als_launches}),
         "bmf_sweep": dict(
             source="src/repro_torch/csrc/bmf_sweep.cu",
             replaces="src/repro/kernels/bmf_sweep/kernel.py:232",

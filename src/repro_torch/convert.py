@@ -12,7 +12,9 @@ parameters (dense, hybrid and ssm families) travel as the reference's
 ``llm_params_to_numpy``), in the serving layout (the ``_cast_tree`` rule)
 or the f32 training layout (dense), and
 so does AdamW's state (``adamw_state_from_numpy`` / ``adamw_state_to_numpy``:
-``step``, ``mu``, ``nu`` with ``mu``/``nu`` in the parameters' tree).
+``step``, ``mu``, ``nu`` with ``mu``/``nu`` in the parameters' tree). A
+serving ``PosteriorStore`` travels as nested dicts of its fields
+(``posterior_store_from_numpy`` / ``posterior_store_to_numpy``).
 Nothing here imports JAX.
 """
 from __future__ import annotations
@@ -30,6 +32,7 @@ from repro_torch.core.posterior import NormalWishart, RowGaussians
 from repro_torch.data.sparse import PaddedCSR
 from repro_torch.models import model as LM
 from repro_torch.optim import adamw as ADAMW
+from repro_torch.serving.store import PosteriorStore
 
 
 def tensor(x, device=None, dtype=None) -> torch.Tensor:
@@ -77,6 +80,23 @@ def aggregates_from_numpy(U_agg, V_agg, device=None):
     mapping with eta and Lambda)."""
     return (row_gaussians_from_numpy(U_agg, device),
             row_gaussians_from_numpy(V_agg, device))
+
+
+def posterior_store_from_numpy(fields: Mapping[str, Any],
+                               device=None) -> PosteriorStore:
+    """A reference ``PosteriorStore`` as numpy: ``U`` and ``V`` mappings
+    with eta and Lambda, ``U_mean``, ``V_mean``, ``V_samples``, ``tau``."""
+    dev = resolve_device(device)
+    return PosteriorStore(
+        U=row_gaussians_from_numpy(fields["U"], dev),
+        V=row_gaussians_from_numpy(fields["V"], dev),
+        **{f: tensor(fields[f], dev, torch.float32)
+           for f in ("U_mean", "V_mean", "V_samples", "tau")})
+
+
+def posterior_store_to_numpy(store: PosteriorStore) -> Dict[str, Any]:
+    """The inverse of ``posterior_store_from_numpy``."""
+    return to_numpy(store)
 
 
 def bmf_config_from_dict(fields: Mapping[str, object]) -> BMFConfig:

@@ -77,7 +77,9 @@ def test_round_trip_of_reference_state():
 def test_port_imports_neither_jax_nor_the_reference():
     """A fresh interpreter imports every module of the port (walked with
     ``pkgutil``, so new modules are covered) and the smoke script; no
-    ``jax`` or ``repro`` module may be loaded."""
+    ``jax`` or ``repro`` module may be loaded. The walk skips a directory
+    without ``__init__.py`` silently, so modules of the sub-packages are
+    asserted among the names walked."""
     src = Path(__file__).resolve().parents[1] / "src"
     code = (
         "import importlib, pkgutil, sys\n"
@@ -88,6 +90,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         "    importlib.import_module(n)\n"
         "assert 'repro_torch.models.model' in names, names\n"
         "assert 'repro_torch.kernels.decode_attention.ops' in names, names\n"
+        "assert 'repro_torch.serving.scoring' in names, names\n"
+        "assert 'repro_torch.baselines.sgd' in names, names\n"
         "sys.path.insert(0, '..')\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
