@@ -44,12 +44,31 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      and below the mean predictor (pad and chain seconds: the host's
      padding time and the first dispatch to last resolve; streaming also
      prints ``peak_window_blocks`` × the largest ``block_bytes``);
+     since PR 21, the placements of ``core.topology`` on the one card,
+     at the same shape with the fused sweep: ``[main:async-groups]``
+     (async on Topology(4, 1): 4 groups, a stream each) and
+     ``[main:streaming-groups]`` (Topology(2, 1), W = 4 per group, depth
+     2), each within PP_RMSE_TOL of the stacked run, with wall, pad and
+     chain seconds and peak memory; ``[main:sharded]``: the sharded
+     executor on Topology(2, 2) (2 groups of 2 data slots) in the
+     'gather' (within PP_RMSE_TOL), 'psum' (within PSUM_RMSE_TOL) and
+     'scatter' (below the mean predictor and within SCATTER_RMSE_TOL)
+     modes, with the transposed shard planes' bytes, the comm bytes per
+     block-sweep, and B1 (the psum/scatter V-step) and B2 (the U-step)
+     launches; ``[group-faults]``: async on Topology(4, 1) with group 1
+     dead from its first dispatch (quarantine_after = 1: bitwise the
+     clean grouped run, one quarantine) and with group 1 slowed under
+     speculate_at = GROUP_SPECULATE_AT (one resolve per block, twice,
+     bitwise equal);
      ``[bmf-sync]``: one async block dispatch and one ``_aggregate_axis``
      under ``torch.cuda.set_sync_debug_mode("error")``; ``[bmf-profile]``:
-     one profiled repeat of the stacked, async and streaming runs, the
-     device's busy share of the wall (union of device intervals);
+     one profiled repeat of the stacked, async, async-groups and
+     streaming runs, the device's busy share of the wall (union of device
+     intervals) and B2's device time per block-step;
      ``[serve]``: the stacked fused-sweep result (no retraining) as a
-     ``PosteriorStore`` with 8 item slots (build seconds and bytes), then
+     ``PosteriorStore`` with 8 item slots (build seconds and bytes; the
+     test RMSE of its posterior-mean scores and, per side, the aggregated
+     precisions that are indefinite before its PD projection), then
      a ``MicroBatchRouter`` with ``bmf_serve``'s defaults (k = 10, batches
      of up to 32, 64 seen, 8 folded, a 2 ms budget) serving 4,096
      real-user requests (``bmf_serve.build_requests``: each masks up to 64
@@ -170,6 +189,20 @@ SAMPLES, BURNIN = 8, 3
 # data and config on the card (ROADMAP §C: the port's card limit on a PP
 # RMSE): the chains differ only in batch sizes, i.e. rounding
 PP_RMSE_TOL = 1e-4
+# [main:sharded]: the 'psum' mode reassociates the item statistics'
+# sums (the reference's own limit on its composed chain), and 'scatter'
+# samples V from per-shard draws, a different chain (the reference's
+# limit, tests/test_topology.py)
+PSUM_RMSE_TOL, SCATTER_RMSE_TOL = 1e-3, 0.15
+# the placements of the new phases, every slot on the one card
+ASYNC_GROUPS, STREAM_GROUPS, SHARDED = (4, 1), (2, 1), (2, 2)
+# [group-faults]: the watchdog floor (a healthy block resolves in well
+# under it), and the straggler's delay and hedge: a twin needs an idle
+# group, which this host-bound run has only where the ready queue runs
+# dry, by which time the slow group's own rate has absorbed the delay
+# (2 x that rate never fired on the card: PR 21 run 1), so the hedge
+# fires at half the group's own expected span
+GROUP_FLOOR_S, GROUP_SLOW_S, GROUP_SPECULATE_AT = 5.0, 3.0, 0.5
 
 # the LLM serve path: Qwen3-4B at full width and depth, 8 sequences, a
 # 4,000-token prompt into a 4,096-slot cache, then 96 decode steps; the
@@ -629,9 +662,10 @@ def phase_main(train, test, part, cfg, label, kernel, dev, executor=None):
     if isinstance(ex, ENG.StreamingExecutor):
         shapes = {id(s): s for s in ex.window_shapes.values()}.values()
         blk = max(s.block_bytes(cfg.K) for s in shapes)
+        groups = ex.topology.block if ex.topology is not None else 1
         extra = (f"; window {ex.window} depth {ex.depth}: "
                  f"peak_window_blocks {ex.peak_window_blocks} (bound "
-                 f"{ex.window * (ex.depth + 1)}), x block_bytes "
+                 f"{groups * ex.window * (ex.depth + 1)}), x block_bytes "
                  f"{blk / 2**20:.1f} MiB = "
                  f"{ex.peak_window_blocks * blk / 2**30:.2f} GiB; window "
                  f"slots {ex.window_bytes / 2**30:.2f} GiB")
@@ -683,6 +717,181 @@ def phase_overlapped(train, test, part, cfg, ref, ref_peak, dev):
     return launches
 
 
+def _topology(shape):
+    from repro_torch.core.topology import Topology
+    return Topology(*shape)
+
+
+def phase_groups(train, test, part, cfg, ref, ref_peak, dev):
+    """The main path on device groups of the one card: async on
+    ``Topology(4, 1)`` (4 streams) and streaming on ``Topology(2, 1)``
+    (W = 4 per group, depth 2), each held to the stacked run ``ref``.
+    Returns their B2 launch counts and the async result."""
+    from repro_torch.core import engine as ENG
+    launches, out = {}, None
+    for label, ex in (
+            ("async-groups", ENG.AsyncExecutor(
+                topology=_topology(ASYNC_GROUPS))),
+            ("streaming-groups", ENG.StreamingExecutor(
+                window=4, depth=2, topology=_topology(STREAM_GROUPS)))):
+        counts, res, peak = phase_main(train, test, part, cfg, label,
+                                       "bmf_sweep", dev, executor=ex)
+        same_rmse(f"main:{label}", res, ref, "stacked")
+        log(f"[main:{label}] {ex.topology.describe()}; wall "
+            f"{res.wall_time_s:.2f}s, pad {ex.timings['pad_s']:.2f}s, chains "
+            f"{ex.timings['chain_s']:.2f}s"
+            + (" (busy share and B2 per block-step: [bmf-profile] "
+               "async-groups)" if label == "async-groups" else "")
+            + f"; peak device memory {peak / 2**30:.2f} GiB beside the "
+            f"stacked run's {ref_peak / 2**30:.2f} GiB")
+        if label == "streaming-groups":
+            bound = STREAM_GROUPS[0] * ex.window * (ex.depth + 1)
+            assert ex.peak_window_blocks <= bound
+        else:
+            out = res
+        launches[label] = counts["bmf_sweep"]
+    return launches, out
+
+
+def csrt_bytes(part, test, S, G, scatter):
+    """Device bytes of the 'psum'/'scatter' transposed shard planes
+    (B, S, D_pad, M_c) int32 + 2 x f32 per bucket, B padded to G groups:
+    (largest bucket, all buckets)."""
+    from repro_torch.core import engine as ENG
+    from repro_torch.core import pp as PP
+    from repro_torch.data.sparse import apply_permutation
+    shapes = PP.BlockShapes.per_phase(
+        part, apply_permutation(test, part.row_perm, part.col_perm))
+    per = []
+    for tag, s in shapes.items():
+        n = sum(1 for _, ts in ENG.build_phase_graph(part) for t in ts
+                if t.phase == tag)
+        B = -(-n // G) * G
+        D_pad = -(-s.n_cols // S) * S if scatter else s.n_cols
+        per.append(12 * B * D_pad * (-(-s.m_cols // 8) * 8))
+    return max(per), sum(per)
+
+
+def phase_sharded(train, test, part, cfg, ref, ref_peak, dev):
+    """The sharded executor on ``Topology(2, 2)`` of the one card, in the
+    'gather', 'psum' and 'scatter' modes: 'gather' within PP_RMSE_TOL of
+    the stacked run, 'psum' within PSUM_RMSE_TOL, 'scatter' below the
+    mean predictor and within SCATTER_RMSE_TOL. Returns the B1 and B2
+    launches by mode."""
+    import numpy as np
+    from repro_torch.core import distributed as DIST
+    from repro_torch.core import engine as ENG
+    from repro_torch.core import pp as PP
+    from repro_torch.data.sparse import apply_permutation
+    topo = _topology(SHARDED)
+    G, S = topo.block, topo.data
+    s = PP.BlockShapes.per_phase(
+        part, apply_permutation(test, part.row_perm, part.col_perm))["c"]
+    N, D, K = s.n_rows, s.n_cols, cfg.K
+    base = mean_rmse(train, test)
+    b1, b2 = {}, {}
+    for comm, tol in (("gather", PP_RMSE_TOL), ("psum", PSUM_RMSE_TOL),
+                      ("scatter", SCATTER_RMSE_TOL)):
+        label = f"sharded-{comm}"
+        comm_b = 4 * N * K + (0 if comm == "gather" else
+                              DIST.sweep_comm_bytes(D, K) if comm == "psum"
+                              else DIST.sweep_comm_bytes_scatter(D, K))
+        if comm != "gather":
+            big, total = csrt_bytes(part, test, S, G, comm == "scatter")
+            log(f"[main:sharded] {comm}: transposed shard planes "
+                f"{big / 2**30:.2f} GiB in the largest bucket "
+                f"({total / 2**30:.2f} GiB over all buckets), beside the "
+                f"stacked run's {ref_peak / 2**30:.2f} GiB peak")
+        ex = ENG.ShardedExecutor(topology=topo, comm=comm)
+        counts, res, peak = phase_main(train, test, part, cfg, label,
+                                       "bmf_sweep", dev, executor=ex)
+        gap = abs(res.rmse - ref.rmse)
+        ok = gap <= tol and (comm != "scatter" or res.rmse < base)
+        log(f"[main:sharded] {comm} on {topo.describe()}: RMSE "
+            f"{res.rmse:.6f} vs stacked {ref.rmse:.6f}, |gap| {gap:.3e} "
+            f"(limit {tol:g}"
+            f"{', and below the mean predictor ' + format(base, '.4f') if comm == 'scatter' else ''}) "
+            f"{'ok' if ok else 'FAIL'}; {comm_b} bytes per phase-c "
+            f"block-sweep would cross slots on separate cards (one card "
+            f"here: on-device tensor ops; peer copies unverified); wall "
+            f"{res.wall_time_s:.2f}s, pad {ex.timings['pad_s']:.2f}s, "
+            f"chains {ex.timings['chain_s']:.2f}s, peak device memory "
+            f"{peak / 2**30:.2f} GiB; B1 {counts['bmf_precision']}, B2 "
+            f"{counts['bmf_sweep']} launches")
+        assert ok, f"{label}: RMSE {res.rmse} against stacked {ref.rmse}"
+        assert np.isfinite(res.rmse)
+        if comm != "gather":
+            assert counts["bmf_precision"] > 0, \
+                f"{label}: B1 never launched in the V-step"
+        b1[label], b2[label] = counts["bmf_precision"], counts["bmf_sweep"]
+    return b1, b2
+
+
+def phase_group_faults(train, test, part, cfg, clean, dev):
+    """The group fault domain on ``Topology(4, 1)`` of the one card: group
+    1 dead from its first dispatch (quarantine_after = 1) heals bitwise to
+    the clean grouped run ``clean`` with one quarantine; group 1 slowed by
+    GROUP_SLOW_S under GROUP_SPECULATE_AT resolves every block exactly once,
+    twice over to the same numbers."""
+    import collections
+    import torch
+    from repro_torch.core import engine as ENG
+    from repro_torch.core import pp as PP
+
+    def same(a, b):
+        return (a.rmse == b.rmse
+                and all(torch.equal(x, y) for x, y in (
+                    (a.U_agg.eta, b.U_agg.eta),
+                    (a.U_agg.Lambda, b.U_agg.Lambda),
+                    (a.V_agg.eta, b.V_agg.eta),
+                    (a.V_agg.Lambda, b.V_agg.Lambda))))
+
+    def graph_resolves(ex):
+        n = collections.Counter(c for ev, c, *_ in ex.trace
+                                if ev == "resolve")
+        return set(n) == {(i, j) for i in range(part.I)
+                          for j in range(part.J)} and set(n.values()) == {1}
+
+    ex = ENG.AsyncExecutor(topology=_topology(ASYNC_GROUPS),
+                           record_trace=True)
+    t0 = time.time()
+    res = PP.run_pp(0, part, cfg, test, executor=ex, device=dev,
+                    fault_plan=ENG.FaultPlan(group_dead_at={1: 0}),
+                    fault_policy=ENG.FaultPolicy(
+                        timeout_floor_s=GROUP_FLOOR_S, quarantine_after=1))
+    ok = (same(res, clean) and res.group_stats["n_quarantined"] == 1
+          and graph_resolves(ex))
+    log(f"[group-faults] dead group 1 (quarantine_after 1, floor "
+        f"{GROUP_FLOOR_S:.0f}s): {time.time() - t0:.2f}s, "
+        f"{res.group_stats}, faults "
+        f"{sorted({(f.kind, f.action) for f in res.faults})}; bitwise the "
+        f"clean grouped run and one resolve per block: "
+        f"{'ok' if ok else 'FAIL'}")
+    assert ok, "[group-faults] the quarantined run departs"
+    runs = []
+    for rep in range(2):
+        ex = ENG.AsyncExecutor(topology=_topology(ASYNC_GROUPS),
+                               record_trace=True)
+        t0 = time.time()
+        r = PP.run_pp(0, part, cfg, test, executor=ex, device=dev,
+                      fault_plan=ENG.FaultPlan(
+                          group_slow_at={1: (0, GROUP_SLOW_S)}),
+                      fault_policy=ENG.FaultPolicy(
+                          timeout_floor_s=60.0,
+                          speculate_at=GROUP_SPECULATE_AT))
+        ok = graph_resolves(ex) and r.group_stats["n_speculations"] >= 1
+        log(f"[group-faults] slow group 1 ({GROUP_SLOW_S:.1f}s, speculate_at "
+            f"{GROUP_SPECULATE_AT}), run {rep + 1}: {time.time() - t0:.2f}s, "
+            f"{r.group_stats}; "
+            f"one resolve per block: {'ok' if ok else 'FAIL'}")
+        assert ok, "[group-faults] speculation resolved a block twice or never"
+        runs.append(r)
+    ok = same(runs[0], runs[1]) and same(runs[0], clean)
+    log(f"[group-faults] the two speculating runs and the clean grouped run "
+        f"are bitwise equal: {'ok' if ok else 'FAIL'}")
+    assert ok, "[group-faults] speculation changed the numbers"
+
+
 def phase_bmf_sync(part, test, cfg, dev):
     """One async block dispatch (a phase-c block, both priors propagated)
     and one ``_aggregate_axis`` under
@@ -726,6 +935,8 @@ def phase_bmf_profile(train, test, part, cfg, dev):
     shares = {}
     for label, ex in (("stacked", ENG.StackedExecutor()),
                       ("async", ENG.AsyncExecutor()),
+                      ("async-groups", ENG.AsyncExecutor(
+                          topology=_topology(ASYNC_GROUPS))),
                       ("streaming", ENG.StreamingExecutor(window=4,
                                                           depth=2))):
         torch.cuda.synchronize()
@@ -905,7 +1116,19 @@ def _serve_profile(router, reqs, n=512):
                     for k, (us, c) in top))
 
 
-def phase_bmf_serve(train, res, dev):
+def indefinite_rows(lam):
+    """Rows of (N, K, K) precisions whose symmetric part is not positive
+    definite (smallest eigenvalue <= 0), counted in EIGH_ROWS chunks."""
+    import torch
+    from repro_torch.serving.store import EIGH_ROWS
+    n = 0
+    for lo in range(0, lam.shape[0], EIGH_ROWS):
+        x = lam[lo:lo + EIGH_ROWS]
+        n += int((torch.linalg.eigvalsh((x + x.mT) / 2)[:, 0] <= 0).sum())
+    return n
+
+
+def phase_bmf_serve(train, test, res, dev):
     """BMF serving at the MovieLens-20M shape from phase 4's stacked
     fused-sweep result (docstring, phase 4): the store, SERVE_REQUESTS
     real-user requests per mode through a ``MicroBatchRouter`` with
@@ -929,6 +1152,20 @@ def phase_bmf_serve(train, res, dev):
     log(f"[serve] store: {store.n_users} users x {store.n_items} items, "
         f"K = {store.K}, {store.n_slots} slots: built in {build_s:.3f}s, "
         f"{n_bytes / 2**20:.1f} MiB")
+    # the aggregates behind the store (ROADMAP C): the test RMSE of its
+    # posterior-mean scores, and the rows the PD projection had to repair
+    rows = torch.from_numpy(test.row.astype("int64")).to(dev)
+    cols = torch.from_numpy(test.col.astype("int64")).to(dev)
+    pred = (store.U_mean[rows] * store.V_mean[cols]).sum(-1)
+    store_rmse = float(((pred - torch.from_numpy(test.val).to(dev)) ** 2)
+                       .mean().sqrt())
+    n_u, n_v = indefinite_rows(res.U_agg.Lambda), indefinite_rows(
+        res.V_agg.Lambda)
+    log(f"[serve] store posterior-mean scores: test RMSE {store_rmse:.4f} "
+        f"(the chains' {res.rmse:.4f}, the mean predictor "
+        f"{mean_rmse(train, test):.4f}); aggregated precisions indefinite "
+        f"before the PD projection: {n_u} of {res.U_agg.eta.shape[0]} user "
+        f"rows, {n_v} of {res.V_agg.eta.shape[0]} item rows")
     reqs = SERVE.build_requests(train, SERVE_REQUESTS, SERVE_MAX_SEEN,
                                 seed=4)
     cold = cold_requests(train, SERVE_COLD, seed=5)
@@ -2024,13 +2261,21 @@ def main():
     b2_by_path = {"stacked": counts["bmf_sweep"],
                   **phase_overlapped(train, test, part, fused, stacked_fused,
                                      stacked_peak, dev)}
+    grouped, async_groups = phase_groups(train, test, part, fused,
+                                         stacked_fused, stacked_peak, dev)
+    b2_by_path.update(grouped)
+    b1_sharded, b2_sharded = phase_sharded(train, test, part, fused,
+                                           stacked_fused, stacked_peak, dev)
+    b2_by_path.update(b2_sharded)
+    phase_group_faults(train, test, part, fused, async_groups, dev)
+    del async_groups
     counts, _, _ = phase_main(train, test, part,
                               cfg._replace(use_kernel=True), "use-kernel",
                               "bmf_precision", dev)
     launches["bmf_precision"] = counts["bmf_precision"]
     phase_bmf_sync(part, test, fused, dev)
     phase_bmf_profile(train, test, part, fused, dev)
-    phase_bmf_serve(train, stacked_fused, dev)
+    phase_bmf_serve(train, test, stacked_fused, dev)
     del train, test, test_p, part, stacked_fused
     torch.cuda.empty_cache()
     als_launches, table2_cases = phase_table2(dev)
@@ -2084,7 +2329,7 @@ def main():
             launches_by_path={"use-kernel": launches["bmf_precision"],
                               "netflix-k100": netflix_launches,
                               "netflix-k100-streaming": netflix_streaming,
-                              "als": als_launches}),
+                              "als": als_launches, **b1_sharded}),
         "bmf_sweep": dict(
             source="src/repro_torch/csrc/bmf_sweep.cu",
             replaces="src/repro/kernels/bmf_sweep/kernel.py:232",

@@ -1,5 +1,5 @@
 """Phase-graph execution engine for Posterior Propagation (port of
-``repro.core.engine`` for one device group).
+``repro.core.engine``).
 
 The paper's §2.2 structure is a three-phase DAG over the I×J block grid:
 phase (a) is block (0,0); phase (b) is the first block-row and block-column,
@@ -7,11 +7,17 @@ depending only on (a); phase (c) is the interior, depending only on (b).
 Within a phase, blocks are embarrassingly parallel.
 
   SerialExecutor    reference semantics: one chain per block, synchronised
-                    after each.
+                    after each; a ``Topology(1, S)`` (``distributed_mesh``)
+                    shards each chain over S slots.
   StackedExecutor   stacks all blocks of a phase shape bucket along a
                     leading axis and runs ONE batched chain per bucket
                     (``gibbs.run_gibbs_stacked``); the kernels take the
                     block axis directly.
+  ShardedExecutor   the stacked batch padded to a multiple of the
+                    topology's groups and split over them, each group's
+                    share on its own streams; at ``data > 1`` each block's
+                    chain is data-sharded over its group
+                    (``distributed.run_gibbs_stacked_2d``, ``comm`` mode).
   AsyncExecutor     dependency-driven overlap: readiness counters over
                     ``BlockTask.deps`` dispatch each block's chain the
                     moment its prior sources resolve, so phase-c blocks
@@ -35,9 +41,14 @@ Both overlapped executors pop ready blocks critical-path-first
 (``critical_path_priority``), FIFO among ties, and run under a watchdog:
 a dispatch whose completion is not observed within its deadline
 (``FaultPolicy.timeout_*`` and the calibrated rate of ``_GroupHealth``)
-is re-dispatched with the same noise. The reference's multi-group fault
-domain (quarantine, work stealing, speculation) needs more than one
-device group and comes with the topologies of ROADMAP step 10.
+is re-dispatched with the same noise. Given a ``core.topology.Topology``
+with several groups (on one GPU: several streams), they assign ready
+work to the least-loaded healthy group and run the group fault domain:
+a group whose dispatches expire ``quarantine_after`` times in a row is
+quarantined and its work rebalanced, idle groups steal staged work, and
+stragglers get a speculative twin whose loser is never committed. A
+block's noise depends on (seed, coord, attempt) only, never on its
+group, so all of this leaves the numbers bitwise unchanged.
 
 Executor contract: ``run_graph(ctx, graph, verbose) -> (outcomes,
 phase_times_s, spans)`` writes each block's posterior summaries into
@@ -73,6 +84,7 @@ from repro_torch.core import gibbs as GIBBS
 from repro_torch.core import pp as PP
 from repro_torch.core.partition import Partition
 from repro_torch.core.posterior import RowGaussians
+from repro_torch.core.topology import Group, Topology
 from repro_torch.data.sparse import COO, PaddedCSR, apply_permutation
 from repro_torch.noise import GeneratorNoise, block_seed
 
@@ -86,6 +98,18 @@ class BlockFaultError(RuntimeError):
     """A block exhausted its retry budget (unhealthy chain, repeated
     dispatch failure or repeated watchdog timeout) under
     ``on_fault == 'raise'``."""
+
+
+class TopologyDegradedError(RuntimeError):
+    """Quarantines left fewer healthy device groups than
+    ``FaultPolicy.min_groups`` (or none). Raised after any active
+    checkpoint is flushed, so the run resumes on another topology (e.g.
+    ``Topology.without_groups(dead_groups)``); ``dead_groups`` names the
+    quarantined groups in canonical order."""
+
+    def __init__(self, msg: str, dead_groups: Sequence[int] = ()):
+        super().__init__(msg)
+        self.dead_groups: Tuple[int, ...] = tuple(dead_groups)
 
 
 class _InjectedDispatchFailure(RuntimeError):
@@ -119,10 +143,21 @@ class FaultPolicy:
       budget exhaustion degrades or raises. watchdog=False blocks on the
       oldest dispatch instead, which never returns if it died.
 
-    ``quarantine_after``, ``speculate_at``, ``min_groups`` and
-    ``on_group_fault`` are validated as in the reference; they govern the
-    multi-group fault domain, which comes with the topologies of ROADMAP
-    step 10."""
+    The group fault domain (active when the executor's topology has more
+    than one group; with one there is nowhere to rebalance to):
+
+    quarantine_after: a group whose dispatches expire this many
+      consecutive times is quarantined — never dispatched to again this
+      run; its staged share and in-flight blocks rebalance onto healthy
+      groups with the same noise (no block retry budget is consumed).
+    speculate_at: straggler hedge — a dispatch in flight longer than
+      ``speculate_at × rate(group) × est`` is dispatched again on an idle
+      healthy group with the same attempt-0 noise; the canonical group
+      order picks the committed twin. 0 disables it (the default).
+    min_groups: fewer healthy groups than this flushes the checkpoint,
+      then continues on the survivors or raises ``TopologyDegradedError``
+      per ``on_group_fault`` ("continue" | "raise"). Zero healthy groups
+      always raises."""
     on_fault: str = "raise"
     max_retries: int = 2
     rmse_max: Optional[float] = None
@@ -208,9 +243,10 @@ class FaultPlan:
 class FaultRecord:
     """One ledger entry in ``PPResult.faults``."""
     coord: Coord
-    kind: str        # "nonfinite" | "rmse" | "dispatch" | "timeout"
+    kind: str        # "nonfinite" | "rmse" | "dispatch" | "timeout" | "group"
     attempt: int
     action: str      # "retried" | "redispatched" | "degraded" | "raised"
+    #                  | "quarantined" | "rebalanced"
 
 
 @dataclass(frozen=True)
@@ -294,15 +330,17 @@ class PhaseContext:
     def cur_attempt(self, c: Coord) -> int:
         return self.attempts.get(c, 0)
 
-    def noise_for(self, blocks: Sequence[Tuple[Coord, int]]):
+    def noise_for(self, blocks: Sequence[Tuple[Coord, int]], device=None):
         """The noise source of a batch of (coord, attempt) blocks — one
         generator per block seeded by (run seed, coord, attempt), unless
-        the run was given a factory. A block's draws depend only on its own
-        entry, so chains are executor-independent."""
+        the run was given a factory — on ``device`` (default: the run's).
+        A block's draws depend only on its own entry, never on the group
+        that runs it, so chains are executor- and placement-independent."""
         if self.noise is not None:
             return self.noise(list(blocks))
         return GeneratorNoise([block_seed(self.seed, c[0], c[1], a)
-                               for c, a in blocks], self.device)
+                               for c, a in blocks],
+                              self.device if device is None else device)
 
     def should_poison(self, c: Coord) -> bool:
         return (self.fault_plan is not None
@@ -428,14 +466,30 @@ def _jitter_prior(p: Optional[RowGaussians],
         K, dtype=p.Lambda.dtype, device=p.Lambda.device))
 
 
-def _task_inputs(ctx: PhaseContext, task: BlockTask, attempt: int):
-    """One block padded to its phase bucket on the run's device, with the
-    injection plan's NaN poison for ``attempt``: ``(pad_block_inputs
-    tuple, n_test)``. Never waits for the device."""
+def _read_here(*priors):
+    """Mark posteriors read on the current stream of their device: they
+    may have been made on another group's stream, and the caching
+    allocator must not hand their memory out while this read is pending."""
+    for p in priors:
+        if p is None:
+            continue
+        for t in p:
+            if t.is_cuda:
+                t.record_stream(torch.cuda.current_stream(t.device))
+
+
+def _task_inputs(ctx: PhaseContext, task: BlockTask, attempt: int,
+                 device=None):
+    """One block padded to its phase bucket on ``device`` (default: the
+    run's), with the injection plan's NaN poison for ``attempt``:
+    ``(pad_block_inputs tuple, n_test)``. Never waits for the device."""
     up, vp = ctx.priors(task)
+    _read_here(up, vp)
+    dev = ctx.device if device is None else device
     return PP.pad_block_inputs_n(
         ctx.part.block(task.i, task.j), ctx.shapes[task.phase], ctx.cfg.K,
-        ctx.test_p, up, vp, device=ctx.device,
+        ctx.test_p, None if up is None else up.to(dev),
+        None if vp is None else vp.to(dev), device=dev,
         poison_nan=(ctx.fault_plan is not None
                     and ctx.fault_plan.nan(task.coord, attempt)))
 
@@ -561,11 +615,33 @@ class Executor:
         self.record_trace = record_trace
         self.trace: List[Tuple] = []
         self.timings: Dict[str, float] = {}
+        self.topology: Optional[Topology] = None
+        self._reset_counters()
+
+    def _reset_counters(self):
+        # the group fault domain's counters (PPResult.group_stats)
+        self.n_quarantined = self.n_steals = 0
+        self.n_speculations = self.n_cancels = 0
 
     def _reset_run_state(self):
         """Clear per-run state, so one instance serves many runs."""
         self.trace = []
         self.timings = {"pad_s": 0.0, "chain_s": 0.0}
+        self._reset_counters()
+
+    def placement(self, ctx: PhaseContext) -> Topology:
+        """The executor's topology, or one group of one slot on the run's
+        device when it was given none. Its devices must be of the run's
+        device type."""
+        topo = (self.topology if self.topology is not None
+                else Topology(1, 1, devices=(ctx.device,)))
+        bad = {str(d) for d in topo.devices if d.type != ctx.device.type}
+        if bad:
+            raise ValueError(
+                f"{topo.describe()} does not fit a run on {ctx.device} "
+                f"(devices {sorted(bad)}): give the topology that "
+                f"device's slots")
+        return topo
 
     def _record(self, event: str, coord: Coord, group: Optional[int] = None):
         if self.record_trace:
@@ -620,12 +696,45 @@ def _phase_desc(ctx: PhaseContext, tasks: Sequence[BlockTask]) -> str:
         f"m={ctx.shapes[g].m_rows}/{ctx.shapes[g].m_cols}]" for g in tags)
 
 
+def _data_topology(spec) -> Topology:
+    """``distributed_mesh``, the legacy spelling of ``Topology(1, S)``: an
+    int S, a device sequence (one slot each) or a one-group Topology."""
+    if isinstance(spec, int):
+        return Topology(1, spec)
+    if isinstance(spec, Topology):
+        return spec
+    devs = tuple(spec)
+    return Topology(1, len(devs), devices=devs)
+
+
 class SerialExecutor(Executor):
     """One chain per block, synchronised after each (reference
-    semantics)."""
+    semantics). A ``topology`` (block must be 1: serial runs one block at
+    a time) with ``data > 1`` — or its legacy spelling
+    ``distributed_mesh`` — shards each block's chain over the group's
+    slots (``distributed.run_gibbs_distributed``, 'psum')."""
     name = "serial"
 
+    def __init__(self, distributed_mesh=None, record_trace: bool = False,
+                 topology=None):
+        super().__init__(record_trace=record_trace)
+        if topology is not None and distributed_mesh is not None:
+            raise ValueError("pass distributed_mesh OR topology, not both")
+        if distributed_mesh is not None:
+            topology = _data_topology(distributed_mesh)
+        if topology is not None:
+            topology = Topology.from_spec(topology)
+            if topology.block != 1:
+                raise ValueError(
+                    f"serial executor runs one block at a time — a topology "
+                    f"with block={topology.block} device groups needs the "
+                    f"sharded/async/streaming executor")
+        self.topology = topology
+        self.distributed_mesh = (topology if topology is not None
+                                 and topology.data > 1 else None)
+
     def run_phase(self, ctx, phase, tasks):
+        self.placement(ctx)
         out: Dict[Coord, BlockOutcome] = {}
         for t in tasks:
             blk = ctx.part.block(t.i, t.j)
@@ -638,7 +747,8 @@ class SerialExecutor(Executor):
                                    ctx.block_cfg(t), ctx.test_p, up, vp,
                                    shapes=ctx.shapes[t.phase],
                                    device=ctx.device,
-                                   poison_nan=ctx.should_poison(t.coord))
+                                   poison_nan=ctx.should_poison(t.coord),
+                                   distributed_mesh=self.distributed_mesh)
                 _sync(ctx.device)
                 self._record("resolve", t.coord)
                 out[t.coord] = _outcome(res, blk, time.time() - t0)
@@ -683,7 +793,9 @@ class StackedExecutor(Executor):
         group = ok
         priors = [ctx.priors(t) for t in group]
         t_pad = time.time()
-        buf = PP.new_block_inputs(s, ctx.cfg.K, len(group), ctx.device,
+        n = len(group)
+        sel = group + [group[-1]] * self._batch_pad(ctx, n)
+        buf = PP.new_block_inputs(s, ctx.cfg.K, len(sel), ctx.device,
                                   priors[0][0] is not None,
                                   priors[0][1] is not None)
         for b, (t, (up, vp)) in enumerate(zip(group, priors)):
@@ -691,23 +803,134 @@ class StackedExecutor(Executor):
                                  ctx.test_p, up, vp)
             if ctx.should_poison(t.coord):
                 PP.poison_block_inputs(buf, b)
-        csr_r, csr_c, tr, tc, _, _, up, vp = PP.unpack_block_inputs(buf, s)
+        if len(sel) > n:              # batch padding repeats the last block
+            for x in buf.values():
+                x[n:] = x[n - 1]
         _sync(ctx.device)
         t_chain = time.time()
         self.timings["pad_s"] += t_chain - t_pad
-        res = GIBBS.run_gibbs_stacked(
-            ctx.noise_for([(t.coord, 0) for t in group]), csr_r, csr_c, tr,
-            tc, ctx.block_cfg(group[0]), U_prior=up, V_prior=vp,
-            device=ctx.device)
+        pad0 = self.timings["pad_s"]
+        res = self._dispatch_stacked(ctx, s, sel, PP.unpack_block_inputs(
+            buf, s), ctx.block_cfg(group[0]))
         _sync(ctx.device)
-        self.timings["chain_s"] += time.time() - t_chain
+        self.timings["chain_s"] += (time.time() - t_chain
+                                    - (self.timings["pad_s"] - pad0))
         for t in group:
             self._record("resolve", t.coord)
         per = (time.time() - t0) / len(group)
         for b, t in enumerate(group):
-            res_b = GIBBS.tree_map(lambda x: x[b], res)
-            out[t.coord] = _outcome(res_b, ctx.part.block(t.i, t.j), per)
+            out[t.coord] = _outcome(res[b], ctx.part.block(t.i, t.j), per)
         return out
+
+    def _batch_pad(self, ctx, n: int) -> int:
+        """Blocks to append to a bucket's batch of ``n`` (repeats of the
+        last one, whose results are dropped)."""
+        return 0
+
+    def _dispatch_stacked(self, ctx, s, sel, inputs, cfg):
+        """Bucket-dispatch seam: the batch's chains (``sel`` lists its
+        tasks, padding included; ``inputs`` is ``pp.unpack_block_inputs``)
+        as one result per batch entry. The stacked executor runs one
+        batched chain; the sharded executor places the batch on its
+        topology."""
+        csr_r, csr_c, tr, tc, _, _, up, vp = inputs
+        res = GIBBS.run_gibbs_stacked(
+            ctx.noise_for([(t.coord, 0) for t in sel]), csr_r, csr_c, tr,
+            tc, cfg, U_prior=up, V_prior=vp, device=ctx.device)
+        return [GIBBS.tree_map(lambda x: x[b], res) for b in range(len(sel))]
+
+
+def _stacked_csrt(ctx: PhaseContext, tasks: Sequence[BlockTask], s,
+                  grp: Group, scatter: bool) -> List[PaddedCSR]:
+    """Per-shard transposed planes of a batch for the composed chain's
+    'psum'/'scatter' V-step: shard s's (B, D_pad, M_c) planes on its
+    slot's device, built on the device from each block's live entries
+    (``distributed.shard_transposed_entries``, O(nnz) on the host; the
+    dense planes never exist there). ``tasks`` may repeat a block (batch
+    padding); its entries are computed once."""
+    from repro_torch.core import distributed as DIST
+    S = grp.size
+    N_pad = -(-s.n_rows // S) * S
+    D_pad = -(-s.n_cols // S) * S if scatter else s.n_cols
+    M = _pad8(s.m_cols)
+    B = len(tasks)
+    planes = [PaddedCSR(torch.zeros((B, D_pad, M), dtype=torch.int32,
+                                    device=dev),
+                        torch.zeros((B, D_pad, M), device=dev),
+                        torch.zeros((B, D_pad, M), device=dev), N_pad // S)
+              for dev in grp.devices]
+    cache: Dict[Coord, list] = {}
+    for b, t in enumerate(tasks):
+        if t.coord not in cache:
+            coo = ctx.part.block(t.i, t.j).coo
+            cache[t.coord] = DIST.shard_transposed_entries(
+                coo.row, coo.col, coo.val, S, N_pad, D_pad, s.m_cols)
+        for pl, ent, dev in zip(planes, cache[t.coord], grp.devices):
+            PP.scatter_entries(pl.idx[b], pl.val[b], pl.mask[b],
+                               *(to_device(a, dev) for a in ent))
+            if ctx.should_poison(t.coord):
+                pl.val[b].fill_(float("nan"))
+    return planes
+
+
+class ShardedExecutor(StackedExecutor):
+    """StackedExecutor with the bucket batch placed by a ``Topology``:
+    the batch is padded to a multiple of ``topology.block`` and split over
+    the groups, each group's share a stacked chain on its own streams
+    (one GPU: the groups' kernels overlap on the SMs). At ``data > 1``
+    each block's chain is data-sharded over its group's slots
+    (``distributed.run_gibbs_stacked_2d``) in the ``comm`` mode: 'gather'
+    (factor exchange, the stacked chain itself), 'psum' (item-statistics
+    reduction) or 'scatter' (reduce-scatter). No collective ever crosses
+    groups: posterior summaries meet only at the phase boundary."""
+    name = "sharded"
+
+    def __init__(self, topology=None, record_trace: bool = False,
+                 comm: str = "gather"):
+        from repro_torch.core import distributed as DIST
+        super().__init__(record_trace=record_trace)
+        if comm not in DIST.COMM_MODES:
+            raise ValueError(f"comm={comm!r} not in {DIST.COMM_MODES}")
+        self.topology = (None if topology is None
+                         else Topology.from_spec(topology))
+        self.comm = comm
+
+    def _batch_pad(self, ctx, n: int) -> int:
+        return (-n) % self.placement(ctx).block
+
+    def _dispatch_stacked(self, ctx, s, sel, inputs, cfg):
+        from repro_torch.core import distributed as DIST
+        topo = self.placement(ctx)
+        n_g = len(sel) // topo.block
+        groups = [topo.slots(g) for g in range(topo.block)]
+        csr_r, csr_c, tr, tc, _, _, up, vp = inputs
+        main = (torch.cuda.current_stream(ctx.device)
+                if ctx.device.type == "cuda" else None)
+        results = []
+        for g, grp in enumerate(groups):
+            part = slice(g * n_g, (g + 1) * n_g)
+            share = sel[part]
+            on = lambda x: None if x is None else GIBBS.tree_map(  # noqa
+                lambda y: y[part].to(grp.lead, non_blocking=True), x)
+            if main is not None:
+                grp.streams[0].wait_stream(main)
+            with grp.on(0):
+                csrt = None
+                if self.comm != "gather" and grp.size > 1:
+                    t_pad = time.time()
+                    csrt = _stacked_csrt(ctx, share, s, grp,
+                                         self.comm == "scatter")
+                    self.timings["pad_s"] += time.time() - t_pad
+                results.append(DIST.run_gibbs_stacked_2d(
+                    ctx.noise_for([(t.coord, 0) for t in share],
+                                  device=grp.lead),
+                    on(csr_r), on(csr_c), on(tr), on(tc), cfg, topo,
+                    on(up), on(vp), comm=self.comm, csrt=csrt, group=grp))
+        if main is not None:
+            for grp in groups:
+                main.wait_stream(grp.streams[0])
+        return [GIBBS.tree_map(lambda x: x[b].to(ctx.device), res)
+                for res in results for b in range(n_g)]
 
 
 # ---------------------------------------------------------------------------
@@ -856,9 +1079,9 @@ class _GroupHealth:
     calibrates every rate is 0.0 and deadlines fall back to the floor.
     ``note_expiry`` counts CONSECUTIVE expiries per group (any resolve
     resets the count) and returns True when the count crosses
-    ``quarantine_after``. With one device group only ``observe``,
-    ``rate`` and ``note_resolve`` are exercised: they set the watchdog's
-    deadlines."""
+    ``quarantine_after``; ``quarantine`` drains a group. With one device
+    group only ``observe``, ``rate`` and ``note_resolve`` are exercised:
+    they set the watchdog's deadlines."""
 
     ALPHA = 0.4
 
@@ -976,35 +1199,104 @@ def _verbose_phase(ex, ctx, tasks, phase_of, ph, first_d, last_r):
           f"(dispatch→resolve envelope; phases overlap)", flush=True)
 
 
+def _maybe_degrade_topology(ctx: PhaseContext, health: _GroupHealth):
+    """Graceful topology degradation, checked after every quarantine:
+    fewer healthy groups than ``FaultPolicy.min_groups`` (or none at all)
+    flushes the checkpoint, then continues on the survivors or raises
+    ``TopologyDegradedError`` per ``FaultPolicy.on_group_fault``."""
+    pol = ctx.policy
+    survivors = health.healthy()
+    if len(survivors) >= pol.min_groups:
+        return
+    if ctx.ckpt is not None:
+        ctx.ckpt.flush()
+    if pol.on_group_fault == "continue" and survivors:
+        return
+    dead = sorted(health.quarantined)
+    raise TopologyDegradedError(
+        f"{len(survivors)} healthy device group(s) left (quarantined: "
+        f"{dead}), below min_groups={pol.min_groups} "
+        f"(on_group_fault={pol.on_group_fault!r}; checkpoint flushed)",
+        dead_groups=dead)
+
+
+def _settle(ctx: PhaseContext, groups: Sequence[Group]):
+    """End of an overlapped run: the run device's current stream waits for
+    every group's slot streams, and the posterior store is marked read
+    there (the aggregation reads it on that stream)."""
+    if ctx.device.type != "cuda":
+        return
+    for grp in groups:
+        for st in grp._streams or ():
+            if st is not None:
+                torch.cuda.current_stream(st.device).wait_stream(st)
+    _read_here(*ctx.U_posts.values(), *ctx.V_posts.values())
+
+
 class AsyncExecutor(_Overlapped):
-    """Dependency-driven overlapped schedule on one device group.
+    """Dependency-driven overlapped schedule over the topology's device
+    groups.
 
     Readiness counters over ``BlockTask.deps`` replace the phase barrier:
     each block is dispatched (one single-block chain, the serial
     executor's bucketed shapes) the moment both of its prior sources have
-    resolved. All chains run on the device's current stream, as the
-    reference runs them on one device; the host never waits inside a
-    dispatch (``_dispatch``), so it pads the next block while the card
-    runs the last. Completion is a ``torch.cuda.Event`` polled with
-    ``query()`` under an adaptive sleep, policed by the watchdog
-    (``FaultPolicy.watchdog``). Posterior summaries stay on the device
-    and feed successors directly.
+    resolved. The host never waits inside a dispatch (``_dispatch``), so
+    it pads the next block while the card runs the last. Completion is a
+    ``torch.cuda.Event`` polled with ``query()`` under an adaptive sleep,
+    policed by the watchdog (``FaultPolicy.watchdog``). Posterior
+    summaries stay on the device and feed successors directly.
 
-    ``record_trace=True`` appends (event, coord, 0) entries to
+    ``topology`` (default: one group on the run's device): ready blocks go
+    to the least-loaded healthy group and run on that group's lead stream
+    (several groups on one GPU are several streams; at ``data > 1`` each
+    chain is data-sharded over the group's slots,
+    ``distributed.run_gibbs_stacked_2d`` in ``comm`` mode). With more than
+    one group each holds at most ``depth`` blocks in flight and the rest
+    of its share stays STAGED, which is what the group fault domain
+    rebalances: an idle group STEALS the highest-priority staged block of
+    the most-loaded group, a group whose dispatches expire
+    ``quarantine_after`` times in a row is QUARANTINED (staged share
+    re-queued, in-flight blocks redispatched elsewhere with the same
+    noise), and a dispatch past ``speculate_at ×`` its group's rate is
+    twinned on an idle group; resolution commits the canonical-group
+    winner and the loser's result is never committed (a launched kernel
+    cannot be cancelled). With one group all of this is inert and
+    dispatch is unbounded.
+
+    ``record_trace=True`` appends (event, coord, group) entries to
     ``self.trace`` in real order; ``_is_resolved`` is the seam the tests
     override to fake completion orders. ``priority=True`` pops the ready
     queue critical-path-first, ``False`` in FIFO order."""
     name = "async"
 
+    def __init__(self, record_trace: bool = False, priority: bool = True,
+                 topology=None, comm: str = "gather", depth: int = 2):
+        from repro_torch.core import distributed as DIST
+        super().__init__(record_trace=record_trace, priority=priority)
+        if int(depth) < 1:
+            raise ValueError(f"depth must be >= 1, got {depth}")
+        if comm not in DIST.COMM_MODES:
+            raise ValueError(f"comm={comm!r} not in {DIST.COMM_MODES}")
+        self.topology = (None if topology is None
+                         else Topology.from_spec(topology))
+        self.comm = comm
+        self.depth = int(depth)    # per-group in-flight cap (multi-group)
+
     def run_graph(self, ctx, graph, verbose: bool = False):
         self._reset_run_state()
+        topo = self.placement(ctx)
+        groups = [topo.slots(g) for g in range(topo.block)]
         tasks, phase_of, waiting, succ, ready = _dep_state(
             ctx, graph, self.priority)
         est = _block_cost_estimates(ctx, tasks)
         pol = ctx.policy
-        health = _GroupHealth(1, pol.quarantine_after)
-        g = 0
-        flights: Dict[Coord, _Flight] = {}
+        G = topo.block
+        health = _GroupHealth(G, pol.quarantine_after)
+        elastic = G > 1    # one group: nowhere to rebalance, steal or twin
+        cap = self.depth if elastic else None
+        # per-group staged share (assigned, undispatched: the steal pool)
+        staged = [_ReadyQueue(ready._prio) for _ in range(G)]
+        flights: Dict[Coord, List[_Flight]] = {}   # > 1: speculative twins
         outcomes: Dict[Coord, BlockOutcome] = {}
         spans: Dict[Coord, Tuple[float, float]] = {}
         first_d: Dict[str, float] = {}
@@ -1012,10 +1304,21 @@ class AsyncExecutor(_Overlapped):
         remaining = {ph: len(ts) for ph, ts in graph}
         t0 = time.time()
 
+        def n_inflight(g):
+            return sum(1 for fl in flights.values() for f in fl
+                       if f.group == g)
+
+        def n_assigned(g):
+            return len(staged[g]) + n_inflight(g)
+
+        def pick_group():
+            return min(health.healthy(), key=lambda g: (n_assigned(g), g))
+
         def deadline(c, f):
-            # generous floor + slack × the calibrated rate × the block's
-            # cost. A false expiry is benign: the re-dispatch draws the
-            # same attempt-0 noise, so it resolves to the same numbers.
+            # generous floor + slack × the group's calibrated rate × the
+            # block's cost. A false expiry is benign: the re-dispatch
+            # draws the same attempt-0 noise, so it resolves to the same
+            # numbers.
             return (pol.timeout_floor_s
                     + pol.timeout_slack * health.rate(f.group) * est[c])
 
@@ -1026,14 +1329,15 @@ class AsyncExecutor(_Overlapped):
                 return False
             return self._is_resolved(c, f.sig)
 
-        def retire(c, out, td, kind=None):
+        def retire(c, out, td, g, kind=None):
             self._record("resolve", c, g)
             out = _commit_guard(ctx, tasks[c], out, kind=kind)
             tr = time.time()
             if not out.seconds:
                 out.seconds = tr - td
             if kind is None:
-                # the first resolve (warm-up span) is dropped in observe()
+                # the group's first resolve (warm-up span) is dropped in
+                # observe()
                 health.observe(g, out.seconds / est[c])
             spans[c] = (td - t0, tr - t0)
             outcomes[c] = out
@@ -1049,89 +1353,227 @@ class AsyncExecutor(_Overlapped):
                 if waiting[s] == 0:
                     ready.push(s)
 
-        def dispatch_on(c, event):
-            self._record(event, c, g)
+        def launch(c, g):
+            """Dispatch block ``c`` on group ``g``'s lead stream: a
+            ``_Flight``, or the dispatch error."""
             td = time.time()
-            first_d.setdefault(phase_of[c], td - t0)
             sup = ctx.group_suppressed_until(g, ctx.next_group_ordinal(g), td)
+            with groups[g].on(0):
+                sig, host, out = self._dispatch(ctx, tasks[c], groups[g])
+            return _Flight(sig=sig, host=host, out=out, td=td, group=g,
+                           sup=sup)
+
+        def dispatch_on(c, g, event):
+            self._record(event, c, g)
+            first_d.setdefault(phase_of[c], time.time() - t0)
             try:
-                sig, host, out = self._dispatch(ctx, tasks[c])
+                f = launch(c, g)
             except _DISPATCH_ERRORS:
-                retire(c, None, td, kind="dispatch")
+                retire(c, None, time.time(), g, kind="dispatch")
                 return
-            flights[c] = _Flight(sig=sig, host=host, out=out, td=td,
-                                 group=g, sup=sup)
+            flights.setdefault(c, []).append(f)
+
+        def cancel(c, f):
+            self._record("cancel", c, f.group)
+            self.n_cancels += 1
+
+        def quarantine_group(g, trigger):
+            """Drain group ``g``: no later dispatch targets it, its staged
+            share returns to the ready queue and its in-flight blocks go
+            to healthy groups with the same noise (kind "group": no block
+            retry budget is consumed)."""
+            health.quarantine(g)
+            self._record("quarantine", trigger, g)
+            self.n_quarantined += 1
+            ctx.record_fault(trigger, "group", "quarantined")
+            _maybe_degrade_topology(ctx, health)   # may raise (ckpt flushed)
+            while staged[g]:
+                ready.push(staged[g].pop())
+            for c2 in list(flights):
+                fl = flights[c2]
+                mine = [f for f in fl if f.group == g]
+                if not mine:
+                    continue
+                keep = [f for f in fl if f.group != g]
+                if keep:              # its healthy twin flies on
+                    for f in mine:
+                        cancel(c2, f)
+                    flights[c2] = keep
+                    continue
+                flights.pop(c2)
+                self._record("expire", c2, g)
+                ctx.record_fault(c2, "group", "rebalanced")
+                dispatch_on(c2, pick_group(), "redispatch")
 
         def handle_expiries(now):
-            """Watchdog sweep: expire overdue flights, re-dispatch them or
-            retire them terminally. True when any state changed."""
+            """Watchdog sweep: expire overdue flights, count consecutive
+            expiries toward quarantine, re-dispatch or retire terminally.
+            True when any state changed."""
             changed = False
             for c in list(flights):
-                f = flights[c]
-                if now - f.td <= deadline(c, f):
+                fl = flights.get(c)
+                if fl is None:
+                    continue
+                dead = [f for f in fl if now - f.td > deadline(c, f)]
+                if not dead:
                     continue
                 changed = True
-                del flights[c]
-                self._record("expire", c, g)
+                live = [f for f in fl if f not in dead]
+                if live:              # the twin flies on: this side cancels
+                    flights[c] = live
+                    for f in dead:
+                        cancel(c, f)
+                        if elastic and health.note_expiry(f.group):
+                            quarantine_group(f.group, c)
+                    continue
+                flights.pop(c)
+                self._record("expire", c, dead[0].group)
+                for f in dead[1:]:
+                    cancel(c, f)
+                for f in dead:
+                    if elastic and health.note_expiry(f.group):
+                        quarantine_group(f.group, c)
                 if ctx.cur_attempt(c) < pol.max_retries:
                     ctx.record_fault(c, "timeout", "redispatched")
                     ctx.attempts[c] = ctx.cur_attempt(c) + 1
-                    dispatch_on(c, "redispatch")
+                    dispatch_on(c, pick_group(), "redispatch")
                 else:
-                    retire(c, None, f.td, kind="timeout")
+                    retire(c, None, dead[0].td, dead[0].group,
+                           kind="timeout")
             return changed
+
+        def maybe_speculate(now):
+            """Straggler hedge: a sole flight past ``speculate_at ×`` its
+            group's calibrated rate × cost is twinned on an idle healthy
+            group with the same attempt-0 noise."""
+            if not elastic or pol.speculate_at <= 0.0:
+                return
+            for c in list(flights):
+                fl = flights[c]
+                if len(fl) != 1:
+                    continue
+                f = fl[0]
+                r = health.rate(f.group)
+                if r <= 0.0 or now - f.td <= pol.speculate_at * r * est[c]:
+                    continue
+                idle = [g for g in health.healthy()
+                        if g != f.group and not staged[g]
+                        and n_inflight(g) < cap]
+                if not idle:
+                    continue
+                g2 = min(idle, key=lambda g: (n_assigned(g), g))
+                try:
+                    twin = launch(c, g2)
+                except _DISPATCH_ERRORS:
+                    continue          # the primary still flies
+                self._record("speculate", c, g2)
+                self.n_speculations += 1
+                fl.append(twin)
 
         def await_progress():
             """Poll with an adaptive sleep until a flight resolves or the
             watchdog changes state; without the watchdog, block on the
             oldest flight."""
             if not pol.watchdog:
-                f0 = min(flights.values(), key=lambda f: f.td)
-                if f0.sig is not None:
-                    f0.sig.synchronize()
+                c0 = min(flights, key=lambda c: flights[c][0].td)
+                sig = flights[c0][0].sig
+                if sig is not None:
+                    sig.synchronize()
                 return
             sleep = 5e-5
             while flights:
-                if any(flight_ready(c, f) for c, f in flights.items()):
+                if any(flight_ready(c, f) for c, fl in flights.items()
+                       for f in fl):
                     return
-                if handle_expiries(time.time()):
+                now = time.time()
+                if handle_expiries(now):
                     return
+                maybe_speculate(now)
                 time.sleep(sleep)
                 sleep = min(sleep * 2, 2e-3)
 
-        while ready or flights:
-            while ready:
-                dispatch_on(ready.pop(), "dispatch")
-            if not flights:
-                continue
-            await_progress()
-            for c in [c for c, f in flights.items() if flight_ready(c, f)]:
-                f = flights.pop(c)
-                # successors must consume this flight's handles, not those
-                # of an expired attempt
-                ctx.U_posts[c], ctx.V_posts[c] = f.out.U_post, f.out.V_post
-                _adopt_host(f.out, f.host, 0)
-                health.note_resolve(f.group)
-                retire(c, f.out, f.td)
+        try:
+            while ready or any(staged) or flights:
+                while ready:          # to the least-loaded healthy group
+                    staged[pick_group()].push(ready.pop())
+                progress = False
+                for g in health.healthy():
+                    while staged[g] and (cap is None
+                                         or n_inflight(g) < cap):
+                        dispatch_on(staged[g].pop(), g, "dispatch")
+                        progress = True
+                if elastic and not progress:
+                    # work stealing: an idle healthy group takes the
+                    # highest-priority staged block of the most-loaded one
+                    for g in health.healthy():
+                        if staged[g] or n_inflight(g) >= cap:
+                            continue
+                        victims = [h for h in health.healthy()
+                                   if h != g and staged[h]]
+                        if not victims:
+                            continue
+                        v = max(victims, key=lambda h: (n_assigned(h), -h))
+                        c = staged[v].pop()
+                        self._record("steal", c, g)
+                        self.n_steals += 1
+                        dispatch_on(c, g, "dispatch")
+                        progress = True
+                if progress or not flights:
+                    continue
+                await_progress()
+                for c in [c for c, fl in flights.items()
+                          if any(flight_ready(c, f) for f in fl)]:
+                    fl = flights.pop(c, None)
+                    if fl is None:
+                        continue
+                    rd = [f for f in fl if flight_ready(c, f)]
+                    if not rd:        # observed ready a moment ago only
+                        flights[c] = fl
+                        continue
+                    # deterministic winner: canonical group order among the
+                    # ready flights — twins draw the same noise, so either
+                    # is bitwise the fault-free result
+                    win = min(rd, key=lambda f: f.group)
+                    for f in fl:
+                        if f is not win:
+                            cancel(c, f)
+                    # successors must consume the winner's handles, not
+                    # those of a twin or an expired attempt
+                    ctx.U_posts[c], ctx.V_posts[c] = (win.out.U_post,
+                                                      win.out.V_post)
+                    _adopt_host(win.out, win.host, 0)
+                    health.note_resolve(win.group)
+                    retire(c, win.out, win.td, win.group)
+        finally:
+            _settle(ctx, groups)
         # per-phase envelopes: first dispatch → last resolve. Phases
         # overlap, so these may sum to MORE than the wall time.
         return outcomes, self._finish_timings(first_d, last_r), spans
 
-    def _dispatch(self, ctx: PhaseContext, task: BlockTask):
-        """Enqueue one block's chain without waiting for the device.
-        Returns ``(completion event, host copy of (Σ err², health),
-        BlockOutcome)``. The redispatch of an expired attempt draws the
-        attempt-0 noise again (only the commit guard's retries draw
-        from attempt ``a``)."""
+    def _dispatch(self, ctx: PhaseContext, task: BlockTask,
+                  group: Optional[Group] = None):
+        """Enqueue one block's chain on the current stream of ``group``'s
+        lead device (default: one slot on the run's device) without
+        waiting for the device. Returns ``(completion event, host copy of
+        (Σ err², health), BlockOutcome)``. The redispatch of an expired
+        attempt draws the attempt-0 noise again (only the commit guard's
+        retries draw from attempt ``a``)."""
+        from repro_torch.core import distributed as DIST
         c = task.coord
         ctx.check_dispatch(c)
+        grp = Group(0, (ctx.device,)) if group is None else group
         t_pad = time.time()
         (csr_r, csr_c, tr, tc, tv, tmask, up, vp), n_obs = _task_inputs(
-            ctx, task, ctx.cur_attempt(c))
+            ctx, task, ctx.cur_attempt(c), device=grp.lead)
+        csrt = None
+        if self.comm != "gather" and grp.size > 1:
+            csrt = _stacked_csrt(ctx, [task], ctx.shapes[task.phase], grp,
+                                 self.comm == "scatter")
         self.timings["pad_s"] += time.time() - t_pad
-        res = GIBBS.run_gibbs(ctx.noise_for([(c, 0)]), csr_r, csr_c, tr, tc,
-                              ctx.block_cfg(task), U_prior=up, V_prior=vp,
-                              device=ctx.device)
+        res = DIST.run_gibbs_group(ctx.noise_for([(c, 0)], device=grp.lead),
+                                   csr_r, csr_c, tr, tc, ctx.block_cfg(task),
+                                   None, grp, U_prior=up, V_prior=vp,
+                                   comm=self.comm, csrt=csrt)
         blk = ctx.part.block(task.i, task.j)
         U_post = _trim(res.U_post, len(blk.row_ids))
         V_post = _trim(res.V_post, len(blk.col_ids))
@@ -1139,7 +1581,7 @@ class AsyncExecutor(_Overlapped):
         # device-resident store write AT DISPATCH: successors (dispatched
         # only after this block resolves) read these tensors directly
         ctx.U_posts[c], ctx.V_posts[c] = U_post, V_post
-        sig, host = _completion(ctx.device, sq.reshape(1),
+        sig, host = _completion(grp.lead, sq.reshape(1),
                                 res.health.reshape(1))
         return sig, host, BlockOutcome(U_post=U_post, V_post=V_post,
                                        pred_mean=None, seconds=0.0,
@@ -1198,8 +1640,9 @@ class _Window:
     the grid size."""
 
     def __init__(self, ctx: PhaseContext, shapes, tasks, W: int,
-                 depth: int):
-        dev = ctx.device
+                 depth: int, device=None):
+        dev = ctx.device if device is None else device
+        self.device = dev
         self.cuda = dev.type == "cuda"
         self.copy_stream = torch.cuda.Stream(dev) if self.cuda else None
         nnz: Dict[int, int] = {}
@@ -1214,19 +1657,32 @@ class _Window:
                         entries=W * nnz[id(s)], test=W * s.n_test, flag=W)
             for name, kind in _SIZE_KIND.items():
                 numel[name] = max(numel.get(name, 0), size[kind])
-        self.slots = []
+        self.numel = numel
+        self.slots: List[_Slot] = []
+        self.free: List[int] = []
         for _ in range(depth + 1):
-            d = {k: torch.empty(numel[k], dtype=dt, device=dev)
-                 for k, dt in {**_PLANES, **_STAGED}.items()}
-            h = {k: torch.empty(numel[k], dtype=dt, pin_memory=self.cuda)
-                 for k, dt in _STAGED.items()}
-            self.slots.append(_Slot(dev=d, host=h))
-        self.free = list(range(depth + 1))
-        self.bytes = sum(t.numel() * t.element_size()
-                         for sl in self.slots for t in sl.dev.values())
+            self._grow()
+
+    def _grow(self):
+        dev = self.device
+        d = {k: torch.empty(self.numel[k], dtype=dt, device=dev)
+             for k, dt in {**_PLANES, **_STAGED}.items()}
+        h = {k: torch.empty(self.numel[k], dtype=dt, pin_memory=self.cuda)
+             for k, dt in _STAGED.items()}
+        self.free.append(len(self.slots))
+        self.slots.append(_Slot(dev=d, host=h))
+
+    @property
+    def bytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for sl in self.slots for t in sl.dev.values())
 
     def acquire(self) -> _Slot:
-        """A free slot; its pinned staging buffer is ready to rewrite."""
+        """A free slot; its pinned staging buffer is ready to rewrite. A
+        window holds ``depth + 1`` slots; only work rebalanced onto a
+        group whose window is full (the group fault domain) adds one."""
+        if not self.free:
+            self._grow()
         slot = self.slots[self.free.pop(0)]
         if slot.staged is not None:
             slot.staged.synchronize()
@@ -1276,11 +1732,12 @@ class _Window:
                 slot.staged = torch.cuda.Event()
                 slot.staged.record(self.copy_stream)
 
-    def close(self, dev: torch.device):
-        """The compute stream waits for the copy stream before the slots
-        go back to the allocator."""
+    def close(self):
+        """The device's current stream waits for the copy stream before
+        the slots go back to the allocator."""
         if self.cuda:
-            torch.cuda.current_stream(dev).wait_stream(self.copy_stream)
+            torch.cuda.current_stream(self.device).wait_stream(
+                self.copy_stream)
 
 
 @dataclass(eq=False)
@@ -1292,19 +1749,22 @@ class _StagedChunk:
     cfg: BMF.BMFConfig
     slot: _Slot
     n_obs: List[int]
+    group: int = 0
 
 
 def _window_prior(ctx: PhaseContext, sel: Sequence[BlockTask], side: int,
-                  n: int) -> RowGaussians:
-    """(W, n, …) prior of one factor for a chunk: each block's propagated
-    prior, padded with N(0, I) rows, and N(0, I) where it has none (its
-    ``prior_use`` flag is 0 there, so those rows are never selected)."""
+                  n: int, device) -> RowGaussians:
+    """(W, n, …) prior of one factor for a chunk on ``device``: each
+    block's propagated prior, padded with N(0, I) rows, and N(0, I) where
+    it has none (its ``prior_use`` flag is 0 there, so those rows are
+    never selected)."""
     K = ctx.cfg.K
-    eta = torch.zeros((len(sel), n, K), device=ctx.device)
-    lam = torch.zeros((len(sel), n, K, K), device=ctx.device)
+    eta = torch.zeros((len(sel), n, K), device=device)
+    lam = torch.zeros((len(sel), n, K, K), device=device)
     lam.diagonal(dim1=-2, dim2=-1).fill_(1.0)
     for b, t in enumerate(sel):
         p = ctx.priors(t)[side]
+        _read_here(p)
         if p is not None:
             m = p.eta.shape[0]
             eta[b, :m].copy_(p.eta)
@@ -1314,44 +1774,64 @@ def _window_prior(ctx: PhaseContext, sel: Sequence[BlockTask], side: int,
 
 class StreamingExecutor(_Overlapped):
     """Bounded-window streaming schedule for grids whose stacked buckets
-    do not fit the device, on one device group.
+    do not fit the device, over the topology's device groups.
 
     The SAME dependency-driven ready queue as the async executor, but
-    blocks move through a bounded window (``_Window``):
+    blocks move through a bounded window (``_Window``) per group:
 
       * ready blocks pop critical-path-first and are grouped into chunks
         of up to W blocks sharing one window shape and chain config; a
         short chunk is repeat-padded to exactly W, so the batched
         Cholesky and solves always see one batch size;
       * each chunk's ratings and test entries are assembled on the host
-        into a pinned staging buffer and copied on a copy stream while
-        the previous chunk computes (the double-buffered prefetch);
-      * chunks run through ``gibbs.run_gibbs_stacked`` with per-block
-        ``prior_use`` flags, so one window shape serves phase-a/b/c
-        blocks despite their different prior structures;
-      * at most ``depth`` chunks are in flight and one is staged:
-        ``peak_window_blocks`` ≤ W·(depth+1);
+        into its group's pinned staging buffer and copied on that group's
+        copy stream while the group's previous chunk computes (the
+        double-buffered prefetch, per group);
+      * chunks run through ``distributed.run_gibbs_stacked_2d`` on the
+        group's lead stream with per-block ``prior_use`` flags, so one
+        window shape serves phase-a/b/c blocks despite their different
+        prior structures (at ``data > 1`` data-sharded in 'gather' mode,
+        the only mode that composes with the flags, as in the reference);
+      * each group has at most ``depth`` chunks in flight and one staged:
+        ``peak_window_blocks`` ≤ G·W·(depth+1) for G groups;
       * per-phase shape buckets are coalesced first
         (``pp.BlockShapes.coalesce``): ``max_waste`` = 1.0 (default)
         merges only identical shapes, which keeps the serial executor's
         chains; more trades that for fewer window shapes.
 
+    With several groups the group fault domain works on chunks as the
+    async executor's does on blocks: every idle group stages one chunk
+    before any stages a second; an idle group steals a staged chunk; a
+    quarantined group's staged chunk returns to the ready queue and its
+    in-flight chunks re-stage on the least-loaded healthy group; a
+    straggling chunk gets a speculative twin on an idle group.
+
     A block's chain draws from its own generator, and the aggregation
     sums in grid order, so the results do not depend on how completion
-    timing regroups the chunks."""
+    timing regroups the chunks, nor on which group runs them."""
     name = "streaming"
 
     def __init__(self, window: int = 4, max_waste: float = 1.0,
                  priority: bool = True, depth: int = 2,
-                 record_trace: bool = False):
+                 record_trace: bool = False, topology=None,
+                 comm: str = "gather"):
         super().__init__(record_trace=record_trace, priority=priority)
         if int(window) < 1:
             raise ValueError(f"window must be >= 1, got {window}")
         if int(depth) < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
+        if comm != "gather":
+            # window chunks run prior_use-flagged chains; only the 'gather'
+            # exchange composes with them (and at data == 1 no other mode
+            # means anything)
+            raise ValueError(f"streaming executor supports comm='gather' "
+                             f"only, got {comm!r}")
         self.window = int(window)
         self.max_waste = max_waste
-        self.depth = int(depth)               # in-flight chunks
+        self.depth = int(depth)               # in-flight chunks per group
+        self.topology = (None if topology is None
+                         else Topology.from_spec(topology))
+        self.comm = comm
         self.peak_window_blocks = 0           # realized live-window bound
         self.window_shapes: Optional[Dict[str, "PP.BlockShapes"]] = None
         self.window_bytes = 0                 # the slots' device bytes
@@ -1367,7 +1847,7 @@ class StreamingExecutor(_Overlapped):
         self.window_bytes = 0
 
     def _stage(self, ctx: PhaseContext, chunk: List[BlockTask], shapes,
-               win: _Window) -> _StagedChunk:
+               win: _Window, group: int = 0) -> _StagedChunk:
         """Assemble one chunk into a free slot's pinned buffer on the host
         and issue its copy and scatter (``_Window.upload``)."""
         s = shapes[chunk[0].phase]
@@ -1412,27 +1892,31 @@ class StreamingExecutor(_Overlapped):
                    [b for b, t in enumerate(chunk)
                     if ctx.should_poison(t.coord)])
         return _StagedChunk(tasks=chunk, shape=s, cfg=ctx.block_cfg(chunk[0]),
-                            slot=slot, n_obs=n_obs)
+                            slot=slot, n_obs=n_obs, group=group)
 
-    def _dispatch(self, ctx: PhaseContext, st: _StagedChunk, win: _Window):
-        """Run one staged chunk on the compute stream once its slot is
-        staged. Returns ``(completion event, host copy (W, 2),
-        {coord: BlockOutcome})``; the padded duplicates are dropped."""
+    def _dispatch(self, ctx: PhaseContext, st: _StagedChunk, win: _Window,
+                  grp: Group):
+        """Run one staged chunk on the current stream of its group's lead
+        device once its slot is staged. Returns ``(completion event, host
+        copy (W, 2), {coord: BlockOutcome})``; the padded duplicates are
+        dropped."""
+        from repro_torch.core import distributed as DIST
         s, W = st.shape, self.window
         if win.cuda:
-            torch.cuda.current_stream(ctx.device).wait_event(st.slot.staged)
+            torch.cuda.current_stream(win.device).wait_event(st.slot.staged)
         pl = win.planes(st.slot, s, W)
         tr, tc, tv, tmask = (win.view(st.slot, k, (W, s.n_test))
                              for k in ("tr", "tc", "tv", "tmask"))
         use = tuple(win.view(st.slot, k, (W,)) for k in ("u_use", "v_use"))
         sel = st.tasks + [st.tasks[-1]] * (W - len(st.tasks))
-        res = GIBBS.run_gibbs_stacked(
-            ctx.noise_for([(t.coord, 0) for t in sel]),
+        res = DIST.run_gibbs_stacked_2d(
+            ctx.noise_for([(t.coord, 0) for t in sel], device=grp.lead),
             PaddedCSR(pl["idx_r"], pl["val_r"], pl["mask_r"], s.n_cols),
             PaddedCSR(pl["idx_c"], pl["val_c"], pl["mask_c"], s.n_rows),
-            tr, tc, st.cfg, U_prior=_window_prior(ctx, sel, 0, s.n_rows),
-            V_prior=_window_prior(ctx, sel, 1, s.n_cols), prior_use=use,
-            device=ctx.device)
+            tr, tc, st.cfg, None,
+            _window_prior(ctx, sel, 0, s.n_rows, grp.lead),
+            _window_prior(ctx, sel, 1, s.n_cols, grp.lead), prior_use=use,
+            comm=self.comm, group=grp)
         sq = _chunk_sq_err(res.acc.pred_sum, res.acc.pred_cnt, tv, tmask)
         outs: Dict[Coord, BlockOutcome] = {}
         for b, t in enumerate(st.tasks):
@@ -1447,12 +1931,15 @@ class StreamingExecutor(_Overlapped):
             outs[t.coord] = BlockOutcome(
                 U_post=U_post, V_post=V_post, pred_mean=None, seconds=0.0,
                 sq_err=sq[b], n_obs=st.n_obs[b], health=res.health[b])
-        sig, host = _completion(ctx.device, sq, res.health)
+        sig, host = _completion(grp.lead, sq, res.health)
         st.slot.reader = sig
         return sig, host, outs
 
     def run_graph(self, ctx, graph, verbose: bool = False):
         self._reset_run_state()
+        topo = self.placement(ctx)
+        groups = [topo.slots(g) for g in range(topo.block)]
+        G = topo.block
         shapes = PP.BlockShapes.coalesce(ctx.shapes, ctx.cfg.K,
                                          self.max_waste)
         tasks, phase_of, waiting, succ, ready = _dep_state(
@@ -1461,18 +1948,23 @@ class StreamingExecutor(_Overlapped):
                 prio, lambda c: self._group_key(ctx, ts[c], shapes)))
         self.window_shapes = shapes
         pol = ctx.policy
-        health = _GroupHealth(1, pol.quarantine_after)
-        g = 0
-        win = _Window(ctx, shapes, tasks, self.window, self.depth)
-        self.window_bytes = win.bytes
+        health = _GroupHealth(G, pol.quarantine_after)
+        elastic = G > 1    # one group: nowhere to rebalance, steal or twin
+        # one window per group: its own slots, pinned staging and copy
+        # stream
+        wins = [_Window(ctx, shapes, tasks, self.window, self.depth,
+                        device=grp.lead) for grp in groups]
+        self.window_bytes = sum(w.bytes for w in wins)
         if verbose:
             n_buckets = len({id(s) for s in shapes.values()})
             print(f"[pp:{self.name}] window={self.window} depth={self.depth} "
                   f"{n_buckets} coalesced bucket(s) over {len(shapes)} phase "
-                  f"tag(s), {win.bytes / 2**30:.2f} GiB of window slots",
+                  f"tag(s), {G} group(s) x {topo.data} slot(s), "
+                  f"{self.window_bytes / 2**30:.2f} GiB of window slots",
                   flush=True)
-        staged: Optional[_StagedChunk] = None
-        flights: Dict[int, _Flight] = {}
+        staged: List[Optional[_StagedChunk]] = [None] * G
+        flights: Dict[int, _Flight] = {}    # flight id -> chunk flight
+        twin: Dict[int, int] = {}           # speculative twin links, both ways
         fid_next = [0]
         outcomes: Dict[Coord, BlockOutcome] = {}
         spans: Dict[Coord, Tuple[float, float]] = {}
@@ -1482,8 +1974,12 @@ class StreamingExecutor(_Overlapped):
         est = _block_cost_estimates(ctx, tasks)
         t0 = time.time()
 
+        def n_inflight(g):
+            return sum(1 for f in flights.values() if f.group == g)
+
         def note_peak():
-            live = self.window * (len(flights) + (staged is not None))
+            live = self.window * (len(flights)
+                                  + sum(st is not None for st in staged))
             self.peak_window_blocks = max(self.peak_window_blocks, live)
 
         def chunk_cost(ts_):
@@ -1501,7 +1997,7 @@ class StreamingExecutor(_Overlapped):
                 return False
             return self._is_resolved(f.tasks[0].coord, f.sig)
 
-        def retire(t, out, td, tr_, per, kind=None):
+        def retire(t, out, td, tr_, per, g, kind=None):
             c = t.coord
             self._record("resolve", c, g)
             out = _commit_guard(ctx, tasks[c], out, kind=kind)
@@ -1521,22 +2017,38 @@ class StreamingExecutor(_Overlapped):
                 if waiting[s2] == 0:
                     ready.push(s2)
 
-        def launch(ch: _StagedChunk, event: str):
+        def run_chunk(ch: _StagedChunk) -> _Flight:
+            """Dispatch a staged chunk on its group's lead stream; the
+            dispatch consumes one group ordinal (the group-level
+            injection unit)."""
+            g = ch.group
             td = time.time()
-            for t in ch.tasks:
-                self._record(event, t.coord, g)
-                first_d.setdefault(phase_of[t.coord], td - t0)
             sup = ctx.group_suppressed_until(g, ctx.next_group_ordinal(g), td)
-            sig, host, outs = self._dispatch(ctx, ch, win)
-            flights[fid_next[0]] = _Flight(sig=sig, host=host, out=outs,
-                                           td=td, group=g, sup=sup,
-                                           tasks=ch.tasks, slot=ch.slot)
-            fid_next[0] += 1
-            note_peak()
+            with groups[g].on(0):
+                sig, host, outs = self._dispatch(ctx, ch, wins[g], groups[g])
+            return _Flight(sig=sig, host=host, out=outs, td=td, group=g,
+                           sup=sup, tasks=ch.tasks, slot=ch.slot)
 
-        def stage_next() -> Optional[_StagedChunk]:
-            """Pop and stage the next chunk; a block whose dispatch fails
-            never joins the window and heals through the retry runner."""
+        def launch(ch: _StagedChunk, event: str) -> int:
+            for t in ch.tasks:
+                self._record(event, t.coord, ch.group)
+                first_d.setdefault(phase_of[t.coord], time.time() - t0)
+            fid = fid_next[0]
+            fid_next[0] += 1
+            flights[fid] = run_chunk(ch)
+            note_peak()
+            return fid
+
+        def drop(f: _Flight):
+            wins[f.group].release(f.slot)
+
+        def least_loaded():
+            return min(health.healthy(), key=lambda g: (n_inflight(g), g))
+
+        def stage_next(g) -> Optional[_StagedChunk]:
+            """Pop and stage group ``g``'s next chunk; a block whose
+            dispatch fails never joins the window and heals through the
+            retry runner."""
             while ready:
                 good = []
                 for c in ready.pop_chunk(self.window):
@@ -1547,38 +2059,120 @@ class StreamingExecutor(_Overlapped):
                         self._record("dispatch", c, g)
                         now = time.time()
                         first_d.setdefault(phase_of[c], now - t0)
-                        retire(tasks[c], None, now, time.time(), 0.0,
+                        retire(tasks[c], None, now, time.time(), 0.0, g,
                                kind="dispatch")
                 if good:
-                    return self._stage(ctx, good, shapes, win)
+                    return self._stage(ctx, good, shapes, wins[g], g)
             return None
+
+        def cancel_all(f: _Flight, g: int):
+            for t in f.tasks:
+                self._record("cancel", t.coord, g)
+            self.n_cancels += len(f.tasks)
+
+        def quarantine_group(g, trigger):
+            """Drain group ``g``: its staged chunk's blocks return to the
+            ready queue, and its in-flight chunks re-stage on healthy
+            groups with the same noise (kind "group": no block retry
+            budget consumed)."""
+            health.quarantine(g)
+            self._record("quarantine", trigger, g)
+            self.n_quarantined += 1
+            ctx.record_fault(trigger, "group", "quarantined")
+            _maybe_degrade_topology(ctx, health)   # may raise (ckpt flushed)
+            if staged[g] is not None:
+                wins[g].release(staged[g].slot)
+                for t in staged[g].tasks:
+                    ready.push(t.coord)
+                staged[g] = None
+            for fid in [i for i, f in flights.items() if f.group == g]:
+                f = flights.pop(fid)
+                drop(f)
+                tw = twin.pop(fid, None)
+                if tw is not None:    # its healthy twin flies on
+                    twin.pop(tw, None)
+                    cancel_all(f, g)
+                    continue
+                for t in f.tasks:
+                    self._record("expire", t.coord, g)
+                    ctx.record_fault(t.coord, "group", "rebalanced")
+                h = least_loaded()
+                launch(self._stage(ctx, f.tasks, shapes, wins[h], h),
+                       "redispatch")
 
         def handle_expiries(now):
             """Watchdog sweep over the chunk flights; True on any state
-            change."""
+            change (expiry, quarantine, redispatch, terminal retire)."""
             changed = False
             for fid in list(flights):
-                f = flights[fid]
-                if now - f.td <= deadline(f):
+                f = flights.get(fid)
+                if f is None or now - f.td <= deadline(f):
                     continue
                 changed = True
-                del flights[fid]
-                win.release(f.slot)
+                flights.pop(fid)
+                drop(f)
+                tw = twin.pop(fid, None)
+                if tw is not None and tw in flights:
+                    twin.pop(tw, None)     # the twin flies on
+                    cancel_all(f, f.group)
+                    if elastic and health.note_expiry(f.group):
+                        quarantine_group(f.group, f.tasks[0].coord)
+                    continue
                 for t in f.tasks:
-                    self._record("expire", t.coord, g)
+                    self._record("expire", t.coord, f.group)
+                if elastic and health.note_expiry(f.group):
+                    quarantine_group(f.group, f.tasks[0].coord)
                 if all(ctx.cur_attempt(t.coord) < pol.max_retries
                        for t in f.tasks):
-                    # re-stage with the same noise: a slow-but-alive
-                    # chunk re-resolves to the same numbers
+                    # re-stage with the same noise: a slow-but-alive chunk
+                    # re-resolves to the same numbers
                     for t in f.tasks:
                         ctx.record_fault(t.coord, "timeout", "redispatched")
                         ctx.attempts[t.coord] = ctx.cur_attempt(t.coord) + 1
-                    launch(self._stage(ctx, f.tasks, shapes, win),
+                    h = least_loaded()
+                    launch(self._stage(ctx, f.tasks, shapes, wins[h], h),
                            "redispatch")
                 else:
                     for t in f.tasks:
-                        retire(t, None, f.td, now, 0.0, kind="timeout")
+                        retire(t, None, f.td, now, 0.0, f.group,
+                               kind="timeout")
             return changed
+
+        def maybe_speculate(now):
+            """Straggler hedge: an untwinned chunk past ``speculate_at ×``
+            its group's rate × cost re-stages on an idle healthy group
+            with the same noise."""
+            if not elastic or pol.speculate_at <= 0.0:
+                return
+            for fid in list(flights):
+                f = flights.get(fid)
+                if f is None or fid in twin:
+                    continue
+                r = health.rate(f.group)
+                if (r <= 0.0 or now - f.td
+                        <= pol.speculate_at * r * chunk_cost(f.tasks)):
+                    continue
+                idle = [g for g in health.healthy()
+                        if g != f.group and staged[g] is None
+                        and n_inflight(g) < self.depth]
+                if not idle:
+                    continue
+                g2 = min(idle, key=lambda g: (n_inflight(g), g))
+                for t in f.tasks:
+                    self._record("speculate", t.coord, g2)
+                self.n_speculations += len(f.tasks)
+                ch = self._stage(ctx, f.tasks, shapes, wins[g2], g2)
+                try:
+                    tw = run_chunk(ch)
+                except _DISPATCH_ERRORS:
+                    wins[g2].release(ch.slot)
+                    cancel_all(f, g2)
+                    continue          # the primary still flies
+                fid2 = fid_next[0]
+                fid_next[0] += 1
+                flights[fid2] = tw
+                twin[fid], twin[fid2] = fid2, fid
+                note_peak()
 
         def await_flights():
             """Adaptive poll until a chunk resolves or the watchdog
@@ -1592,50 +2186,97 @@ class StreamingExecutor(_Overlapped):
             while flights:
                 if any(flight_ready(f) for f in flights.values()):
                     return
-                if handle_expiries(time.time()):
+                now = time.time()
+                if handle_expiries(now):
                     return
+                maybe_speculate(now)
                 time.sleep(sleep)
                 sleep = min(sleep * 2, 2e-3)
 
         try:
-            while ready or staged is not None or flights:
-                if staged is None and ready:
-                    staged = stage_next()
-                    note_peak()
-                if staged is not None and len(flights) < self.depth:
-                    ch, staged = staged, None
-                    launch(ch, "dispatch")
-                    # the double-buffered prefetch: the next chunk's copy
-                    # overlaps this chunk's compute
-                    if ready:
-                        staged = stage_next()
+            while ready or any(st is not None for st in staged) or flights:
+                progress = False
+                for g in health.healthy():
+                    # fair staging: every idle group stages one chunk
+                    # before any group prefetches a second
+                    if staged[g] is None and ready:
+                        staged[g] = stage_next(g)
                         note_peak()
-                    continue
-                if not flights:
+                for g in health.healthy():
+                    if staged[g] is not None and n_inflight(g) < self.depth:
+                        ch, staged[g] = staged[g], None
+                        launch(ch, "dispatch")
+                        # the double-buffered prefetch: the group's next
+                        # chunk's copy overlaps this chunk's compute
+                        if ready:
+                            staged[g] = stage_next(g)
+                            note_peak()
+                        progress = True
+                if elastic and not progress:
+                    # work stealing: an idle healthy group re-stages the
+                    # staged chunk of the most-loaded group onto itself
+                    for g in health.healthy():
+                        if (staged[g] is not None or ready
+                                or n_inflight(g) >= self.depth):
+                            continue
+                        victims = [h for h in health.healthy()
+                                   if h != g and staged[h] is not None]
+                        if not victims:
+                            continue
+                        v = max(victims, key=lambda h: (n_inflight(h), -h))
+                        ch, staged[v] = staged[v], None
+                        wins[v].release(ch.slot)
+                        for t in ch.tasks:
+                            self._record("steal", t.coord, g)
+                        self.n_steals += len(ch.tasks)
+                        launch(self._stage(ctx, ch.tasks, shapes, wins[g], g),
+                               "dispatch")
+                        progress = True
+                if progress or not flights:
                     continue
                 await_flights()
                 for fid in [i for i, f in flights.items() if flight_ready(f)]:
-                    f = flights.pop(fid)
-                    win.release(f.slot)
+                    f = flights.get(fid)
+                    if f is None:     # its twin already committed the work
+                        continue
+                    tw = twin.pop(fid, None)
+                    if tw is not None and tw in flights:
+                        twin.pop(tw, None)
+                        # deterministic winner: canonical group order among
+                        # the ready sides (twins draw the same noise)
+                        cand = [x for x in (fid, tw)
+                                if flight_ready(flights[x])] or [fid]
+                        win_id = min(cand, key=lambda x: flights[x].group)
+                        loser = flights.pop(tw if win_id == fid else fid)
+                        drop(loser)
+                        cancel_all(loser, loser.group)
+                        f = flights.pop(win_id)
+                    else:
+                        flights.pop(fid)
+                    drop(f)
                     tr_ = time.time()
                     # one chain ran the whole chunk: split its wall evenly
                     per = (tr_ - f.td) / len(f.tasks)
-                    health.observe(g, (tr_ - f.td) / chunk_cost(f.tasks))
-                    health.note_resolve(g)
+                    health.observe(f.group, (tr_ - f.td) / chunk_cost(f.tasks))
+                    health.note_resolve(f.group)
                     for b, t in enumerate(f.tasks):
                         out = f.out[t.coord]
+                        # successors consume the winner's handles
                         ctx.U_posts[t.coord] = out.U_post
                         ctx.V_posts[t.coord] = out.V_post
                         _adopt_host(out, f.host, b)
-                        retire(t, out, f.td, tr_, per)
+                        retire(t, out, f.td, tr_, per, f.group)
         finally:
-            win.close(ctx.device)
+            _settle(ctx, groups)
+            for w in wins:
+                w.close()
         return outcomes, self._finish_timings(first_d, last_r), spans
 
 
 EXECUTORS: Dict[str, type] = {
     "serial": SerialExecutor,
     "stacked": StackedExecutor,
+    "sharded": ShardedExecutor,
     "async": AsyncExecutor,
     "streaming": StreamingExecutor,
 }
@@ -1644,43 +2285,66 @@ port's executor battery parametrizes over it."""
 
 
 def make_executor(spec, window=None, distributed_mesh=None, block_mesh=None,
-                  topology=None) -> Executor:
+                  topology=None, comm=None) -> Executor:
     """Resolve run_pp's ``executor=`` argument: a registry name or an
-    instance. ``window`` is the streaming executor's window size (ignored
-    by the others). The sharded executor and the multi-device placements
-    (``distributed_mesh``, ``block_mesh``, ``topology``) come with ROADMAP
-    step 10."""
-    later = [name for name, arg in (("distributed_mesh", distributed_mesh),
-                                    ("block_mesh", block_mesh),
-                                    ("topology", topology))
-             if arg is not None]
-    if spec == "sharded":
-        later.append("executor='sharded'")
-    if later:
-        raise NotImplementedError(
-            f"{', '.join(later)}: not ported yet (ROADMAP §A step 10: "
-            f"topologies, the sharded executor and the intra-block "
-            f"distributed chain); use one of {' | '.join(EXECUTORS)}")
+    instance. ``topology`` (a ``Topology``, a ``(block, data)`` pair or a
+    device sequence) places the serial (block must be 1), sharded, async
+    and streaming executors; ``comm`` is the intra-block exchange at
+    ``data > 1`` (default 'gather'). ``distributed_mesh`` is the legacy
+    spelling of ``topology=Topology(1, S)`` and forces the serial
+    executor; ``block_mesh`` the legacy one-slot-per-group placement of
+    the sharded and async executors. ``window`` is the streaming
+    executor's window size (ignored by the others)."""
     if isinstance(spec, Executor):
-        if window is not None:
-            raise ValueError(
-                "window with an Executor instance is ambiguous — construct "
-                "the executor with it yourself or pass the executor by name")
+        for arg, name in ((distributed_mesh, "distributed_mesh"),
+                          (window, "window"), (topology, "topology"),
+                          (block_mesh, "block_mesh"), (comm, "comm")):
+            if arg is not None:
+                raise ValueError(
+                    f"{name} with an Executor instance is ambiguous — "
+                    f"construct the executor with it yourself or pass the "
+                    f"executor by name")
         return spec
     if window is not None and int(window) < 1:
         raise ValueError(f"window must be >= 1, got {window}")
+    if distributed_mesh is not None:
+        if topology is not None:
+            raise ValueError("pass distributed_mesh OR topology, not both")
+        spec = "serial"
     if spec not in EXECUTORS:
         raise ValueError(f"unknown executor {spec!r} "
                          f"(expected {' | '.join(EXECUTORS)})")
-    if spec == "streaming" and window is not None:
-        return StreamingExecutor(window=int(window))
-    return EXECUTORS[spec]()
+    topo = None if topology is None else Topology.from_spec(topology)
+    if spec == "stacked" and (topo is not None or block_mesh is not None):
+        raise ValueError(
+            "the stacked executor is one batched chain (no device "
+            "placement) — use executor='sharded' with a topology")
+    if block_mesh is not None:
+        if topo is not None:
+            raise ValueError("pass block_mesh OR topology, not both")
+        topo = Topology.from_spec(block_mesh)
+    kw = {} if comm is None else {"comm": comm}
+    factories = {
+        "serial": lambda: SerialExecutor(distributed_mesh, topology=topo),
+        "stacked": lambda: StackedExecutor(),
+        "sharded": lambda: ShardedExecutor(topo, **kw),
+        "async": lambda: AsyncExecutor(topology=topo, **kw),
+        "streaming": lambda: StreamingExecutor(
+            topology=topo, **kw,
+            **({} if window is None else {"window": int(window)})),
+    }
+    if comm is not None and spec in ("serial", "stacked"):
+        raise ValueError(f"comm applies to the sharded, async and "
+                         f"streaming executors, not {spec!r}")
+    return factories[spec]()
 
 
 def _run_meta(seed: int, part: Partition, cfg: BMF.BMFConfig) -> Dict:
     """The fields that determine a PP run's numbers — written to the
-    checkpoint's meta.json and validated on resume. The executor is left
-    out: block chains are executor-independent."""
+    checkpoint's meta.json and validated on resume. The executor and the
+    topology are left out: block chains are executor- and
+    placement-independent, so a run checkpointed on 4x1 groups resumes
+    bitwise on 2x2."""
     return {
         "format": 1,
         "I": part.I, "J": part.J, "K": cfg.K,
@@ -1795,8 +2459,11 @@ def run_phase_graph(seed: int, part: Partition, cfg: BMF.BMFConfig,
                 n_test += n
                 per_block_rmse[t.i, t.j] = float(np.sqrt(sq / n))
 
-    U_posts = [[ctx.U_posts[(i, j)] for j in range(J)] for i in range(I)]
-    V_posts = [[ctx.V_posts[(i, j)] for j in range(J)] for i in range(I)]
+    # posteriors of groups on other devices meet on the run's device
+    U_posts = [[ctx.U_posts[(i, j)].to(dev) for j in range(J)]
+               for i in range(I)]
+    V_posts = [[ctx.V_posts[(i, j)].to(dev) for j in range(J)]
+               for i in range(I)]
     U_agg = PP._aggregate_axis(part, U_posts, axis="row")
     V_agg = PP._aggregate_axis(part, V_posts, axis="col")
 
@@ -1808,5 +2475,10 @@ def run_phase_graph(seed: int, part: Partition, cfg: BMF.BMFConfig,
                        block_times_s=block_times, executor=executor.name,
                        block_spans_s=spans, faults=list(ctx.faults),
                        resumed_blocks=len(ctx.resumed),
+                       group_stats=dict(
+                           n_quarantined=executor.n_quarantined,
+                           n_steals=executor.n_steals,
+                           n_speculations=executor.n_speculations,
+                           n_cancels=executor.n_cancels),
                        row_perm=part.row_perm, col_perm=part.col_perm,
                        tau=cfg.tau, K=cfg.K)

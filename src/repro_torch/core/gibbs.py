@@ -219,38 +219,47 @@ def run_gibbs_stacked(noise,
                            _prior_to(V_prior, dev), U0, V0, u_use, v_use)
 
 
+def default_sampler(cfg: BMF.BMFConfig, live):
+    """The single-device factor step ``sampler(z, csr, other, prior,
+    sweep)``: ``bmf.sample_factor``, or the fused sweep (kernel B2) under
+    ``cfg.sweep_fused``; ``live`` holds the planes' per-row live
+    lengths."""
+    if cfg.sweep_fused:
+        from repro_torch.kernels.bmf_sweep import ops as SWEEP
+        return lambda z, csr, other, prior, sweep: SWEEP.sample_factor_fused(
+            z, csr, other, cfg.tau, prior, dtype=cfg.sweep_dtype, live=live)
+    return lambda z, csr, other, prior, sweep: BMF.sample_factor(
+        z, csr, other, cfg.tau, prior, cfg.use_kernel, live=live)
+
+
 def _run_gibbs_impl(noise, csr_rows, csr_cols, test_rows, test_cols, cfg,
                     n_samples, burnin, U_prior, V_prior, U0, V0,
                     u_use=None, v_use=None,
-                    u_sampler=None, v_sampler=None) -> GibbsResult:
+                    u_sampler=None, v_sampler=None,
+                    n_rows=None, n_cols=None) -> GibbsResult:
     """Chain body shared by every executor path; every tensor carries the
     leading block axis B.
 
     ``u_sampler`` / ``v_sampler`` are the factor-step seams:
-    ``sampler(z, csr, other, prior) -> factor``, defaulting to
-    ``bmf.sample_factor`` (or the fused sweep under ``cfg.sweep_fused``).
-    Everything else — noise addressing, prior selection, accumulators,
-    summaries — is this code."""
-    N, D, K = csr_rows.n_rows, csr_cols.n_rows, cfg.K
-    dev = csr_rows.idx.device
+    ``sampler(z, csr, other, prior, sweep) -> factor``, defaulting to
+    ``default_sampler``. The intra-block distributed chain
+    (``core.distributed``) swaps in data-sharded samplers; everything else
+    — noise addressing, prior selection, accumulators, summaries — is this
+    code, so the composed chains share its semantics by construction.
+    ``n_rows`` / ``n_cols`` give the factor sizes when ``csr_rows`` /
+    ``csr_cols`` are a sharded sampler's own planes (the carried factors
+    stay whole, on U0's device)."""
+    N = csr_rows.n_rows if n_rows is None else n_rows
+    D = csr_cols.n_rows if n_cols is None else n_cols
+    K = cfg.K
+    dev = U0.device
     nw = POST.default_nw(K, device=dev)
     # per-row live lengths, once per chain: the planes never change, and
     # the kernels skip each row's all-padding tail with them
-    live_r, live_c = row_live(csr_rows.mask), row_live(csr_cols.mask)
-
-    def default_sampler(live):
-        if cfg.sweep_fused:
-            from repro_torch.kernels.bmf_sweep import ops as SWEEP
-            return lambda z, csr, other, prior: SWEEP.sample_factor_fused(
-                z, csr, other, cfg.tau, prior, dtype=cfg.sweep_dtype,
-                live=live)
-        return lambda z, csr, other, prior: BMF.sample_factor(
-            z, csr, other, cfg.tau, prior, cfg.use_kernel, live=live)
-
     if u_sampler is None:
-        u_sampler = default_sampler(live_r)
+        u_sampler = default_sampler(cfg, row_live(csr_rows.mask))
     if v_sampler is None:
-        v_sampler = default_sampler(live_c)
+        v_sampler = default_sampler(cfg, row_live(csr_cols.mask))
 
     B = U0.shape[0]
     f32 = dict(dtype=torch.float32, device=dev)
@@ -282,8 +291,8 @@ def _run_gibbs_impl(noise, csr_rows, csr_cols, test_rows, test_cols, cfg,
     for i in range(int(n_samples)):
         u_prior = pick_prior(U_prior, u_use, i, "U", U, N)
         v_prior = pick_prior(V_prior, v_use, i, "V", V, D)
-        U = u_sampler(noise.factor(i, "U", N, K), csr_rows, V, u_prior)
-        V = v_sampler(noise.factor(i, "V", D, K), csr_cols, U, v_prior)
+        U = u_sampler(noise.factor(i, "U", N, K), csr_rows, V, u_prior, i)
+        V = v_sampler(noise.factor(i, "V", D, K), csr_cols, U, v_prior, i)
         if i >= burnin:
             acc.pred_sum.add_(BMF.predict(U, V, test_rows, test_cols))
             acc.pred_cnt.add_(1.0)

@@ -38,6 +38,12 @@ class RowGaussians(NamedTuple):
     def cov(self):
         return _chol_inverse(cholesky(self.Lambda))
 
+    def to(self, device) -> "RowGaussians":
+        """The same rows on ``device`` (no copy where they lie there): how
+        a posterior reaches a group on another device as its prior."""
+        return RowGaussians(eta=self.eta.to(device, non_blocking=True),
+                            Lambda=self.Lambda.to(device, non_blocking=True))
+
 
 def _eye(K: int, like: torch.Tensor) -> torch.Tensor:
     return torch.eye(K, dtype=like.dtype, device=like.device)

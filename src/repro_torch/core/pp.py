@@ -12,8 +12,11 @@ Three phases over an I×J block grid (paper §2.2, Fig. 1):
 Communication happens ONLY at the two phase boundaries: what moves between
 blocks is O((N/I + D/J)·K²) posterior summaries. Orchestration lives in
 ``core.engine``; ``run_pp`` picks an executor — the serial reference loop,
-the stacked executor (one batched chain per phase shape bucket), or the
-overlapped async and streaming executors.
+the stacked executor (one batched chain per phase shape bucket), the
+sharded executor (that batch split over a topology's device groups), or
+the overlapped async and streaming executors — and a placement
+(``core.topology.Topology``): device groups running blocks side by side,
+each block's chain data-sharded over its group (``core.distributed``).
 
 Aggregation (Qin et al. 2019): per factor row, the final posterior
 multiplies the per-block posteriors (natural-parameter sums) and divides
@@ -387,8 +390,11 @@ def run_block(noise, block: Block, cfg: BMF.BMFConfig,
               U_prior: Optional[RowGaussians],
               V_prior: Optional[RowGaussians],
               shapes: Optional[BlockShapes] = None,
-              device=None, poison_nan: bool = False) -> GIBBS.GibbsResult:
-    """Gibbs on one block; ``noise`` is its seed or a batch-1 source."""
+              device=None, poison_nan: bool = False,
+              distributed_mesh=None) -> GIBBS.GibbsResult:
+    """Gibbs on one block; ``noise`` is its seed or a batch-1 source.
+    ``distributed_mesh``: a one-group ``Topology(1, S)`` whose S slots
+    share the chain (``distributed.run_gibbs_distributed``, 'psum')."""
     dev = resolve_device(device)
     if shapes is None:
         csr_rows = coo_to_padded_csr(block.coo, device=dev)
@@ -405,6 +411,11 @@ def run_block(noise, block: Block, cfg: BMF.BMFConfig,
         csr_rows, csr_cols, tr, tc, _, _, U_prior, V_prior = \
             pad_block_inputs(block, shapes, cfg.K, test, U_prior, V_prior,
                              device=dev, poison_nan=poison_nan)
+    if distributed_mesh is not None:
+        from repro_torch.core import distributed as DIST
+        return DIST.run_gibbs_distributed(noise, csr_rows, csr_cols, tr, tc,
+                                          cfg, distributed_mesh,
+                                          U_prior=U_prior, V_prior=V_prior)
     return GIBBS.run_gibbs(noise, csr_rows, csr_cols, tr, tc, cfg,
                            U_prior=U_prior, V_prior=V_prior, device=dev)
 
@@ -415,7 +426,7 @@ def run_pp(seed: int, part: Partition, cfg: BMF.BMFConfig, test: COO,
            fault_policy=None, device=None, noise=None,
            distributed_mesh=None, block_mesh=None, window=None,
            topology=None, fault_plan=None, checkpoint_dir=None,
-           ckpt_every: int = 1, resume_from=None) -> PPResult:
+           ckpt_every: int = 1, resume_from=None, comm=None) -> PPResult:
     """Full three-phase Posterior Propagation over the partition, through
     the phase-graph engine (``core.engine``).
 
@@ -423,7 +434,8 @@ def run_pp(seed: int, part: Partition, cfg: BMF.BMFConfig, test: COO,
       (seed, i, j) (``noise.block_seed``), so its chain is the same under
       every executor.
     executor: "serial" (reference: one chain per block), "stacked" (one
-      batched chain per phase shape bucket), "async" (each block
+      batched chain per phase shape bucket), "sharded" (that batch split
+      over the topology's device groups), "async" (each block
       dispatched the moment its prior sources resolve; phases b and c
       overlap), "streaming" (chunks of ``window`` blocks through a bounded
       window of device buffers, the next chunk copied in while the
@@ -443,17 +455,21 @@ def run_pp(seed: int, part: Partition, cfg: BMF.BMFConfig, test: COO,
       replacing the per-block generators (the tests replay the reference's
       key schedule through it).
 
-    ``distributed_mesh``, ``block_mesh`` and ``topology`` are the
-    reference's multi-device placements; they come with ROADMAP step 10
-    and raise ``NotImplementedError`` until then."""
+    topology: the placement (``core.topology.Topology``, a ``(block,
+      data)`` pair or a device sequence): ``block`` device groups run
+      blocks concurrently (on one GPU: streams), ``data`` slots share each
+      block's chain (``core.distributed``). Consumed by serial (block must
+      be 1), sharded, async (group streams) and streaming (a window per
+      group); e.g. ``run_pp(..., executor="sharded",
+      topology=Topology(2, 2), comm="psum")``.
+    comm: the intra-block exchange at ``data > 1``: 'gather' (default),
+      'psum' or 'scatter' (``distributed.COMM_MODES``; streaming takes
+      'gather' only).
+    distributed_mesh: legacy spelling of ``topology=Topology(1, S)`` (an
+      int S, S devices or the topology): intra-block sharding only, forces
+      the serial executor. ``block_mesh``: legacy one-slot-per-group
+      placement (a device sequence) for the sharded and async executors."""
     from repro_torch.core import engine as ENG
-    later = {k: v for k, v in dict(
-        distributed_mesh=distributed_mesh, block_mesh=block_mesh,
-        topology=topology).items() if v is not None}
-    if later:
-        raise NotImplementedError(
-            f"run_pp: {sorted(later)} not ported yet (ROADMAP §A step 10: "
-            f"topologies and the intra-block distributed chain)")
     if int(max_retries) < 0:
         raise ValueError(f"max_retries must be >= 0, got {max_retries}")
     if on_fault not in ("raise", "degrade"):
@@ -464,7 +480,10 @@ def run_pp(seed: int, part: Partition, cfg: BMF.BMFConfig, test: COO,
     if fault_policy is None:
         fault_policy = ENG.FaultPolicy(on_fault=on_fault,
                                        max_retries=int(max_retries))
-    ex = ENG.make_executor(executor, window=window)
+    ex = ENG.make_executor(executor, window=window,
+                           distributed_mesh=distributed_mesh,
+                           block_mesh=block_mesh, topology=topology,
+                           comm=comm)
     return ENG.run_phase_graph(seed, part, cfg, test, ex, verbose=verbose,
                                policy=fault_policy, device=device,
                                noise=noise, fault_plan=fault_plan,

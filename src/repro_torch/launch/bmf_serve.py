@@ -16,7 +16,8 @@ per-request p50/p99 latency and QPS.
 brute-force ranking over the store means: each returned item's score must
 be within 1e-5 of the k-th best brute-force score.
 
-``--executor sharded`` waits for the topologies of ROADMAP §A step 10.
+``--executor`` picks the training executor; 'sharded' runs each bucket's
+batch on the default topology (one device group per visible device).
 """
 from __future__ import annotations
 

@@ -3,12 +3,14 @@
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.bmf_train \
       --dataset movielens --blocks 4 --samples 8 --fused-sweep \
-      [--executor serial|stacked|async|streaming] [--window W] \
+      [--executor serial|stacked|sharded|async|streaming] [--window W] \
+      [--topology BLOCK DATA [--comm gather|psum|scatter]] [--distributed] \
       [--ckpt-dir DIR [--ckpt-every N] [--resume]] [--device cuda|cpu]
 
 --executor picks the phase-graph engine executor (core.engine): 'stacked'
 (default) runs each PP phase's shape bucket as ONE batched chain; 'serial'
-is the reference per-block loop; 'async' dispatches each block the moment
+is the reference per-block loop; 'sharded' splits each bucket's batch over
+the --topology's device groups; 'async' dispatches each block the moment
 its prior sources resolve (phases b and c overlap); 'streaming' moves the
 blocks through a bounded window of --window device buffers, copying the
 next chunk while the current one computes. --fused-sweep runs each factor
@@ -20,8 +22,14 @@ policy; --ckpt-dir persists each resolved block's posteriors so a killed
 run restarts with --resume and finishes bitwise identical to an
 uninterrupted one; --ckpt saves the aggregated posteriors.
 
-The reference CLI's --distributed and --topology wait for the topologies
-of ROADMAP §A step 10.
+--topology B D places the run on B device groups of D slots each
+(core.topology.Topology; the slots round-robin over the visible devices,
+so one GPU holds them all as streams): the groups run blocks side by side
+and each block's Gibbs sweep is sharded over its group's D slots — the
+paper's combined system — with --comm picking the intra-block exchange.
+It composes with --executor sharded, async, streaming ('gather' only) and
+serial (B = 1). --distributed shards each block's chain over the visible
+devices (Topology(1, n)) and forces the serial executor.
 """
 from __future__ import annotations
 
@@ -45,10 +53,22 @@ def main(argv=None):
     ap.add_argument("--samples", type=int, default=60)
     ap.add_argument("--k", type=int, default=0, help="0 = preset K (capped 16)")
     ap.add_argument("--executor", default="stacked",
-                    choices=["serial", "stacked", "async", "streaming"],
+                    choices=["serial", "stacked", "sharded", "async",
+                             "streaming"],
                     help="phase-graph engine executor (core.engine)")
     ap.add_argument("--window", type=int, default=0,
                     help="streaming executor window size W (0 = default)")
+    ap.add_argument("--topology", type=int, nargs=2, default=None,
+                    metavar=("BLOCK", "DATA"),
+                    help="placement: BLOCK device groups x DATA slots per "
+                         "group (core.topology)")
+    ap.add_argument("--comm", default=None, choices=["gather", "psum",
+                                                     "scatter"],
+                    help="intra-block exchange at DATA > 1 "
+                         "(core.distributed.COMM_MODES; default gather)")
+    ap.add_argument("--distributed", action="store_true",
+                    help="shard each block's chain over the visible "
+                         "devices (forces --executor serial)")
     ap.add_argument("--phase-bc-samples", type=int, default=0)
     ap.add_argument("--fused-sweep", action="store_true",
                     help="one-kernel Gibbs sweep (kernel B2, bmf_sweep)")
@@ -103,8 +123,26 @@ def main(argv=None):
           f"nnz={train.nnz} grid={I}x{J} K={K} device={device}")
     print("block nnz balance:", nnz_balance_stats(part))
 
+    from repro_torch.core.topology import Topology, visible_devices
+    topology = mesh = None
+    if args.topology and args.distributed:
+        raise SystemExit("--topology and --distributed are exclusive "
+                         "(--distributed is Topology(1, n_devices))")
+    slots = (visible_devices() if device.type == "cuda" else (device,))
+    if args.topology:
+        b, d = args.topology
+        topology = Topology(b, d, devices=tuple(
+            slots[k % len(slots)] for k in range(b * d)))
+        print(topology.describe())
+    if args.distributed:
+        mesh = Topology(1, len(slots), devices=slots)
+        print(f"distributed: {len(slots)}-way intra-block chain per block "
+              f"(serial executor)")
+
     res = PP.run_pp(args.seed, part, cfg, test, verbose=True,
                     executor=args.executor, device=device,
+                    topology=topology, distributed_mesh=mesh,
+                    comm=args.comm,
                     window=args.window or None, on_fault=args.on_fault,
                     max_retries=args.max_retries,
                     checkpoint_dir=args.ckpt_dir or None,

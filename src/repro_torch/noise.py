@@ -10,7 +10,14 @@ A chain takes every random draw from a source object, addressed by
                               χ²(ν − i) diagonal, the strictly-lower
                               normals and the mean's normal;
   ``factor(sweep, f, n, K)``  the (n, K) standard normal ``z`` of the
-                              factor step.
+                              factor step;
+  ``factor(sweep, f, n, K, shard=s)``
+                              shard ``s``'s own draw of a data-sharded
+                              factor step: the scatter mode samples each
+                              shard's item rows from the reference's
+                              ``fold_in(kv, s)`` (``core.distributed``).
+                              The gather and psum modes slice the
+                              single-device draw and need no such address.
 
 Sources are batched: every draw has a leading block axis of size
 ``batch``, one slice per block of a stacked chain. Block b's draws depend
@@ -24,7 +31,7 @@ reference's key schedule so a port chain can be compared numerically.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,7 +39,7 @@ import torch
 from repro_torch.core import posterior as POST
 
 _FACTORS = {"U": 0, "V": 1}
-_INIT, _HYPER, _FACTOR = 0, 1, 2
+_INIT, _HYPER, _FACTOR, _SHARD = 0, 1, 2, 3
 
 
 def derive_seed(*words: int) -> int:
@@ -66,10 +73,10 @@ class GeneratorNoise:
         g.manual_seed(derive_seed(self.seeds[b], *addr))
         return g
 
-    def _normals(self, kind: int, sweep: int, f: int, shape):
+    def _normals(self, kind: int, sweep: int, f: int, shape, *extra: int):
         out = torch.empty((self.batch,) + tuple(shape), device=self.device)
         for b in range(self.batch):
-            torch.randn(shape, generator=self._gen(b, kind, sweep, f),
+            torch.randn(shape, generator=self._gen(b, kind, sweep, f, *extra),
                         out=out[b])
         return out
 
@@ -89,8 +96,11 @@ class GeneratorNoise:
             z.append(torch.randn((K,), generator=g, device=self.device))
         return torch.stack(chi2), torch.stack(lower), torch.stack(z)
 
-    def factor(self, sweep: int, f: str, n: int, K: int):
-        return self._normals(_FACTOR, sweep, _FACTORS[f], (n, K))
+    def factor(self, sweep: int, f: str, n: int, K: int,
+               shard: Optional[int] = None):
+        if shard is None:
+            return self._normals(_FACTOR, sweep, _FACTORS[f], (n, K))
+        return self._normals(_SHARD, sweep, _FACTORS[f], (n, K), int(shard))
 
 
 TapeKey = Tuple
@@ -101,7 +111,7 @@ class TapeNoise:
 
       ("init", "U") -> (N, K), ("init", "V") -> (D, K),
       ("hyper", sweep, f) -> (chi2 (K,), lower (K, K), z (K,)),
-      ("z", sweep, f) -> (n, K)
+      ("z", sweep, f) -> (n, K), ("z", sweep, f, shard) -> (n, K)
 
     to numpy arrays. A missing entry raises ``KeyError``: a chain that
     asks for a draw the tape never recorded is a schedule mismatch."""
@@ -126,5 +136,8 @@ class TapeNoise:
         key = ("hyper", sweep, f)
         return self._stack(key, 0), self._stack(key, 1), self._stack(key, 2)
 
-    def factor(self, sweep: int, f: str, n: int, K: int):
-        return self._stack(("z", sweep, f))
+    def factor(self, sweep: int, f: str, n: int, K: int,
+               shard: Optional[int] = None):
+        key = ("z", sweep, f) if shard is None else ("z", sweep, f,
+                                                     int(shard))
+        return self._stack(key)

@@ -289,11 +289,11 @@ def test_entry_points_need_a_gpu_unless_told_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(executor="sharded"), NotImplementedError),
+    (dict(executor="sharded", comm="ring"), ValueError),
     (dict(executor="bogus"), ValueError),
-    (dict(topology=(2, 2)), NotImplementedError),
-    (dict(distributed_mesh=object()), NotImplementedError),
-    (dict(block_mesh=object()), NotImplementedError),
+    (dict(executor="stacked", topology=(2, 2)), ValueError),
+    (dict(distributed_mesh=2, topology=(1, 2)), ValueError),
+    (dict(executor="stacked", block_mesh=("cpu",)), ValueError),
     (dict(window=0, executor="streaming"), ValueError),
     (dict(window=2, executor=TENG.StreamingExecutor()), ValueError),
     (dict(on_fault="ignore"), ValueError)])

@@ -29,6 +29,7 @@ from repro_torch.core import engine as TENG
 from repro_torch.core import gibbs as TG
 from repro_torch.core import partition as TPA
 from repro_torch.core import pp as TPP
+from repro_torch.core.topology import Topology
 from repro_torch.data import sparse as TSP
 from repro_torch.data import synthetic as TSYN
 from repro_torch.noise import TapeNoise
@@ -50,9 +51,14 @@ def _fro(a, b):
 
 def _make(name, **kw):
     """A fresh executor; streaming with a window smaller than the phase
-    b/c buckets, so chunking is exercised."""
+    b/c buckets, so chunking is exercised; sharded on two groups of two
+    CPU slots in 'psum' mode, so its batch split, padding and
+    item-statistics reduction are exercised."""
     if name == "streaming":
         return TENG.StreamingExecutor(window=2, **kw)
+    if name == "sharded":
+        return TENG.ShardedExecutor(
+            topology=Topology(2, 2, devices=("cpu",) * 4), comm="psum", **kw)
     return TENG.EXECUTORS[name](**kw)
 
 
@@ -338,18 +344,23 @@ def results(conf_run):
 
 
 def test_registry_names_resolve():
-    assert set(EXECUTOR_NAMES) == {"serial", "stacked", "async", "streaming"}
+    assert set(EXECUTOR_NAMES) == {"serial", "stacked", "sharded", "async",
+                                   "streaming"}
     for name in EXECUTOR_NAMES:
         assert TENG.make_executor(name).name == name
     assert TENG.make_executor("streaming", window=3).window == 3
     assert TENG.make_executor("async", window=3).name == "async"
     with pytest.raises(ValueError, match="unknown executor"):
         TENG.make_executor("warp")
-    for kw in (dict(spec="sharded"), dict(spec="async", topology=(2, 1)),
-               dict(spec="serial", distributed_mesh=object()),
-               dict(spec="stacked", block_mesh=object())):
-        with pytest.raises(NotImplementedError, match="step 10"):
-            TENG.make_executor(**kw)
+    # the placements resolve: a topology, the legacy distributed_mesh
+    # (Topology(1, S), forcing serial) and block_mesh (one slot a group)
+    assert TENG.make_executor("async", topology=(2, 1)).topology.block == 2
+    ser = TENG.make_executor("stacked", distributed_mesh=("cpu", "cpu"))
+    assert ser.name == "serial" and ser.distributed_mesh.data == 2
+    assert TENG.make_executor("sharded", block_mesh=("cpu",) * 3
+                              ).topology.block == 3
+    with pytest.raises(ValueError, match="stacked"):
+        TENG.make_executor("stacked", block_mesh=("cpu",))
 
 
 @pytest.mark.parametrize("name", EXECUTOR_NAMES)

@@ -1,11 +1,10 @@
-"""The port's single-group fault layer, checkpoint/resume and the CLIs
-that drive them.
+"""The port's fault layer — per block and per device group —,
+checkpoint/resume and the CLIs that drive them.
 
 Drives every registered executor through the deterministic injection
 seam (``engine.FaultPlan``): NaN-poisoned chains, hung dispatches, failed
 dispatches — and asserts the recovery contracts of the reference's
-battery (``tests/test_fault_tolerance.py``, the cases that need no second
-device group):
+battery (``tests/test_fault_tolerance.py``):
 
   * heal:    a retried block re-runs through the shared single-block
              runner, so the healed run matches the serial executor's
@@ -14,6 +13,13 @@ device group):
              which cancels exactly in the divide-away aggregation;
   * resume:  a run killed mid-graph restarts from its block checkpoints
              and finishes bitwise identical to an uninterrupted one.
+
+The group fault domain (quarantine, work stealing, speculation, graceful
+degradation; the reference's ``tests/test_fault_tolerance.py:421-636``)
+runs the async and streaming executors on 2–4-group CPU topologies whose
+slots repeat "cpu", held bitwise to the port's own one-group run: the
+reference's versions skip on one JAX device, and the one-group run is
+already held to the reference (``test_torch_executors.py``).
 
 The checkpoint format is the reference's: each package reads what the
 other wrote.
@@ -32,6 +38,7 @@ from repro_torch.core import engine as TENG
 from repro_torch.core import partition as TPA
 from repro_torch.core import pp as TPP
 from repro_torch.core.posterior import RowGaussians
+from repro_torch.core.topology import Topology
 from repro_torch.data import synthetic as TSYN
 from repro_torch.data.sparse import apply_permutation, train_test_split
 from torch_helpers import one_torch_thread  # noqa: F401
@@ -406,6 +413,214 @@ def test_fault_plan_is_deterministic():
     assert ctx.group_suppressed_until(1, 3, 10.0) == float("inf")
     assert ctx.group_suppressed_until(0, 2, 10.0) == 10.5
     assert ctx.group_suppressed_until(0, 1, 10.0) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# the group fault domain: quarantine, work stealing, speculation, graceful
+# degradation (several groups on the CPU)
+# ---------------------------------------------------------------------------
+
+
+def _grouped(name, G=2, data=1, **kw):
+    """A G-group executor whose slots are all the CPU."""
+    topo = Topology(block=G, data=data, devices=("cpu",) * (G * data))
+    if name == "streaming":
+        kw.setdefault("window", 2)
+        return TENG.StreamingExecutor(topology=topo, **kw)
+    return TENG.AsyncExecutor(topology=topo, **kw)
+
+
+@pytest.fixture(scope="module")
+def one_group(conf_run):
+    """Each overlapped executor's one-group run: the numbers every grouped
+    run must reproduce bitwise."""
+    return {name: _run(conf_run, _make(name)) for name in OVERLAPPED}
+
+
+def _assert_group_trace_clean(ex, part):
+    """The happens-before pass over the real trace: no dispatch to a
+    quarantined group, twins collapse via cancel, steals hit staged work
+    only, every block resolves exactly once."""
+    from repro_torch.analysis import trace_passes as TTP
+    deps = {t.coord: list(t.deps)
+            for _, ts in TENG.build_phase_graph(part) for t in ts}
+    vs = TTP._happens_before(TTP.TraceArtifact("groups", ex.trace, deps))
+    assert not vs, [v.message for v in vs]
+
+
+def _assert_same_numbers(res, ref):
+    assert res.rmse == ref.rmse
+    torch.testing.assert_close(res.U_agg.eta, ref.U_agg.eta, rtol=0, atol=0)
+    torch.testing.assert_close(res.V_agg.Lambda, ref.V_agg.Lambda, rtol=0,
+                               atol=0)
+
+
+def test_group_fault_policy_validation():
+    with pytest.raises(ValueError, match="on_group_fault"):
+        TENG.FaultPolicy(on_group_fault="shrug")
+    with pytest.raises(ValueError, match="quarantine_after"):
+        TENG.FaultPolicy(quarantine_after=0)
+    with pytest.raises(ValueError, match="min_groups"):
+        TENG.FaultPolicy(min_groups=0)
+    with pytest.raises(ValueError, match="speculate_at"):
+        TENG.FaultPolicy(speculate_at=-1.0)
+    with pytest.raises(ValueError, match="depth"):
+        TENG.AsyncExecutor(depth=0)
+    plan = TENG.FaultPlan(group_dead_at={1: 2},
+                          group_slow_at={0: (1, 2.5)})
+    assert not plan.group_dead(1, 1) and plan.group_dead(1, 2)
+    assert not plan.group_dead(0, 0)
+    assert plan.group_slow_s(0, 0) == 0.0
+    assert plan.group_slow_s(0, 1) == 2.5
+    assert plan.group_slow_s(1, 5) == 0.0
+    err = TENG.TopologyDegradedError("x", dead_groups=[3, 1])
+    assert err.dead_groups == (3, 1)
+
+
+def test_topology_without_groups():
+    """Survivor sub-topology construction (the resume path after
+    ``TopologyDegradedError``)."""
+    t = Topology(block=4, data=2, devices=("cpu",) * 8)
+    s = t.without_groups((1, 3))
+    assert (s.block, s.data) == (2, 2)
+    assert s.devices == t.group(0) + t.group(2)
+    assert t.without_groups(()) == t
+    with pytest.raises(ValueError, match="unknown group"):
+        t.without_groups((4,))
+    with pytest.raises(ValueError, match="every device group"):
+        t.without_groups((0, 1, 2, 3))
+
+
+@pytest.mark.parametrize("name", OVERLAPPED)
+def test_group_dead_quarantine_heals_bitwise(conf_run, one_group, name):
+    """A group that dies mid-run expires ``quarantine_after`` consecutive
+    times and is quarantined; its staged share and in-flight blocks
+    rebalance onto the survivors with the same noise, so the healed run is
+    bitwise the one-group run."""
+    pol = TENG.FaultPolicy(timeout_floor_s=0.3, timeout_slack=0.0,
+                           quarantine_after=2, max_retries=5)
+    ex = _grouped(name, G=3, record_trace=True)
+    res = _run(conf_run, ex, fault_plan=TENG.FaultPlan(group_dead_at={1: 0}),
+               fault_policy=pol)
+    assert res.group_stats["n_quarantined"] == 1
+    assert ("group", "quarantined") in {(f.kind, f.action)
+                                        for f in res.faults}
+    assert ("quarantine", 1) in {(ev, g) for ev, _, g in ex.trace}
+    _assert_same_numbers(res, one_group[name])
+    _assert_group_trace_clean(ex, conf_run[0])
+
+
+@pytest.mark.parametrize("name", OVERLAPPED)
+def test_group_dead_min_groups_breach_raises(conf_run, one_group, name,
+                                             tmp_path):
+    """Quarantine below ``min_groups`` flushes a checkpoint and raises
+    ``TopologyDegradedError`` naming the dead groups — and the flushed
+    directory resumes on the survivor topology the error names."""
+    pol = TENG.FaultPolicy(timeout_floor_s=0.3, timeout_slack=0.0,
+                           quarantine_after=1, min_groups=2, max_retries=5)
+    d = tmp_path / "ckpt"
+    with pytest.raises(TENG.TopologyDegradedError, match="group") as e:
+        _run(conf_run, _grouped(name),
+             fault_plan=TENG.FaultPlan(group_dead_at={1: 0}),
+             fault_policy=pol, checkpoint_dir=d)
+    assert e.value.dead_groups == (1,)
+    assert (d / "meta.json").exists()
+    survivor = Topology(2, 1, devices=("cpu", "cpu")).without_groups(
+        e.value.dead_groups)
+    assert survivor.block == 1
+    ex2 = (TENG.StreamingExecutor(window=2, topology=survivor)
+           if name == "streaming" else TENG.AsyncExecutor(topology=survivor))
+    res = _run(conf_run, ex2, resume_from=d)
+    _assert_same_numbers(res, one_group[name])
+
+
+@pytest.mark.parametrize("name", OVERLAPPED)
+def test_group_dead_continue_on_survivors(conf_run, one_group, name):
+    """``on_group_fault='continue'`` keeps the run alive below
+    ``min_groups``: the survivors finish the graph bitwise."""
+    pol = TENG.FaultPolicy(timeout_floor_s=0.3, timeout_slack=0.0,
+                           quarantine_after=1, min_groups=2,
+                           on_group_fault="continue", max_retries=5)
+    res = _run(conf_run, _grouped(name),
+               fault_plan=TENG.FaultPlan(group_dead_at={1: 0}),
+               fault_policy=pol)
+    assert res.group_stats["n_quarantined"] == 1
+    _assert_same_numbers(res, one_group[name])
+
+
+@pytest.mark.parametrize("name", OVERLAPPED)
+def test_group_slow_speculative_winner_deterministic(conf_run, one_group,
+                                                     name):
+    """A straggling group's dispatches are twinned on the idle group with
+    the same attempt-0 noise; the canonical-group winner is committed and
+    the loser never is, so two runs commit the same numbers, bitwise the
+    one-group run, with one resolve per block."""
+    import collections
+    pol = TENG.FaultPolicy(timeout_floor_s=60.0, timeout_slack=0.0,
+                           speculate_at=2.0)
+    plan = TENG.FaultPlan(group_slow_at={1: (0, 0.5)})
+    for _ in range(2):
+        ex = _grouped(name, record_trace=True)
+        res = _run(conf_run, ex, fault_plan=plan, fault_policy=pol)
+        assert res.group_stats["n_speculations"] >= 1, res.group_stats
+        assert res.group_stats["n_cancels"] == \
+            res.group_stats["n_speculations"]
+        resolves = collections.Counter(c for ev, c, *_ in ex.trace
+                                       if ev == "resolve")
+        assert set(resolves.values()) == {1}
+        _assert_same_numbers(res, one_group[name])
+        _assert_group_trace_clean(ex, conf_run[0])
+
+
+@pytest.mark.parametrize("name", OVERLAPPED)
+def test_group_steal_resolves_exactly_once(conf_run, one_group, name):
+    """With ``depth=1`` (and window=1 for streaming: single-block chunks,
+    so the straggler's prefetch slot holds stealable work) the groups hold
+    staged shares; an idle group steals from the most-loaded one. Every
+    block still resolves exactly once and the numbers stay bitwise."""
+    import collections
+    kw = {"window": 1} if name == "streaming" else {}
+    clean = (_run(conf_run, TENG.StreamingExecutor(window=1)) if kw
+             else one_group[name])
+    pol = TENG.FaultPolicy(timeout_floor_s=60.0, timeout_slack=0.0)
+    ex = _grouped(name, record_trace=True, depth=1, **kw)
+    res = _run(conf_run, ex,
+               fault_plan=TENG.FaultPlan(group_slow_at={1: (0, 0.3)}),
+               fault_policy=pol)
+    assert res.group_stats["n_steals"] >= 1, res.group_stats
+    resolves = collections.Counter(c for ev, c, *_ in ex.trace
+                                   if ev == "resolve")
+    graph = {t.coord for _, ts in TENG.build_phase_graph(conf_run[0])
+             for t in ts}
+    assert set(resolves) == graph
+    assert set(resolves.values()) == {1}     # exactly once, stolen or not
+    _assert_same_numbers(res, clean)
+    _assert_group_trace_clean(ex, conf_run[0])
+
+
+def test_resume_across_topology_switch(conf_run, one_group, tmp_path):
+    """Checkpoint meta records the run's identity, not its placement: a
+    run checkpointed under 4×1 groups resumes under 2×1 bitwise, and a
+    complete 4×1 directory restores wholesale under 2×2 data-sharded
+    groups."""
+    d = tmp_path / "ckpt41"
+    with pytest.raises(TENG.BlockFaultError):
+        _run(conf_run, _grouped("async", G=4), checkpoint_dir=d,
+             fault_plan=TENG.FaultPlan(fail_dispatch_at={(1, 2): 99}),
+             max_retries=0, on_fault="raise")
+    meta = TCK.PPCheckpoint.read_meta(d)
+    assert not {"executor", "topology"} & set(meta)
+    n_saved = len(list(d.glob("block_*.npz")))
+    assert 0 < n_saved < 9                   # genuinely mid-graph
+    res = _run(conf_run, _grouped("async", G=2), resume_from=d)
+    assert res.resumed_blocks == n_saved
+    _assert_same_numbers(res, one_group["async"])
+    full = tmp_path / "full41"
+    ref41 = _run(conf_run, _grouped("async", G=4), checkpoint_dir=full)
+    res22 = _run(conf_run, _grouped("async", G=2, data=2, comm="psum"),
+                 resume_from=full)
+    assert res22.resumed_blocks == 9
+    _assert_same_numbers(res22, ref41)       # nothing recomputed
 
 
 # ---------------------------------------------------------------------------

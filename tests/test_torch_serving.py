@@ -701,10 +701,14 @@ def test_bmf_serve_cli_check(mode, capsys):
     assert "parity check OK: 64 request(s)" in out
 
 
-def test_bmf_serve_sharded_waits_for_step_10():
-    with pytest.raises(NotImplementedError, match="step 10"):
-        TSERVE.main(["--dataset", "mini", "--device", "cpu", "--samples",
-                     "2", "--executor", "sharded"])
+def test_bmf_serve_sharded_waits_for_step_10(capsys):
+    """``--executor sharded`` (step 10 is ported): trains on the default
+    topology and serves, every answer checked against the brute force."""
+    TSERVE.main(["--dataset", "mini", "--device", "cpu", "--samples", "4",
+                 "--requests", "64", "--executor", "sharded", "--check"])
+    out = capsys.readouterr().out
+    assert "executor=sharded" in out
+    assert "parity check OK: 64 request(s)" in out
 
 
 @pytest.mark.cuda

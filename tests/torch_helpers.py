@@ -60,10 +60,13 @@ def bf16_round(x: np.ndarray) -> np.ndarray:
     return torch.from_numpy(x).to(torch.bfloat16).float().numpy()
 
 
-def jax_chain_tape(key, N, D, K, n_samples):
+def jax_chain_tape(key, N, D, K, n_samples, shards=None):
     """Replay the reference chain's key schedule into a noise tape for
     ``repro_torch.noise.TapeNoise``: the draws ``repro.core.gibbs.run_gibbs``
     makes from ``key`` for an (N, D, K) chain of ``n_samples`` sweeps.
+    ``shards=(S, D_loc)`` also records the 'scatter' V-step's per-shard
+    draws normal(fold_in(kv, s), (D_loc, K)) as ("z", sweep, "V", s)
+    (``repro.core.distributed._sharded_v_sampler``).
 
       split(key) -> (k0, key); init_factors(k0): split -> normal (N,K)/(D,K)
       per sweep: split(key, 5) -> key, kh1, kh2, ku, kv
@@ -97,6 +100,9 @@ def jax_chain_tape(key, N, D, K, n_samples):
                 np.asarray(jax.random.normal(km, (K,), f32)))
         tape[("z", i, "U")] = np.asarray(jax.random.normal(ku, (N, K), f32))
         tape[("z", i, "V")] = np.asarray(jax.random.normal(kv, (D, K), f32))
+        for s in range(shards[0] if shards else 0):
+            tape[("z", i, "V", s)] = np.asarray(jax.random.normal(
+                jax.random.fold_in(kv, s), (shards[1], K), f32))
     return tape
 
 
