@@ -79,6 +79,19 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      brute-force k-th best on the host; every Thompson answer 10 valid,
      distinct, unseen items; one warm scoring call per mode under
      ``set_sync_debug_mode("error")``;
+     ``[lint]`` (PR 22): ``launch/bmf_lint.py`` on the card (every
+     executor on 1x1 and on Topology(2, 2) as streams, serving, the
+     kernels, and each pass's negative case on CUDA tensors, which must
+     fire while its clean twin stays quiet): zero violations, B1 and B2
+     in the op traces; one stacked phase-c chain of the 16x4 grid at full
+     width (B = 45, one sweep; the fused sweep fp32 and bf16, and
+     use_kernel) recorded and checked by the op passes against
+     ``materialization_budget`` at its dims, with its largest buffer and
+     the ops seen; the recompilation budget of the grid's plans; B1 and
+     B2 counted under the ``lint`` path; then B2's enqueue cost per call
+     at the async B = 1 shape (raw ctypes launcher, the wrapper's launch
+     path with its ``note_kernel`` hook, and as a
+     ``torch.library.custom_op``);
      ``[table2]``: ``benchmarks/bench_rmse.py``'s methods and
      configurations on the MovieLens-20M shape with its rows cut to 1/8
      (17,311 x 27,278: the baselines' padded CSR of the whole matrix does
@@ -894,11 +907,12 @@ def phase_group_faults(train, test, part, cfg, clean, dev):
 
 def phase_bmf_sync(part, test, cfg, dev):
     """One async block dispatch (a phase-c block, both priors propagated)
-    and one ``_aggregate_axis`` under
-    ``torch.cuda.set_sync_debug_mode("error")``: either raising fails the
-    smoke. The blocks it depends on are dispatched first, unchecked (they
-    also pay the first call's lazy initialisation)."""
+    and one ``_aggregate_axis`` under ``analysis.guards.no_host_transfers``
+    (``torch.cuda.set_sync_debug_mode("error")``): either raising fails
+    the smoke. The blocks it depends on are dispatched first, unchecked
+    (they also pay the first call's lazy initialisation)."""
     import torch
+    from repro_torch.analysis import guards
     from repro_torch.core import engine as ENG
     from repro_torch.core import pp as PP
     from repro_torch.data.sparse import apply_permutation
@@ -912,13 +926,10 @@ def phase_bmf_sync(part, test, cfg, dev):
     for c in ((0, 0), (1, 0), (0, 1)):
         ex._dispatch(ctx, tasks[c])
     torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
+    with guards.no_host_transfers():
         _, _, out = ex._dispatch(ctx, tasks[(1, 1)])
         posts = [[out.U_post] * part.J for _ in range(part.I)]
         PP._aggregate_axis(part, posts, axis="row")
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     log("[bmf-sync] one async dispatch of block (1, 1) and one "
         "_aggregate_axis ran under set_sync_debug_mode('error'): no "
@@ -1135,9 +1146,10 @@ def phase_bmf_serve(train, test, res, dev):
     ``bmf_serve``'s defaults, SERVE_COLD cold-start fold-ins, each mean
     answer against a float64 brute force, the Thompson answers' validity,
     and one warm scoring call per mode under
-    ``set_sync_debug_mode("error")``."""
+    ``analysis.guards.no_host_transfers``."""
     import numpy as np
     import torch
+    from repro_torch.analysis import guards
     from repro_torch.launch import bmf_serve as SERVE
     from repro_torch.serving import MicroBatchRouter, PosteriorStore
     torch.cuda.synchronize()
@@ -1206,17 +1218,192 @@ def phase_bmf_serve(train, test, res, dev):
         shape = router.bucket_for(32, SERVE_MAX_SEEN, 1)
         router.workers[0].score(router._pad_batch(reqs[:32], shape))
         torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
+        with guards.no_host_transfers():
             router.workers[0].score(router._pad_batch(reqs[:32], shape))
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         log(f"[serve] {mode}: one warm scoring call ran under "
             f"set_sync_debug_mode('error')")
     peak = torch.cuda.max_memory_allocated()
     log(f"[serve] peak device memory {peak / 2**30:.3f} GiB (the training "
         f"result's posteriors included)")
+
+
+def enqueue_us(fn, n=1000, batch=100):
+    """Host microseconds per call of ``fn``: ``n`` calls in runs of
+    ``batch`` (few enough that the launch queue never fills), the host
+    clock around each run's enqueues only, a device sync between runs."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(n // batch):
+        t0 = time.perf_counter()
+        for _ in range(batch):
+            fn()
+        total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return 1e6 * total / n
+
+
+def lint_enqueue_cost(idx, val, mask, live, D, K, dev):
+    """The enqueue cost per B2 call at the async executor's B = 1 shape
+    (block 0 of the phase-c bucket), 1,000 launches each: the raw ctypes
+    launcher with its arguments ready, the wrapper's launch path as the
+    chains call it (checks, the output's allocation, the analyzer's
+    ``note_kernel`` hook, not recording), and that path as a
+    ``torch.library.custom_op`` (the other way to make B2 visible to a
+    dispatch mode); the hook alone, not recording, 100,000 calls."""
+    import torch
+    from repro_torch.analysis import optrace as OPT
+    from repro_torch.kernels.bmf_sweep import ops as B2
+    idx, val, mask, live = (t[:1].contiguous() for t in (idx, val, mask,
+                                                         live))
+    _, N, M = idx.shape
+    g = torch.Generator(device=dev).manual_seed(3)
+    other = torch.randn((1, D, K), generator=g, device=dev) / K ** 0.5
+    pe = torch.randn((1, N, K), generator=g, device=dev) * 0.3
+    pl = (2 * torch.eye(K, device=dev)).expand(1, N, K, K).contiguous()
+    z = torch.randn((1, N, K), generator=g, device=dev)
+    U = torch.empty((1, N, K), device=dev)
+    lib = B2._lib()
+    args = (idx.data_ptr(), val.data_ptr(), mask.data_ptr(), live.data_ptr(),
+            other.data_ptr(), 0, pe.data_ptr(), pl.data_ptr(), z.data_ptr(),
+            U.data_ptr(), 1, N, M, D, K, 2.0, 1e-6,
+            torch.cuda.current_stream(dev).cuda_stream)
+
+    @torch.library.custom_op("chip_smoke::bmf_sweep", mutates_args=())
+    def b2_op(z: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
+              mask: torch.Tensor, pe: torch.Tensor, pl: torch.Tensor,
+              other: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+        return B2._launch(z, idx, val, mask, pe, pl, other, 2.0, 1e-6, live)
+
+    @b2_op.register_fake
+    def _(z, idx, val, mask, pe, pl, other, live):
+        return torch.empty_like(z)
+
+    ops = (z, idx, val, mask, pe, pl, other, live)
+    raw = enqueue_us(lambda: lib(*args))
+    path = enqueue_us(lambda: B2._launch(z, idx, val, mask, pe, pl, other,
+                                         2.0, 1e-6, live))
+    op = enqueue_us(lambda: b2_op(*ops))
+    path2 = enqueue_us(lambda: B2._launch(z, idx, val, mask, pe, pl, other,
+                                          2.0, 1e-6, live))
+    raw2 = enqueue_us(lambda: lib(*args))
+    hook = enqueue_us(lambda: OPT.note_kernel("x", {}, {}), n=100_000,
+                      batch=100_000)
+    log(f"[lint] B2 enqueue per call at the async B = 1 shape (N={N}, "
+        f"M={M}, D={D}, K={K}), 1,000 launches each, in turns: raw ctypes "
+        f"launcher {raw:.2f} / {raw2:.2f} us; the wrapper's launch path "
+        f"(checks, output allocation, note_kernel hook) {path:.2f} / "
+        f"{path2:.2f} us; as a torch.library.custom_op {op:.2f} us "
+        f"(+{op - min(path, path2):.2f} us over the launch path); "
+        f"note_kernel alone, not recording, {hook:.3f} us")
+
+
+def phase_lint(part, test, test_p, K, dev):
+    """``[lint]``: the analyzer on the card. ``bmf_lint`` over every
+    executor on 1x1 and on Topology(2, 2) (four slots as streams of the
+    card), serving and the kernels, and each pass's negative case on CUDA
+    tensors (it must fire, its clean twin stay quiet);
+    then one stacked phase-c chain of this run's bucket at full width (one
+    sweep: the fused sweep fp32 and bf16, and use_kernel), its op trace
+    against ``materialization_budget`` at those dims, with the largest
+    buffer and the ops seen; the recompilation-budget pass on the
+    partition's plans; B2's enqueue cost (``lint_enqueue_cost``). Returns
+    the B1 and B2 launches of the lint and the full-width chains."""
+    import torch
+    from repro_torch import analysis as LINT
+    from repro_torch.analysis import optrace as OPT
+    from repro_torch.analysis.op_passes import materialization_budget
+    from repro_torch.core import bmf as BMF
+    from repro_torch.core import engine as ENG
+    from repro_torch.core import gibbs as GIBBS
+    from repro_torch.core import pp as PP
+    from repro_torch.core.posterior import RowGaussians
+    from repro_torch.data.sparse import PaddedCSR, row_live
+    from repro_torch.launch import bmf_lint as LINTCLI
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    rc = LINTCLI.main(["--all-executors", "--topo", "2", "2", "--device",
+                       "cuda"])
+    rep = json.loads(LINTCLI.OUT.read_text())
+    log(f"[lint] bmf_lint --all-executors --topo 2 2 --device cuda "
+        f"(self-check included): exit {rc}, {rep['n_violations']} "
+        f"violation(s) over "
+        f"{len(rep['runs'])} runs, {len(rep['self_check'])} negative cases, "
+        f"kernel ops {rep['kernel_ops']}, {time.time() - t0:.1f}s")
+    assert rc == 0, "[lint] bmf_lint failed"
+    for kern in ("repro_torch::bmf_precision", "repro_torch::bmf_sweep"):
+        assert rep["kernel_ops"].get(kern, 0) > 0, f"[lint] no {kern} op"
+
+    # one stacked phase-c chain at full width, both priors propagated
+    s = PP.BlockShapes.per_phase(part, test_p)["c"]
+    tasks = [t for _, ts in ENG.build_phase_graph(part) for t in ts
+             if t.phase == "c"]
+    buf = PP.new_block_inputs(s, K, len(tasks), dev, False, False)
+    for b, t in enumerate(tasks):
+        PP.fill_block_inputs(buf, b, part.block(t.i, t.j), s, test_p)
+    rows = PaddedCSR(buf["idx_r"], buf["val_r"], buf["mask_r"], s.n_cols)
+    cols = PaddedCSR(buf["idx_c"], buf["val_c"], buf["mask_c"], s.n_rows)
+    B, N, M = rows.idx.shape
+    Dn, Mc = cols.idx.shape[1:]
+
+    def prior(n):
+        lam = (2 * torch.eye(K, device=dev)).expand(B, n, K, K)
+        return RowGaussians(eta=torch.zeros((B, n, K), device=dev),
+                            Lambda=lam.contiguous())
+
+    up, vp = prior(N), prior(Dn)
+    budget = materialization_budget(N, Dn, M, Mc, K, batch=B)
+    base = BMF.BMFConfig(K=K, n_samples=1, burnin=0)
+    for label, cfg, kern in (
+            ("fused fp32", base._replace(sweep_fused=True),
+             "repro_torch::bmf_sweep"),
+            ("fused bf16", base._replace(sweep_fused=True,
+                                         sweep_dtype="bf16"),
+             "repro_torch::bmf_sweep"),
+            ("use_kernel", base._replace(use_kernel=True),
+             "repro_torch::bmf_precision")):
+        with OPT.record() as tr:
+            GIBBS.run_gibbs_stacked(list(range(B)), rows, cols, buf["tr"],
+                                    buf["tc"], cfg, up, vp, device=dev)
+        torch.cuda.synchronize()
+        vs = LINT.analyze(LINT.OpArtifact(f"phase-c {label}", tr.ops,
+                                          bytes_budget=budget))
+        nb, op, dt, shape = OPT.largest_buffer(tr.ops)
+        seen = OPT.op_counts(tr.ops)
+        log(f"[lint] phase-c chain at full width, {label} (B={B} N={N} "
+            f"M={M} D={Dn} M_c={Mc} K={K}, one sweep): {len(tr.ops)} ops, "
+            f"{len(vs)} violation(s); largest buffer {nb / 2**20:.1f} MiB "
+            f"({op} {dt}{list(shape)}) against the budget "
+            f"{budget / 2**20:.1f} MiB ({nb / budget:.3f}); kernel ops "
+            f"{OPT.kernel_counts(tr.ops)}; ops seen "
+            + ", ".join(f"{k.split('::')[-1]} {n}"
+                        for k, n in sorted(seen.items())))
+        for v in vs:
+            log(str(v))
+        assert not vs, f"[lint] phase-c {label}: violations"
+        assert seen[kern] > 0, f"[lint] phase-c {label}: {kern} not traced"
+    torch.cuda.synchronize()
+    counts = read_counts()
+    by_path = {"bmf_precision": counts["bmf_precision"],
+               "bmf_sweep": counts["bmf_sweep"]}
+    log(f"[lint] launches by the lint path: {by_path}")
+
+    for name in ("stacked", "streaming"):
+        sigs = LINTCLI.plan_signatures(name, part, test, base)
+        vs = LINT.analyze(LINT.PlanArtifact(f"{part.I}x{part.J} {name}",
+                                            sigs))
+        log(f"[lint] recompilation-budget on the {part.I}x{part.J} "
+            f"partition's {name} plan: {len(set(map(repr, sigs)))} distinct "
+            f"shapes (cap 8), {len(vs)} violation(s)")
+        assert not vs, f"[lint] {name} plan over cap"
+    live = row_live(rows.mask)
+    lint_enqueue_cost(rows.idx, rows.val, rows.mask, live, Dn, K, dev)
+    del buf, rows, cols, up, vp, live
+    torch.cuda.empty_cache()
+    return by_path
 
 
 def phase_table2(dev):
@@ -2276,6 +2463,7 @@ def main():
     phase_bmf_sync(part, test, fused, dev)
     phase_bmf_profile(train, test, part, fused, dev)
     phase_bmf_serve(train, test, stacked_fused, dev)
+    lint_launches = phase_lint(part, test, test_p, K, dev)
     del train, test, test_p, part, stacked_fused
     torch.cuda.empty_cache()
     als_launches, table2_cases = phase_table2(dev)
@@ -2329,7 +2517,8 @@ def main():
             launches_by_path={"use-kernel": launches["bmf_precision"],
                               "netflix-k100": netflix_launches,
                               "netflix-k100-streaming": netflix_streaming,
-                              "als": als_launches, **b1_sharded}),
+                              "als": als_launches, **b1_sharded,
+                              "lint": lint_launches["bmf_precision"]}),
         "bmf_sweep": dict(
             source="src/repro_torch/csrc/bmf_sweep.cu",
             replaces="src/repro/kernels/bmf_sweep/kernel.py:232",
@@ -2337,7 +2526,8 @@ def main():
                    "added into Lam's lower triangle in registers, an "
                    "in-thread Cholesky and solves with no shuffle; one warp "
                    "per row above",
-            launches_by_path=b2_by_path),
+            launches_by_path={**b2_by_path,
+                              "lint": lint_launches["bmf_sweep"]}),
     }
     kernels = []
     for name, m in meta.items():

@@ -1,8 +1,6 @@
 """Dispatch/resolve-trace passes and phase-graph validation (port of
-``repro.analysis.trace_passes`` and of the ``Violation`` and
-``TraceArtifact`` records of ``repro.analysis.registry``). Plain
-functions over a trace; the pass registry waits for the analyzer port
-(ROADMAP §A step 12).
+``repro.analysis.trace_passes``): the ``happens-before``,
+``window-occupancy`` and ``graph-validation`` passes.
 
 The executor trace schema (``core.engine.Executor``): barrier executors
 record ``(event, coord)``, the overlapped ones ``(event, coord, group)``:
@@ -22,40 +20,14 @@ resolve is the degraded/terminal-retire path and is legal.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Set, Tuple
+from typing import Dict, List, Sequence, Set
 
-Coord = Tuple[int, int]
+from repro_torch.analysis.registry import (Coord, GraphArtifact, Pass,
+                                           TraceArtifact, Violation,
+                                           register)
 
 _EVENTS = ("dispatch", "expire", "redispatch", "resolve",
            "quarantine", "steal", "speculate", "cancel")
-
-
-@dataclass(frozen=True)
-class Violation:
-    """One invariant breach: which pass fired, on what artifact, what went
-    wrong, and how to fix it."""
-    pass_name: str
-    artifact: str
-    message: str
-    fix_hint: str
-
-    def as_dict(self) -> Dict[str, str]:
-        return {"pass": self.pass_name, "artifact": self.artifact,
-                "message": self.message, "fix_hint": self.fix_hint}
-
-
-@dataclass
-class TraceArtifact:
-    """An executor's recorded event trace plus the dep map it ran
-    against. ``window_bound`` is the streaming occupancy cap
-    G·W·(depth+1); ``reported_peak`` the executor's own high-water mark
-    (``peak_window_blocks``)."""
-    label: str
-    trace: Sequence[Tuple]
-    deps: Dict[Coord, Sequence[Coord]]
-    window_bound: Optional[int] = None
-    reported_peak: Optional[int] = None
 
 
 def _entries(trace):
@@ -229,6 +201,21 @@ def _window_occupancy(art: TraceArtifact) -> List[Violation]:
     return out
 
 
+register(Pass(
+    "happens-before", "trace",
+    "every dep resolves before its dependent dispatches; watchdog "
+    "re-dispatch is totally ordered with the expired attempt; every "
+    "block resolves exactly once; no work reaches a quarantined group; "
+    "speculative twins collapse via cancel; steal targets are staged",
+    _happens_before))
+
+register(Pass(
+    "window-occupancy", "trace",
+    "in-flight (and staged) blocks never exceed the streaming window "
+    "bound G*W*(depth+1)",
+    _window_occupancy))
+
+
 def check_graph(deps: Dict[Coord, Sequence[Coord]],
                 resolved: Sequence[Coord] = (),
                 label: str = "phase-graph") -> List[Violation]:
@@ -269,3 +256,14 @@ def check_graph(deps: Dict[Coord, Sequence[Coord]],
             "strictly earlier phases) — a cycle means prior_from coords "
             "were rewired; re-derive the graph from build_phase_graph"))
     return out
+
+
+def _graph_validation(art: GraphArtifact) -> List[Violation]:
+    return check_graph(art.deps, art.resolved, label=art.label)
+
+
+register(Pass(
+    "graph-validation", "graph",
+    "the phase graph is acyclic, fully reachable, and every dep exists "
+    "(in-graph or pre-resolved)",
+    _graph_validation))

@@ -23,7 +23,8 @@ import torch
 from repro_torch.core import posterior as POST
 from repro_torch.core.posterior import NormalWishart, RowGaussians
 from repro_torch.data.sparse import PaddedCSR
-from repro_torch.kernels.bmf_precision.ref import precision_accum_ref
+from repro_torch.kernels.bmf_precision.ref import (gather_rows,
+                                                   precision_accum_ref)
 
 
 class BMFConfig(NamedTuple):
@@ -52,8 +53,12 @@ def sufficient_stats(csr: PaddedCSR, other: torch.Tensor, tau: float,
         from repro_torch.kernels.bmf_precision import ops as KOPS
         return KOPS.precision_accum(csr.idx, csr.val, csr.mask, other, tau,
                                     live)
-    V = torch.take_along_dim(other[..., None, :, :],
-                             csr.idx[..., None].long(), dim=-2)   # (…,N,M,K)
+    # one gather of f32 rows: an index broadcast to (…, N, M, K) would be
+    # an int64 buffer twice the gathered plane
+    lead, tail = csr.idx.shape[:-2], other.shape[-2:]
+    V = gather_rows(other.expand(lead + tail).reshape((-1,) + tail),
+                    csr.idx.reshape((-1,) + csr.idx.shape[-2:]))
+    V = V.reshape(csr.idx.shape + tail[-1:])                     # (…,N,M,K)
     return precision_accum_ref(V, csr.val, csr.mask, tau)
 
 

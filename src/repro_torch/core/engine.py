@@ -78,7 +78,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device, to_device
-from repro_torch.analysis.trace_passes import check_graph
+from repro_torch import analysis as LINT
 from repro_torch.core import bmf as BMF
 from repro_torch.core import gibbs as GIBBS
 from repro_torch.core import pp as PP
@@ -1660,6 +1660,9 @@ class _Window:
         self.numel = numel
         self.slots: List[_Slot] = []
         self.free: List[int] = []
+        # per slot, the storages of its planes (data pointers): the only
+        # ones a chunk's planes may live in
+        self.storages: List[Tuple[int, ...]] = []
         for _ in range(depth + 1):
             self._grow()
 
@@ -1671,6 +1674,8 @@ class _Window:
              for k, dt in _STAGED.items()}
         self.free.append(len(self.slots))
         self.slots.append(_Slot(dev=d, host=h))
+        self.storages.append(tuple(d[k].untyped_storage().data_ptr()
+                                   for k in _PLANES))
 
     @property
     def bytes(self) -> int:
@@ -1810,6 +1815,7 @@ class StreamingExecutor(_Overlapped):
     sums in grid order, so the results do not depend on how completion
     timing regroups the chunks, nor on which group runs them."""
     name = "streaming"
+    window_cls = _Window        # an instance may plant another window type
 
     def __init__(self, window: int = 4, max_waste: float = 1.0,
                  priority: bool = True, depth: int = 2,
@@ -1835,6 +1841,11 @@ class StreamingExecutor(_Overlapped):
         self.peak_window_blocks = 0           # realized live-window bound
         self.window_shapes: Optional[Dict[str, "PP.BlockShapes"]] = None
         self.window_bytes = 0                 # the slots' device bytes
+        # under record_trace: (group, plane storages) per chunk dispatch;
+        # after a run, each group's slot storages (``_Window.storages``)
+        # — the analyzer's 'donation-effectiveness' pass
+        self.window_planes: List[Tuple[int, Tuple[int, ...]]] = []
+        self.window_slots: Dict[int, List[Tuple[int, ...]]] = {}
 
     def _group_key(self, ctx, task, shapes):
         cfg = ctx.block_cfg(task)
@@ -1845,6 +1856,8 @@ class StreamingExecutor(_Overlapped):
         self.peak_window_blocks = 0
         self.window_shapes = None
         self.window_bytes = 0
+        self.window_planes = []
+        self.window_slots = {}
 
     def _stage(self, ctx: PhaseContext, chunk: List[BlockTask], shapes,
                win: _Window, group: int = 0) -> _StagedChunk:
@@ -1905,6 +1918,9 @@ class StreamingExecutor(_Overlapped):
         if win.cuda:
             torch.cuda.current_stream(win.device).wait_event(st.slot.staged)
         pl = win.planes(st.slot, s, W)
+        if self.record_trace:
+            self.window_planes.append((grp.index, tuple(
+                p.untyped_storage().data_ptr() for p in pl.values())))
         tr, tc, tv, tmask = (win.view(st.slot, k, (W, s.n_test))
                              for k in ("tr", "tc", "tv", "tmask"))
         use = tuple(win.view(st.slot, k, (W,)) for k in ("u_use", "v_use"))
@@ -1952,8 +1968,8 @@ class StreamingExecutor(_Overlapped):
         elastic = G > 1    # one group: nowhere to rebalance, steal or twin
         # one window per group: its own slots, pinned staging and copy
         # stream
-        wins = [_Window(ctx, shapes, tasks, self.window, self.depth,
-                        device=grp.lead) for grp in groups]
+        wins = [self.window_cls(ctx, shapes, tasks, self.window, self.depth,
+                                device=grp.lead) for grp in groups]
         self.window_bytes = sum(w.bytes for w in wins)
         if verbose:
             n_buckets = len({id(s) for s in shapes.values()})
@@ -2270,6 +2286,8 @@ class StreamingExecutor(_Overlapped):
             _settle(ctx, groups)
             for w in wins:
                 w.close()
+            self.window_slots = {g: list(w.storages)
+                                 for g, w in enumerate(wins)}
         return outcomes, self._finish_timings(first_d, last_r), spans
 
 
@@ -2429,8 +2447,9 @@ def run_phase_graph(seed: int, part: Partition, cfg: BMF.BMFConfig,
              if (pending := [t for t in tasks if t.coord not in ctx.resumed])]
     # static pre-dispatch validation: acyclic, every dep in the graph or
     # restored — an over-pruned resume fails here, not as a hang
-    bad = check_graph({t.coord: list(t.deps) for _, ts in graph for t in ts},
-                      resolved=set(ctx.resumed))
+    bad = LINT.analyze(LINT.GraphArtifact(
+        "phase-graph", {t.coord: list(t.deps) for _, ts in graph for t in ts},
+        resolved=set(ctx.resumed)))
     if bad:
         raise ValueError("invalid phase graph: "
                          + "; ".join(v.message for v in bad))

@@ -18,7 +18,7 @@ block b of a stacked chain reproduces ``run_gibbs`` on block b alone.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -27,7 +27,7 @@ from repro_torch import resolve_device
 from repro_torch.core import bmf as BMF
 from repro_torch.core import posterior as POST
 from repro_torch.core.posterior import RowGaussians
-from repro_torch.data.sparse import PaddedCSR, row_live
+from repro_torch.data.sparse import COO, PaddedCSR, coo_to_padded_csr, row_live
 from repro_torch.noise import GeneratorNoise
 
 
@@ -313,3 +313,135 @@ def rmse_from_acc(acc: GibbsAccumulators, test_vals) -> torch.Tensor:
     pred = acc.pred_sum / torch.clamp(acc.pred_cnt, min=1.0)[..., None]
     test_vals = torch.as_tensor(test_vals, device=pred.device)
     return torch.sqrt(torch.mean((pred - test_vals) ** 2, dim=-1))
+
+
+# ---------------------------------------------------------------------------
+# static-analyzer hooks (launch.bmf_lint)
+# ---------------------------------------------------------------------------
+
+
+class TracedChain(NamedTuple):
+    """What the analyzer needs from one run of a chain, the port's
+    counterpart of the reference's lowering: every op it ran
+    (``analysis.optrace.OpRecord``), every collective its group was asked
+    for (``core.topology.CollectiveCall``; none on one slot) and the
+    sweeps it ran, which turn collective counts into per-sweep ones."""
+    ops: List
+    collectives: List
+    sweeps: int
+
+
+class LintInputs(NamedTuple):
+    """Seeded random chain inputs at lint dims, with a leading block axis
+    B: planes, test ids, PD propagated priors, and each block's COO."""
+    rows: PaddedCSR
+    cols: PaddedCSR
+    test_rows: torch.Tensor
+    test_cols: torch.Tensor
+    U_prior: RowGaussians
+    V_prior: RowGaussians
+    coos: List[COO]
+
+
+def lint_block(rng: np.random.Generator, n_rows: int, n_cols: int,
+               m_rows: int, m_cols: int) -> COO:
+    """A random n_rows × n_cols block with at most ``m_rows`` ratings per
+    row and ``m_cols`` per column (row 0 has ``m_rows``): each row draws
+    distinct columns, and a column keeps its first ``m_cols`` entries."""
+    m_rows = min(m_rows, n_cols)
+    cols = np.argsort(rng.random((n_rows, n_cols)), axis=1)[:, :m_rows]
+    cnt = rng.integers(1, m_rows + 1, n_rows)
+    cnt[0] = m_rows
+    keep = np.arange(m_rows)[None, :] < cnt[:, None]
+    r = np.broadcast_to(np.arange(n_rows)[:, None], cols.shape)[keep]
+    c = cols[keep]
+    order = np.lexsort((r, c))
+    r, c = r[order], c[order]
+    ok = np.arange(len(c)) - np.searchsorted(c, c) < m_cols
+    r, c = r[ok], c[ok]
+    return COO(row=r.astype(np.int32), col=c.astype(np.int32),
+               val=rng.normal(size=len(r)).astype(np.float32),
+               n_rows=n_rows, n_cols=n_cols)
+
+
+def lint_prior(rng: np.random.Generator, lead: Sequence[int], K: int,
+               dev) -> RowGaussians:
+    """Random PD row Gaussians of shape ``(*lead, K)`` / ``(*lead, K,
+    K)`` on ``dev``."""
+    A = rng.normal(size=(*lead, K, K)) * 0.2
+    lam = np.einsum("...ij,...kj->...ik", A, A) + 1.5 * np.eye(K)
+    eta = rng.normal(size=(*lead, K)) * 0.3
+    return RowGaussians(*(torch.from_numpy(a.astype(np.float32)).to(dev)
+                          for a in (eta, lam)))
+
+
+def lint_inputs(seed: int, B: int, n_rows: int, n_cols: int, m_rows: int,
+                m_cols: int, n_test: int, K: int, device) -> LintInputs:
+    """B random blocks at exactly the given dims (planes (B, n_rows,
+    m_rows) / (B, n_cols, m_cols)) on ``device``."""
+    rng = np.random.default_rng(seed)
+    coos = [lint_block(rng, n_rows, n_cols, m_rows, m_cols)
+            for _ in range(B)]
+
+    def planes(cs, n, m, n_other):
+        ps = [coo_to_padded_csr(c, max_nnz=m, pad_to_multiple=1,
+                                n_rows_pad=n, n_cols_pad=n_other,
+                                as_numpy=True) for c in cs]
+        return PaddedCSR(*(torch.from_numpy(np.stack(
+            [getattr(p, k) for p in ps])).to(device)
+            for k in ("idx", "val", "mask")), n_cols=n_other)
+
+    tr = rng.integers(0, n_rows, (B, n_test)).astype(np.int32)
+    tc = rng.integers(0, n_cols, (B, n_test)).astype(np.int32)
+    return LintInputs(
+        rows=planes(coos, n_rows, m_rows, n_cols),
+        cols=planes([c.transpose() for c in coos], n_cols, m_cols, n_rows),
+        test_rows=torch.from_numpy(tr).to(device),
+        test_cols=torch.from_numpy(tc).to(device),
+        U_prior=lint_prior(rng, (B, n_rows), K, device),
+        V_prior=lint_prior(rng, (B, n_cols), K, device), coos=coos)
+
+
+def lint_flags(B: int, device):
+    """Per-block prior-use flags (u_use, v_use) that mix the fixed and the
+    resampled prior within one batch, as a streaming window chunk does."""
+    b = torch.arange(B, device=device)
+    return ((b % 2 == 0).float(), (b % 2 == 1).float())
+
+
+def trace_chain(cfg: BMF.BMFConfig, n_rows: int, n_cols: int, m_rows: int,
+                m_cols: int, n_test: int, *, batch: Optional[int] = None,
+                u_prior: bool = True, v_prior: bool = True,
+                prior_use: bool = False, sweeps: int = 2,
+                device=None) -> TracedChain:
+    """Analyzer hook (``launch.bmf_lint``): run the chain ``run_gibbs``
+    (batch=None) or ``run_gibbs_stacked`` (batch=B) dispatches once, at
+    these block dims, on seeded random planes, under the op and collective
+    recorders — where the reference traces the executable at abstract
+    shapes, the port runs it and records what ran. ``prior_use`` adds the
+    streaming executor's per-block prior-use flags (stacked only, both
+    priors given). ``sweeps`` sweeps run, the last one kept. There is no
+    ``donate``: the window's slot reuse is the ``reuse`` artifact's."""
+    from repro_torch.analysis import optrace as OPT
+    from repro_torch.core.topology import record_collectives
+    dev = resolve_device(device)
+    B = 1 if batch is None else int(batch)
+    inp = lint_inputs(0, B, n_rows, n_cols, m_rows, m_cols, n_test, cfg.K,
+                      dev)
+    cfg = cfg._replace(n_samples=sweeps, burnin=sweeps - 1,
+                       phase_bc_samples=None)
+    up = inp.U_prior if (u_prior or prior_use) else None
+    vp = inp.V_prior if (v_prior or prior_use) else None
+    if batch is None:
+        one = lambda t: tree_map(lambda x: x[0], t)   # noqa: E731
+        args = (0, one(inp.rows), one(inp.cols), inp.test_rows[0],
+                inp.test_cols[0], cfg, one(up), one(vp))
+        run, kw = run_gibbs, {}
+    else:
+        args = (list(range(B)), inp.rows, inp.cols,
+                inp.test_rows, inp.test_cols, cfg, up, vp)
+        run = run_gibbs_stacked
+        kw = dict(prior_use=lint_flags(B, dev) if prior_use else None)
+    with OPT.record() as tr, record_collectives() as calls:
+        run(*args, device=dev, **kw)
+    return TracedChain(ops=tr.ops, collectives=calls, sweeps=sweeps)

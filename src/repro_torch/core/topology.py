@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import contextlib
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -158,6 +158,34 @@ class Topology:
                 f"{', '.join(names)})")
 
 
+class CollectiveCall(NamedTuple):
+    """One collective a ``Group`` was asked for: the public method, the
+    group's index and slot devices, and the shapes of the parts. ``op``
+    is one of broadcast, all_gather, psum, psum_scatter."""
+    op: str
+    group: int
+    devices: Tuple[str, ...]
+    shapes: Tuple[Tuple[int, ...], ...]
+
+
+# lists recording collective calls now (``record_collectives``)
+_RECORDERS: List[List[CollectiveCall]] = []
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """``with record_collectives() as calls:`` — every ``Group``
+    collective called inside, in order, for the analyzer's
+    'collective-confinement' pass. Recorded at the public methods only, so
+    a ``psum_scatter`` counts once, not also as the psum it reduces with."""
+    calls: List[CollectiveCall] = []
+    _RECORDERS.append(calls)
+    try:
+        yield calls
+    finally:
+        _RECORDERS.remove(calls)
+
+
 class Group:
     """One device group: its ordered 'data' slots, a CUDA stream per slot
     (created on first use; none on the CPU) and the collectives over the
@@ -221,9 +249,18 @@ class Group:
     def _same(self) -> bool:
         return all(d == self.lead for d in self.devices)
 
+    def _note(self, op: str, parts: Sequence[torch.Tensor]):
+        if _RECORDERS:
+            call = CollectiveCall(op, self.index,
+                                  tuple(str(d) for d in self.devices),
+                                  tuple(tuple(p.shape) for p in parts))
+            for calls in _RECORDERS:
+                calls.append(call)
+
     def broadcast(self, x: torch.Tensor) -> List[torch.Tensor]:
         """``x`` on every slot's device (the same tensor where it already
         lies there)."""
+        self._note("broadcast", (x,))
         if self._same():
             return [x] * self.size
         uniq = list(dict.fromkeys(self.devices))
@@ -242,6 +279,7 @@ class Group:
                    dim: int = -2) -> torch.Tensor:
         """Concatenate the slots' tiles in shard order (tiled all_gather),
         on the lead slot."""
+        self._note("all_gather", parts)
         if not self._same() and all(p.is_cuda for p in parts):
             return torch.cuda.comm.gather(list(parts), dim=dim,
                                           destination=self.lead.index)
@@ -250,6 +288,10 @@ class Group:
     def psum(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
         """The slots' partial sums added in fixed shard order on the lead
         slot, so a rerun is bitwise the same."""
+        self._note("psum", parts)
+        return self._psum(parts)
+
+    def _psum(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
         parts = self._gather_to_lead(parts)
         out = parts[0] + parts[1] if len(parts) > 1 else parts[0].clone()
         for p in parts[2:]:
@@ -260,7 +302,8 @@ class Group:
                      dim: int) -> List[torch.Tensor]:
         """Tiled reduce-scatter: the sum of the slots' partials, split in
         ``size`` equal tiles along ``dim``, tile s on slot s's device."""
-        total = self.psum(parts)
+        self._note("psum_scatter", parts)
+        total = self._psum(parts)
         n = total.shape[dim]
         if n % self.size:
             raise ValueError(f"psum_scatter: dim of {n} is not a multiple "

@@ -29,6 +29,7 @@ import ctypes
 
 import torch
 
+from repro_torch.analysis import optrace as OPT
 from repro_torch.data.sparse import row_live
 from repro_torch.kernels import build as BUILD
 from repro_torch.kernels.bmf_precision.ref import (gather_rows,
@@ -97,8 +98,9 @@ def precision_accum(idx, val, mask, other, tau: float, live=None):
     squeeze = idx.dim() == 2
     idx, val, mask, other, live = as_batched(idx, val, mask, other, live)
     if idx.device.type == "cpu":
-        lam, eta = precision_accum_plain(idx, val, mask, other.float(), tau,
-                                         live)
+        with OPT.plain_region("repro_torch::bmf_precision"):
+            lam, eta = precision_accum_plain(idx, val, mask, other.float(),
+                                             tau, live)
     else:
         lam, eta = _launch(idx, val, mask, other, tau,
                            row_live(mask) if live is None else live)
@@ -139,6 +141,9 @@ def _launch(idx, val, mask, other, tau, live):
              torch.cuda.current_stream(idx.device).cuda_stream)
     BUILD.check(err, "bmf_precision_launch")
     precision_accum.launches += 1
+    OPT.note_kernel("repro_torch::bmf_precision",
+                    dict(idx=idx, val=val, mask=mask, live=live, other=other),
+                    dict(lam=lam, eta=eta))
     return lam, eta
 
 

@@ -27,6 +27,7 @@ import ctypes
 
 import torch
 
+from repro_torch.analysis import optrace as OPT
 from repro_torch.core import posterior as POST
 from repro_torch.data.sparse import row_live
 from repro_torch.kernels import build as BUILD
@@ -73,8 +74,9 @@ def fused_sweep(z, idx, val, mask, prior_eta, prior_lam, other, tau: float,
             raise ValueError(f"{name} {tuple(t.shape)} != {shape}")
     other = other.to(torch.bfloat16 if dtype == "bf16" else torch.float32)
     if idx.device.type == "cpu":
-        U = sweep_ref_padded(idx, val, mask, prior_eta, prior_lam, z, other,
-                             tau, jitter=jitter, live=live)
+        with OPT.plain_region("repro_torch::bmf_sweep"):
+            U = sweep_ref_padded(idx, val, mask, prior_eta, prior_lam, z,
+                                 other, tau, jitter=jitter, live=live)
     elif K > SWEEP_K_MAX:
         lam, eta = PREC.precision_accum(idx, val, mask, other, tau, live)
         U = POST.sample_rows_noise(
@@ -113,6 +115,10 @@ def _launch(z, idx, val, mask, prior_eta, prior_lam, other, tau, jitter,
                  torch.cuda.current_stream(idx.device).cuda_stream)
     BUILD.check(err, "bmf_sweep_launch")
     fused_sweep.launches += 1
+    OPT.note_kernel("repro_torch::bmf_sweep",
+                    dict(idx=idx, val=val, mask=mask, live=live, other=other,
+                         prior_eta=prior_eta, prior_lam=prior_lam, z=z),
+                    dict(U=U))
     return U
 
 
@@ -124,3 +130,25 @@ def sample_factor_fused(z, csr, other, tau: float, prior, *,
     return fused_sweep(z, csr.idx, csr.val, csr.mask,
                        prior.eta.contiguous(), prior.Lambda.contiguous(),
                        other, tau, dtype=dtype, jitter=jitter, live=live)
+
+
+def trace_sweep(K: int, n_rows: int, m_rows: int, n_other: int, *,
+                dtype: str = "fp32", device=None):
+    """Analyzer hook (``launch.bmf_lint``), shaped like
+    ``gibbs.trace_chain``: one ``fused_sweep`` factor step on seeded
+    random inputs at these dims, under the op recorder — B2's launch on a
+    CUDA device, its plain version on the CPU."""
+    import numpy as np
+
+    from repro_torch import resolve_device
+    from repro_torch.core.gibbs import TracedChain, lint_inputs
+    dev = resolve_device(device)
+    inp = lint_inputs(0, 1, n_rows, n_other, m_rows, n_rows, 1, K, dev)
+    rng = np.random.default_rng(1)
+    z, other = (torch.from_numpy(rng.normal(size=(n, K)).astype(np.float32))
+                .to(dev) for n in (n_rows, n_other))
+    with OPT.record() as tr:
+        fused_sweep(z, inp.rows.idx[0], inp.rows.val[0], inp.rows.mask[0],
+                    inp.U_prior.eta[0], inp.U_prior.Lambda[0], other, 2.0,
+                    dtype=dtype)
+    return TracedChain(ops=tr.ops, collectives=[], sweeps=1)

@@ -39,13 +39,16 @@ out of range. The router checks them on the host.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import List, NamedTuple
 
+import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core import posterior as POST
 from repro_torch.core.posterior import RowGaussians
-from repro_torch.serving.store import PosteriorStore, _posterior_mean
+from repro_torch.serving.store import (PosteriorStore, _build_store,
+                                       _posterior_mean)
 
 MODES = ("mean", "thompson")
 
@@ -131,3 +134,51 @@ def scoring_budget(n_users: int, n_items: int, K: int, batch: int,
     slots = n_slots * n_items * K
     gathered = batch * n_items * K
     return int(slack * 4 * max(store_side, slots, gathered))
+
+
+# ---------------------------------------------------------------------------
+# static-analyzer hooks (launch.bmf_lint)
+# ---------------------------------------------------------------------------
+
+
+class TracedScoring(NamedTuple):
+    """What the analyzer needs from one scoring call: every op it ran
+    (``analysis.optrace.OpRecord``)."""
+    ops: List
+
+
+def trace_scoring(n_users: int, n_items: int, K: int, batch: int,
+                  n_seen: int, n_fold: int, n_slots: int, k: int,
+                  mode: str, *, device=None) -> TracedScoring:
+    """Run ``score_topk`` once for one shape bucket on a seeded random
+    store and request batch (cold starts and padding slots included),
+    under the op recorder — the serving analogue of
+    ``gibbs.trace_chain``."""
+    from repro_torch.analysis import optrace as OPT
+    from repro_torch.core.gibbs import lint_prior
+    dev = resolve_device(device)
+    rng = np.random.default_rng(0)
+
+    def t(a, dtype=np.float32):
+        return torch.from_numpy(np.asarray(a, dtype)).to(dev)
+
+    store = _build_store(lint_prior(rng, (n_users,), K, dev),
+                         lint_prior(rng, (n_items,), K, dev),
+                         t(np.arange(n_users), np.int64),
+                         t(np.arange(n_items), np.int64),
+                         torch.full((), 2.0, device=dev),
+                         t(rng.normal(size=(n_slots, n_items, K))),
+                         jitter=1e-6)
+    uid = rng.integers(-1, n_users, batch)
+    reqs = RequestBatch(
+        user_ids=t(uid, np.int32),
+        seen_idx=t(rng.integers(0, n_items, (batch, n_seen)), np.int32),
+        seen_mask=t(rng.random((batch, n_seen)) < 0.7),
+        fold_idx=t(rng.integers(0, n_items, (batch, n_fold)), np.int32),
+        fold_val=t(rng.normal(size=(batch, n_fold))),
+        fold_mask=t(rng.random((batch, n_fold)) < 0.5),
+        z=t(rng.normal(size=(batch, K))),
+        slot=t(rng.integers(0, n_slots, batch), np.int32))
+    with OPT.record() as tr:
+        score_topk(store, reqs, k=k, mode=mode)
+    return TracedScoring(ops=tr.ops)
