@@ -102,6 +102,18 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      minibatch loop one CUDA graph replay) and CCD++ 10 iterations, each
      below the mean predictor; then B1 at the whole matrix's padded CSR,
      both sides, against its plain version;
+     ``[dryrun]``, after the quickstart: the MovieLens-20M
+     phase-c bucket's stacked chain (B2, 2 sweeps) planned on ``meta``
+     by ``launch.bmf_dryrun`` and run on the card on the bucket's planes
+     with N(0, I) priors: the planned B1/B2 launches must equal the
+     counted ones and the planned peak sit within DRYRUN_PEAK_TOL of
+     ``max_memory_allocated``; each side's launch timed beside its
+     roofline (the plan's, every slot, and at its live slots); then
+     ``bmf_dryrun --pp-engine`` at the reference's defaults on ``meta``
+     (seconds, each record's dominant term and peak); and in the Netflix
+     phase, after B1's parity, the same check at its K = 100 bucket (B1
+     plus the torch Cholesky). Every B1/B2 bound comes from
+     ``roofline.op_cost`` of one launch (``launch_bound``);
   5. LLM kernel parity: L1 flash_attention and L3 decode_attention against
      their plain versions, bf16 and fp32 (L1 and L2 have two CUDA
      variants: bf16 runs the sm90 tensor-core kernel, fp32 the f32
@@ -183,12 +195,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-
-# H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit)
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
-TF32_FLOPS = 495e12       # dense tensor-core rates
-BF16_FLOPS = 989e12
 
 # kernel vs plain version on the card, relative to the largest plain
 # value: both sum the same f32 products in other orders (up to thousands
@@ -367,46 +373,46 @@ def graph_ms(fn, calls=20, reps=5):
     return statistics.median(times)
 
 
-def bound(n_bytes, flops, peak=FP32_FLOPS):
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
-    return (1e3 * max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations")
+def _roof():
+    """``repro_torch.roofline.analysis``: the H100 peaks (NVIDIA data
+    sheet, SXM, dense, at the full 700 W power limit) and the roofline
+    terms every bound below is computed with."""
+    from repro_torch.roofline import analysis
+    return analysis
 
 
-# B1 runs one thread per row up to this K, the tensor-core Gram kernel
-# above (csrc/bmf_precision.cu)
-B1_ROW_K = 16
+def bound(n_bytes, flops, rate="fp32"):
+    """(least ms, "bytes" or "operations") of work moving ``n_bytes`` and
+    doing ``flops`` at the ``rate`` precision's peak."""
+    return _roof().bound(n_bytes, flops, rate)
 
 
-def b1_bound(idx, live, other):
-    """B1's bound on this call's inputs: each live slot's idx, val and mask,
-    the live lengths and the factor read once, Λ and η written once.
-    Operations: up to B1_ROW_K the f32 fmas on the CUDA cores; above it the
-    Gram kernel's tensor-core products at their rate (fp32 factors: three
-    TF32 products per product, hi + lo split; bf16: one, exact for the
-    path's 0/1 masks), with the f32 CUDA-core figure beside it."""
-    import torch
-    B, N, _ = idx.shape
-    D, K = other.shape[1:]
-    n_live = int(live.sum())
-    n_bytes = (12 * n_live + 4 * B * N + other.element_size() * B * D * K
-               + 4 * B * N * (K * K + K))
-    fp32_flops = n_live * (2 * K * K + 3 * K) + B * N * (K * K + K)
-    fp32_ms = 1e3 * fp32_flops / FP32_FLOPS
-    bytes_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
-    if K <= B1_ROW_K:
-        ms, by = bound(n_bytes, fp32_flops)
-        detail = f"bytes {bytes_ms:.4f} ms, f32 fmas {fp32_ms:.4f} ms"
-        return dict(bound_ms=ms, bound_by=by, bytes=n_bytes, detail=detail)
-    if other.dtype == torch.bfloat16:
-        products, rate, kind = 2 * K * K * n_live, BF16_FLOPS, "bf16 x1"
-    else:
-        products, rate, kind = 3 * 2 * K * K * n_live, TF32_FLOPS, "3xTF32"
-    ms, by = bound(n_bytes, products, rate)
-    detail = (f"bytes {bytes_ms:.4f} ms, {kind} products "
-              f"{1e3 * products / rate:.4f} ms; f32 CUDA-core fmas "
-              f"{fp32_ms:.4f} ms")
-    return dict(bound_ms=ms, bound_by=by, bytes=n_bytes, detail=detail)
+def launch_bound(call, n_live):
+    """The bound of the one B1 or B2 launch that ``call()`` makes, from
+    ``roofline.op_cost`` of its launch record with this call's live slots
+    (``n_live``): each live slot's idx, val and mask, the live lengths,
+    the factor and (B2) the priors and noise read once, the outputs
+    written once; operations as the kernel's plain version counts them,
+    B1's Gram kernel above K = 16 on the tensor cores (fp32 factors: 3
+    TF32 products each, hi + lo split; bf16: one, exact for the path's
+    0/1 masks)."""
+    from repro_torch.analysis import optrace as OPT
+    from repro_torch.roofline import op_cost as COST
+    roof = _roof()
+    with OPT.record() as tr:
+        call()
+    recs = [o for o in tr.ops if o.kernel]
+    assert len(recs) == 1, f"expected one launch, got {len(recs)}"
+    c = COST.op_cost(recs, live_slots=n_live)
+    by_rate = roof.flops_by_rate(c)
+    t = roof.RooflineTerms(c["flops"], c["bytes_min"], 0.0, by_rate)
+    names = {"fp32": "f32 CUDA-core", "tf32": "3xTF32 products",
+             "bf16": "bf16 products"}
+    detail = ", ".join([f"bytes {1e3 * t.memory_s:.4f} ms"] + [
+        f"{names[k]} {1e3 * f / roof.PEAK_FLOPS[k]:.4f} ms"
+        for k, f in by_rate.items() if f])
+    return dict(bound_ms=1e3 * t.bound_s, bound_by=t.bound_by,
+                bytes=c["bytes_min"], detail=detail)
 
 
 def phase_build():
@@ -486,7 +492,7 @@ def bucket_planes(part, test_p, K, dev, tag="parity"):
 def b1_parity(idx, val, mask, live, other, tau, tag, plain_reps=3):
     """B1 on the card against its plain version on the same inputs, under
     TOL; both timed with CUDA events (the plain version ``plain_reps``
-    times), beside ``b1_bound``."""
+    times), beside its bound (``launch_bound``)."""
     from repro_torch.kernels.bmf_precision import ops as B1
     from repro_torch.kernels.bmf_precision.ref import precision_accum_plain
 
@@ -503,7 +509,7 @@ def b1_parity(idx, val, mask, live, other, tau, tag, plain_reps=3):
     del lam, eta, lam_p, eta_p
     ms = cuda_ms(kern, 5)
     pms = cuda_ms(plain, plain_reps, warmup=1 if plain_reps > 1 else 0)
-    bnd = b1_bound(idx, live, other)
+    bnd = launch_bound(kern, int(live.sum()))
     tol = TOL["bmf_precision"]
     ok = err <= tol * scale
     tb = bnd["bytes"] / ms / 1e9
@@ -543,10 +549,6 @@ def phase_parity(part, test_p, K, dev):
     results = {}
     for dtype in ("fp32", "bf16"):
         other = other32.to(torch.bfloat16) if dtype == "bf16" else other32
-        elt = other.element_size()
-        base_bytes = 12 * L + 4 * B * N + elt * B * D * K
-        acc_flops = L * (2 * K * K + 3 * K)
-
         results[("bmf_precision", dtype)] = b1_parity(
             idx, val, mask, live, other, tau, "parity")
 
@@ -564,8 +566,8 @@ def phase_parity(part, test_p, K, dev):
         sc = max(float(U_p.abs().max()), 1.0)
         del U, U_p
         ms, pms = cuda_ms(b2, 5), cuda_ms(b2_plain, 3, warmup=1)
-        n_bytes = base_bytes + 4 * B * N * (K * K + 3 * K)
-        bd = bound(n_bytes, acc_flops + B * N * (2 * K ** 3 // 3 + 5 * K * K))
+        bnd = launch_bound(b2, L)
+        n_bytes, bd = bnd["bytes"], (bnd["bound_ms"], bnd["bound_by"])
         ok = err <= TOL["bmf_sweep"] * sc
         log(f"[parity] bmf_sweep {dtype}: max_abs_err {err:.3e} (tolerance "
             f"{TOL['bmf_sweep']:.0e} x {sc:.3g} = {TOL['bmf_sweep'] * sc:.3e}"
@@ -980,6 +982,155 @@ def phase_bmf_profile(train, test, part, cfg, dev):
     return shares
 
 
+# [dryrun]: sweeps of the bucket chain planned and run (one burn-in, one
+# kept), and how far the planned peak may sit from the card's
+DRYRUN_SWEEPS = 2
+DRYRUN_PEAK_TOL = 0.25
+
+
+def bucket_inputs(part, test_p, K, dev):
+    """The phase-c bucket's stacked chain inputs on the card, as the
+    stacked executor pads them (``pp.new_block_inputs`` /
+    ``fill_block_inputs``), with N(0, I) propagated priors: (planes both
+    ways, test ids, priors, the bucket's shapes)."""
+    from repro_torch.core import engine as ENG
+    from repro_torch.core import pp as PP
+    from repro_torch.core.posterior import RowGaussians
+    from repro_torch.data.sparse import PaddedCSR
+    s = PP.BlockShapes.per_phase(part, test_p)["c"]
+    tasks = [t for _, ts in ENG.build_phase_graph(part) for t in ts
+             if t.phase == "c"]
+    buf = PP.new_block_inputs(s, K, len(tasks), dev, True, True)
+    for b, t in enumerate(tasks):
+        PP.fill_block_inputs(buf, b, part.block(t.i, t.j), s, test_p)
+    for side in ("up", "vp"):
+        buf[side + "_lam"].diagonal(dim1=-2, dim2=-1).fill_(1.0)
+    rows = PaddedCSR(buf["idx_r"], buf["val_r"], buf["mask_r"],
+                     n_cols=s.n_cols)
+    cols = PaddedCSR(buf["idx_c"], buf["val_c"], buf["mask_c"],
+                     n_cols=s.n_rows)
+    return (rows, cols, buf["tr"], buf["tc"],
+            RowGaussians(buf["up_eta"], buf["up_lam"]),
+            RowGaussians(buf["vp_eta"], buf["vp_lam"]), s)
+
+
+def phase_dryrun(part, test_p, cfg, dev, tag):
+    """``[dryrun]``: one phase-c bucket's stacked chain planned on
+    ``meta`` (``launch.bmf_dryrun.trace_bucket``: ``DRYRUN_SWEEPS`` sweeps,
+    nothing allocated), then run on the card on the bucket's real planes.
+    Planned against measured: peak bytes (the chain's inputs plus its
+    high-water mark, against ``max_memory_allocated`` over the run less
+    what else the card holds), within DRYRUN_PEAK_TOL or the run fails;
+    B1 and B2 launches, equal or the run fails; and each launch's
+    roofline time (the plan's, every padded slot; and with this run's
+    live slots) beside the kernel's measured time on the same planes."""
+    import torch
+    from repro_torch.analysis import optrace as OPT
+    from repro_torch.core import gibbs as GIBBS
+    from repro_torch.data.sparse import row_live
+    from repro_torch.kernels.bmf_precision import ops as B1
+    from repro_torch.kernels.bmf_sweep import ops as B2
+    from repro_torch.launch import bmf_dryrun as DRY
+    from repro_torch.roofline import op_cost as COST
+    roof = _roof()
+    rows, cols, tr, tc, up, vp, s = bucket_inputs(part, test_p, cfg.K, dev)
+    B, N, M = rows.idx.shape
+    D, M_c = cols.idx.shape[1:]
+    run_cfg = cfg._replace(n_samples=DRYRUN_SWEEPS,
+                           burnin=DRYRUN_SWEEPS - 1, phase_bc_samples=None)
+    t0 = time.time()
+    plan = DRY.trace_bucket(cfg, B, N, D, M, M_c, sweeps=DRYRUN_SWEEPS,
+                            device="meta", n_test=s.n_test)
+    plan_s = time.time() - t0
+    planned = OPT.kernel_counts(plan.ops)
+    inputs = [rows.idx, rows.val, rows.mask, cols.idx, cols.val, cols.mask,
+              tr, tc, up.eta, up.Lambda, vp.eta, vp.Lambda]
+    in_bytes = COST.storage_bytes(inputs)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - in_bytes
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = GIBBS.run_gibbs_stacked(list(range(B)), rows, cols, tr, tc,
+                                  run_cfg, up, vp, device=dev)
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - held
+    counts = read_counts()
+    del res
+    torch.cuda.empty_cache()
+    gap = plan.peak_bytes / measured - 1
+    log(f"[dryrun] {tag} bucket B={B} N={N} M={M} D={D} M_c={M_c} "
+        f"K={cfg.K} ({'B2' if cfg.sweep_fused else 'B1 + torch Cholesky'}), "
+        f"{DRYRUN_SWEEPS} sweeps: planned on meta in {plan_s:.2f}s; peak "
+        f"planned {plan.peak_bytes / 2**30:.3f} GiB vs measured "
+        f"{measured / 2**30:.3f} GiB (gap {100 * gap:+.1f}%, limit "
+        f"{100 * DRYRUN_PEAK_TOL:.0f}%; inputs {in_bytes / 2**30:.3f} "
+        f"GiB); launches planned {planned} vs counted "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    for name in ("bmf_precision", "bmf_sweep"):
+        want = planned.get(f"repro_torch::{name}", 0)
+        assert counts[name] == want, (
+            f"[dryrun] {tag}: {name} planned {want}, counted {counts[name]}")
+    assert abs(gap) <= DRYRUN_PEAK_TOL, (
+        f"[dryrun] {tag}: planned peak {plan.peak_bytes} vs measured "
+        f"{measured}")
+    # each side's launch: its roofline on the plan (every slot) and with
+    # this run's live slots, beside the kernel's time on these planes
+    g = torch.Generator(device=dev).manual_seed(0)
+    recs = [o for o in plan.ops if o.kernel]
+    for side, csr, n_other, prior in (("U", rows, D, up), ("V", cols, N, vp)):
+        rec = next(o for o in recs if o.operands[0].shape == csr.idx.shape)
+        live = row_live(csr.mask)
+        n_live = int(live.sum())
+        other = torch.randn((B, n_other, cfg.K), generator=g, device=dev)
+        z = torch.randn(prior.eta.shape, generator=g, device=dev)
+        if cfg.sweep_fused and cfg.K <= B2.SWEEP_K_MAX:
+
+            def call():
+                return B2.fused_sweep(z, csr.idx, csr.val, csr.mask,
+                                      prior.eta, prior.Lambda, other, 2.0,
+                                      live=live)
+        else:
+
+            def call():
+                return B1.precision_accum(csr.idx, csr.val, csr.mask, other,
+                                          2.0, live)
+        terms = {}
+        for label, slots in (("plan", None), ("live", n_live)):
+            c = COST.kernel_cost(rec, slots)
+            terms[label] = roof.RooflineTerms(
+                c["flops"], c["bytes_min"], 0.0, roof.flops_by_rate(c))
+        ms = cuda_ms(call, 5)
+        log(f"[dryrun] {tag} {rec.op.split('::')[1]} {side}-side: roofline "
+            f"{1e3 * terms['plan'].bound_s:.4f} ms planned (every slot, "
+            f"{terms['plan'].bound_by}), "
+            f"{1e3 * terms['live'].bound_s:.4f} ms at this run's {n_live} "
+            f"live slots ({terms['live'].bound_by}); measured {ms:.4f} ms "
+            f"({ms / (1e3 * terms['live'].bound_s):.2f}x the live bound)")
+        del other, z, live
+    del rows, cols, tr, tc, up, vp
+    torch.cuda.empty_cache()
+    return {k: v for k, v in counts.items() if v}
+
+
+def phase_dryrun_cli():
+    """``[dryrun]``: ``bmf_dryrun --pp-engine`` at the reference's defaults
+    (the Netflix shape, 256 shards, K = 100) on ``meta``: its seconds and
+    each record's dominant term and planned peak."""
+    from repro_torch.launch import bmf_dryrun as DRY
+    t0 = time.time()
+    recs = DRY.run(DRY.parser().parse_args(["--pp-engine"]))
+    secs = time.time() - t0
+    for rec in recs:
+        log(f"[dryrun] {DRY.describe(rec)}")
+    assert len(recs) == 7
+    log(f"[dryrun] bmf_dryrun --pp-engine on meta: {secs:.1f}s, "
+        f"{len(recs)} records; dominant terms "
+        + ", ".join(f"{r['variant']}"
+                    f"{'[' + r['comm'] + ']' if 'comm' in r else ''} "
+                    f"{r['roofline']['dominant']}"
+                    for r in recs if "roofline" in r))
+
+
 def phase_netflix(dev):
     """The paper's K = 100 shape (docstring, phase 4): B1 at the run's
     phase-c bucket against its plain version, then the use-kernel run,
@@ -1006,6 +1157,7 @@ def phase_netflix(dev):
     torch.cuda.empty_cache()
     cfg = BMF.BMFConfig(K=K, n_samples=SAMPLES, burnin=BURNIN,
                         use_kernel=True)
+    phase_dryrun(part, test_p, cfg, dev, "netflix-k100")
     counts, ref, peak = phase_main(train, test, part, cfg, "netflix-k100",
                                    "bmf_precision", dev)
     # the same cut through the streaming executor: W = 2 blocks a chunk
@@ -1528,9 +1680,6 @@ def _attn_line(name, case, dtype, err, scale, tol, ms, pms, bd, lib,
                 library_ms=lib, tb_per_s=n_bytes / ms / 1e9, **extra)
 
 
-PEAK = {"fp32": FP32_FLOPS, "bf16": BF16_FLOPS}
-
-
 def _tdt(dtype):
     import torch
     return {"fp32": torch.float32, "bf16": torch.bfloat16}[dtype]
@@ -1578,7 +1727,7 @@ def _l1_case(g, dev, case, B, S, H, Hkv, hd, causal, window, dtype,
         lib = _sdpa_ms(q, k, v, 3, is_causal=causal)
     elt = q.element_size()
     n_bytes = elt * (2 * q.numel() + k.numel() + v.numel())
-    bd = bound(n_bytes, 4 * B * H * hd * pairs, PEAK[dtype])
+    bd = bound(n_bytes, 4 * B * H * hd * pairs, dtype)
     del q, k, v, mask
     torch.cuda.empty_cache()
     return _attn_line("flash_attention", case, dtype, err, scale,
@@ -1645,7 +1794,7 @@ def _l3_case(g, dev, case, B, S, H, Hkv, hd, window, dtype,
     elt = q.element_size()
     n_bytes = (2 * B * Hkv * hd * k.element_size() * n_valid
                + 2 * q.numel() * elt + 4 * S)
-    bd = bound(n_bytes, 4 * B * H * hd * n_valid, PEAK[dtype])
+    bd = bound(n_bytes, 4 * B * H * hd * n_valid, dtype)
     n_splits, chunk = L3.split_plan(
         B, Hkv, S, hd, torch.cuda.get_device_properties(dev)
         .multi_processor_count)
@@ -1824,7 +1973,7 @@ def phase_scan_parity(dev):
             # least any scan does; the chunked forms do more)
             n_bytes = 4 * (sum(t.numel() for t in args) + args[0].numel()
                            + args[-1].numel())
-            bytes_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
+            bytes_ms = 1e3 * n_bytes / _roof().HBM_BW
             note = f"bytes alone {bytes_ms:.4f} ms"
             # both multiply on the tensor cores in bf16, each product three
             # times (hi.hi + hi.lo + lo.hi) over 64-step chunks. L4: per
@@ -1840,11 +1989,13 @@ def phase_scan_parity(dev):
                                              + 5120 * N)
             else:
                 flops = 3 * B * (S // 64) * H * (256 * N * N + 10240 * N)
-            seq_ms = 1e3 * 4 * B * S * H * P * N / FP32_FLOPS
+            seq_ms = (1e3 * 4 * B * S * H * P * N
+                      / _roof().PEAK_FLOPS["fp32"])
             note += (f", f32 sequential operations {seq_ms:.4f} ms (the "
                      f"first designs multiplied on the CUDA cores), bf16 "
-                     f"split products {1e3 * flops / BF16_FLOPS:.4f} ms")
-            bd = bound(n_bytes, flops, BF16_FLOPS)
+                     f"split products "
+                     f"{1e3 * flops / _roof().PEAK_FLOPS['bf16']:.4f} ms")
+            bd = bound(n_bytes, flops, "bf16")
             ok = finite and err <= SCAN_TOL * scale
             log(f"[scan-parity] {name} {case} fp32: max_abs_err {err:.3e} "
                 f"(tolerance {SCAN_TOL:.0e} x {scale:.3g} = "
@@ -2189,7 +2340,7 @@ def phase_l2_parity(dev):
             n_bytes = (elt * (3 * q.numel() + 2 * k.numel())
                        + 2 * 4 * lse.numel()
                        + elt * (q.numel() + 2 * k.numel()))
-            bd = bound(n_bytes, 10 * hd * H * B * pairs, PEAK[dtype])
+            bd = bound(n_bytes, 10 * hd * H * B * pairs, dtype)
             tol = _limit(L2_TOL[dtype], scale, dtype) / scale
             results.append(_attn_line(
                 "flash_attention_bwd", case, dtype, err, scale, tol, ms,
@@ -2386,7 +2537,8 @@ def phase_llm_train(dev):
         f"{tokens_per_step / mean_s:.4g} tokens/s; model FLOPs "
         f"{flops / 1e12:.2f} TFLOP/step (6 per matmul parameter and token, "
         f"12 hd per causal pair and head, no recompute) = "
-        f"{100 * flops / mean_s / BF16_FLOPS:.2f}% of the 989 TFLOP/s bf16 "
+        f"{100 * flops / mean_s / _roof().PEAK_FLOPS['bf16']:.2f}% of the "
+        f"989 TFLOP/s bf16 "
         f"peak; peak device memory {peak / 1e9:.2f} GB; launches {counts}")
     assert finite, "non-finite loss or grad norm on the train path"
     return counts
@@ -2441,6 +2593,8 @@ def main():
     phase_quickstart(dev)
     cfg = BMF.BMFConfig(K=K, n_samples=SAMPLES, burnin=BURNIN)
     fused = cfg._replace(sweep_fused=True)
+    phase_dryrun(part, test_p, fused, dev, "movielens")
+    phase_dryrun_cli()
     launches = {}
     counts, stacked_fused, stacked_peak = phase_main(
         train, test, part, fused, "fused-sweep", "bmf_sweep", dev)

@@ -11,7 +11,16 @@ below autograd and after every composite op has decomposed:
     device;
   - its tensor outputs, and the buffers it allocated (``new``): an output
     whose storage is none of the operands' is a new buffer, counted once
-    per storage, so a view or an ``expand`` allocates nothing.
+    per storage, so a view or an ``expand`` allocates nothing;
+  - whether it is a view (its schema returns an alias it does not write).
+
+Storages are told apart by their ``StorageImpl`` (``storage_key``), not
+their data pointer, so a trace on the ``meta`` device (every pointer 0)
+records its buffers too. A dispatch mode never sees a free: the trace
+puts a ``weakref.finalize`` on each new storage (PyTorch keeps one Python
+object per storage alive as long as the storage itself) and notes in
+``frees`` where in the op sequence it died. ``roofline.op_cost``'s
+``peak_buffer_bytes`` replays both into a live-bytes high-water mark.
 
 The hand-written kernels are ctypes calls that the dispatcher never sees:
 their wrappers report each launch through ``note_kernel`` (a no-op unless
@@ -28,6 +37,7 @@ tagged with the kernel they stand in for (``OpRecord.plain``).
 from __future__ import annotations
 
 import contextlib
+import weakref
 from collections import Counter
 from dataclasses import dataclass
 from typing import Dict, Iterable, List, Optional, Tuple
@@ -53,6 +63,9 @@ class OpRecord:
     new: Tuple[Tuple[str, Tuple[int, ...], int], ...] = ()
     plain: Optional[str] = None  # the kernel whose plain version ran it
     kernel: bool = False         # a hand-written kernel's launch
+    view: bool = False           # returns an alias of an operand
+    # ``storage_key`` and device type of each entry of ``new``
+    new_keys: Tuple[Tuple[int, str], ...] = ()
 
 
 # traces recording now, innermost last; the kernel wrappers' plain regions
@@ -92,13 +105,24 @@ def _outputs(out):
     return []
 
 
-def _storage(t: torch.Tensor) -> Tuple[int, int]:
-    """(data pointer, bytes) of ``t``'s storage; (0, 0) where it has none."""
+def storage_of(t: torch.Tensor):
+    """``t``'s storage, or None where it has none."""
     try:
-        s = t.untyped_storage()
-        return s.data_ptr(), s.nbytes()
+        return t.untyped_storage()
     except (RuntimeError, NotImplementedError):
-        return 0, 0
+        return None
+
+
+def storage_key(t: torch.Tensor) -> int:
+    """Identity of ``t``'s storage (its ``StorageImpl``; 0 where it has
+    none): equal for a tensor and its views, on every device."""
+    s = storage_of(t)
+    return 0 if s is None else s._cdata
+
+
+def _is_view(func) -> bool:
+    return any(r.alias_info is not None and not r.alias_info.is_write
+               for r in func._schema.returns)
 
 
 class OpTrace(TorchDispatchMode):
@@ -107,11 +131,15 @@ class OpTrace(TorchDispatchMode):
     def __init__(self):
         super().__init__()
         self.ops: List[OpRecord] = []
+        # (position in ``ops`` when it died, storage key, bytes) of every
+        # storage a recorded op allocated and the trace outlived
+        self.frees: List[Tuple[int, int, int]] = []
+        self._recording = False
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         operands = list(_named_tensors(func, args, kwargs))
-        before = {_storage(t)[0] for _, t in operands}
+        before = {storage_key(t) for _, t in operands}
         metas = tuple(_meta(n, t) for n, t in operands)
         plain = _PLAIN[-1] if _PLAIN else None
         try:
@@ -123,24 +151,36 @@ class OpTrace(TorchDispatchMode):
                                      plain=plain))
             raise
         outs = _outputs(out)
-        new, seen = [], set(before)
+        new, keys, seen = [], [], set(before)
         for t in outs:
-            ptr, nbytes = _storage(t)
-            if ptr and ptr not in seen:
-                seen.add(ptr)
-                new.append((_dtype(t), tuple(t.shape), nbytes))
+            st = storage_of(t)
+            if st is None or not st.nbytes() or st._cdata in seen:
+                continue
+            seen.add(st._cdata)
+            new.append((_dtype(t), tuple(t.shape), st.nbytes()))
+            keys.append((st._cdata, t.device.type))
+            fin = weakref.finalize(st, self._freed, st._cdata,
+                                   st.nbytes())
+            fin.atexit = False
         self.ops.append(OpRecord(
             op=func._schema.name, operands=metas,
             outputs=tuple(_meta(str(i), t) for i, t in enumerate(outs)),
-            new=tuple(new), plain=plain))
+            new=tuple(new), plain=plain, view=_is_view(func),
+            new_keys=tuple(keys)))
         return out
+
+    def _freed(self, key: int, nbytes: int):
+        if self._recording:
+            self.frees.append((len(self.ops), key, nbytes))
 
     def __enter__(self):
         super().__enter__()
         _ACTIVE.append(self)
+        self._recording = True
         return self
 
     def __exit__(self, *exc):
+        self._recording = False
         _ACTIVE.remove(self)
         return super().__exit__(*exc)
 

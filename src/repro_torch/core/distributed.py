@@ -448,19 +448,19 @@ def trace_chain_2d(cfg: BMF.BMFConfig, topology, n_rows: int, n_cols: int,
                    m_rows: int, m_cols: int, n_test: int, *,
                    batch: Optional[int] = None, comm: str = "gather",
                    u_prior: bool = True, v_prior: bool = True,
-                   prior_use: bool = False,
-                   sweeps: int = 2) -> GIBBS.TracedChain:
+                   prior_use: bool = False, sweeps: int = 2,
+                   group: int = 0) -> GIBBS.TracedChain:
     """Analyzer hook: run the composed chain ``run_gibbs_stacked_2d``
-    dispatches — B blocks on group 0 of ``topology``, each chain
+    dispatches — B blocks on group ``group`` of ``topology``, each chain
     data-sharded over the group's slots — once at these block dims on
     seeded random planes, under the op and collective recorders (see
-    ``gibbs.trace_chain``). ``batch`` defaults to ``topology.block``."""
-    from repro_torch.analysis import optrace as OPT
-    from repro_torch.core.topology import record_collectives
+    ``gibbs.trace_chain``). ``batch`` defaults to ``topology.block``. On
+    a topology whose slots are ``meta`` the planes are shapes only (a dry
+    run's plan)."""
     if comm not in COMM_MODES:
         raise ValueError(f"comm={comm!r} not in {COMM_MODES}")
     topo = Topology.from_spec(topology)
-    dev = topo.group(0)[0]
+    dev = topo.group(group)[0]
     B = topo.block if batch is None else int(batch)
     S = topo.data
     inp = GIBBS.lint_inputs(0, B, n_rows, n_cols, m_rows, m_cols, n_test,
@@ -469,17 +469,23 @@ def trace_chain_2d(cfg: BMF.BMFConfig, topology, n_rows: int, n_cols: int,
     if comm != "gather":
         N_pad = _ceil_to(n_rows, S)
         D_pad = _ceil_to(n_cols, S) if comm == "scatter" else n_cols
-        per = [shard_transposed_planes(c.row, c.col, c.val, S, N_pad, D_pad,
-                                       m_cols) for c in inp.coos]
-        csrt = tuple(torch.from_numpy(np.stack([p[k] for p in per])).to(dev)
-                     for k in range(3))
+        if dev.type == "meta":
+            csrt = tuple(torch.empty((B, S, D_pad, m_cols), dtype=dt,
+                                     device=dev)
+                         for dt in (torch.int32, torch.float32,
+                                    torch.float32))
+        else:
+            per = [shard_transposed_planes(c.row, c.col, c.val, S, N_pad,
+                                           D_pad, m_cols) for c in inp.coos]
+            csrt = tuple(torch.from_numpy(np.stack([p[k] for p in per]))
+                         .to(dev) for k in range(3))
     cfg = cfg._replace(n_samples=sweeps, burnin=sweeps - 1,
                        phase_bc_samples=None)
     up = inp.U_prior if (u_prior or prior_use) else None
     vp = inp.V_prior if (v_prior or prior_use) else None
     use = GIBBS.lint_flags(B, dev) if prior_use else None
-    with OPT.record() as tr, record_collectives() as calls:
-        run_gibbs_stacked_2d(list(range(B)), inp.rows, inp.cols,
-                             inp.test_rows, inp.test_cols, cfg, topo, up, vp,
-                             prior_use=use, comm=comm, csrt=csrt)
-    return GIBBS.TracedChain(ops=tr.ops, collectives=calls, sweeps=sweeps)
+    return GIBBS.traced_run(
+        run_gibbs_stacked_2d,
+        (list(range(B)), inp.rows, inp.cols, inp.test_rows, inp.test_cols,
+         cfg, topo, up, vp),
+        dict(prior_use=use, comm=comm, csrt=csrt, group=group), sweeps, dev)

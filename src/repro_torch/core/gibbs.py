@@ -54,6 +54,8 @@ class GibbsResult(NamedTuple):
 def _leaves(tree):
     if isinstance(tree, torch.Tensor):
         yield tree
+    elif isinstance(tree, PaddedCSR):
+        yield from (tree.idx, tree.val, tree.mask)
     elif isinstance(tree, (tuple, list)):
         for t in tree:
             yield from _leaves(t)
@@ -232,6 +234,36 @@ def default_sampler(cfg: BMF.BMFConfig, live):
         z, csr, other, cfg.tau, prior, cfg.use_kernel, live=live)
 
 
+def pick_prior(noise, nw, fixed, use, sweep_i, f, X, n, K):
+    """Prior for one factor at sweep ``sweep_i``: the fixed prior, the
+    resampled NW hyperprior, or per block one of the two by its ``use``
+    flag."""
+    if fixed is not None and use is None:
+        return fixed
+    chi2, lower, z = noise.hyper(sweep_i, f, float(K + n), K)
+    mu, Lam = BMF.sample_hyper_noise(X, nw, chi2, lower, z)
+    hier = POST.broadcast_prior(mu, Lam, n)
+    if fixed is None:
+        return hier
+    flag = use.to(torch.bool)
+    return RowGaussians(
+        eta=torch.where(flag[:, None, None], fixed.eta, hier.eta),
+        Lambda=torch.where(flag[:, None, None, None], fixed.Lambda,
+                           hier.Lambda))
+
+
+def sweep(noise, nw, i, U, V, csr_rows, csr_cols, N, D, K, U_prior, V_prior,
+          u_use, v_use, u_sampler, v_sampler):
+    """Sweep ``i`` of a chain: the two priors, then the U-step and the
+    V-step; returns the new (U, V). The chain body's loop, and one sweep
+    alone for a dry run's plan (``launch.bmf_dryrun.lower_sweep``)."""
+    u_prior = pick_prior(noise, nw, U_prior, u_use, i, "U", U, N, K)
+    v_prior = pick_prior(noise, nw, V_prior, v_use, i, "V", V, D, K)
+    U = u_sampler(noise.factor(i, "U", N, K), csr_rows, V, u_prior, i)
+    V = v_sampler(noise.factor(i, "V", D, K), csr_cols, U, v_prior, i)
+    return U, V
+
+
 def _run_gibbs_impl(noise, csr_rows, csr_cols, test_rows, test_cols, cfg,
                     n_samples, burnin, U_prior, V_prior, U0, V0,
                     u_use=None, v_use=None,
@@ -271,28 +303,10 @@ def _run_gibbs_impl(noise, csr_rows, csr_cols, test_rows, test_cols, cfg,
         V_sum=torch.zeros((B, D, K), **f32),
         V_outer=torch.zeros((B, D, K, K), **f32))
 
-    def pick_prior(fixed, use, sweep, f, X, n):
-        """Prior for one factor this sweep: the fixed prior, the resampled
-        NW hyperprior, or per block one of the two by its ``use`` flag."""
-        if fixed is not None and use is None:
-            return fixed
-        chi2, lower, z = noise.hyper(sweep, f, float(K + n), K)
-        mu, Lam = BMF.sample_hyper_noise(X, nw, chi2, lower, z)
-        hier = POST.broadcast_prior(mu, Lam, n)
-        if fixed is None:
-            return hier
-        flag = use.to(torch.bool)
-        return RowGaussians(
-            eta=torch.where(flag[:, None, None], fixed.eta, hier.eta),
-            Lambda=torch.where(flag[:, None, None, None], fixed.Lambda,
-                               hier.Lambda))
-
     U, V = U0, V0
     for i in range(int(n_samples)):
-        u_prior = pick_prior(U_prior, u_use, i, "U", U, N)
-        v_prior = pick_prior(V_prior, v_use, i, "V", V, D)
-        U = u_sampler(noise.factor(i, "U", N, K), csr_rows, V, u_prior, i)
-        V = v_sampler(noise.factor(i, "V", D, K), csr_cols, U, v_prior, i)
+        U, V = sweep(noise, nw, i, U, V, csr_rows, csr_cols, N, D, K,
+                     U_prior, V_prior, u_use, v_use, u_sampler, v_sampler)
         if i >= burnin:
             acc.pred_sum.add_(BMF.predict(U, V, test_rows, test_cols))
             acc.pred_cnt.add_(1.0)
@@ -325,10 +339,18 @@ class TracedChain(NamedTuple):
     counterpart of the reference's lowering: every op it ran
     (``analysis.optrace.OpRecord``), every collective its group was asked
     for (``core.topology.CollectiveCall``; none on one slot) and the
-    sweeps it ran, which turn collective counts into per-sweep ones."""
+    sweeps it ran, which turn collective counts into per-sweep ones;
+    since the dry run (``launch.bmf_dryrun``) also the live-bytes
+    high-water mark on the chain's device, its inputs included
+    (``roofline.op_cost.peak_buffer_bytes``), the inputs' bytes, and the
+    bytes of inputs whose storage an output reuses (the counterpart of
+    XLA's aliased donations)."""
     ops: List
     collectives: List
     sweeps: int
+    peak_bytes: int = 0
+    input_bytes: int = 0
+    alias_bytes: int = 0
 
 
 class LintInputs(NamedTuple):
@@ -375,10 +397,35 @@ def lint_prior(rng: np.random.Generator, lead: Sequence[int], K: int,
                           for a in (eta, lam)))
 
 
+def meta_inputs(B: int, n_rows: int, n_cols: int, m_rows: int, m_cols: int,
+                n_test: int, K: int) -> LintInputs:
+    """``lint_inputs``' tensors as shapes only, on the ``meta`` device:
+    a dry run's plan at full size allocates nothing (random planes at the
+    Netflix shape would take gigabytes of host memory). No COO."""
+    def m(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    def planes(n, mm, n_other):
+        return PaddedCSR(m(B, n, mm, dtype=torch.int32), m(B, n, mm),
+                         m(B, n, mm), n_cols=n_other)
+
+    return LintInputs(
+        rows=planes(n_rows, m_rows, n_cols),
+        cols=planes(n_cols, m_cols, n_rows),
+        test_rows=m(B, n_test, dtype=torch.int32),
+        test_cols=m(B, n_test, dtype=torch.int32),
+        U_prior=RowGaussians(m(B, n_rows, K), m(B, n_rows, K, K)),
+        V_prior=RowGaussians(m(B, n_cols, K), m(B, n_cols, K, K)),
+        coos=[])
+
+
 def lint_inputs(seed: int, B: int, n_rows: int, n_cols: int, m_rows: int,
                 m_cols: int, n_test: int, K: int, device) -> LintInputs:
     """B random blocks at exactly the given dims (planes (B, n_rows,
-    m_rows) / (B, n_cols, m_cols)) on ``device``."""
+    m_rows) / (B, n_cols, m_cols)) on ``device``; on ``meta``, their
+    shapes only (``meta_inputs``)."""
+    if torch.device(device).type == "meta":
+        return meta_inputs(B, n_rows, n_cols, m_rows, m_cols, n_test, K)
     rng = np.random.default_rng(seed)
     coos = [lint_block(rng, n_rows, n_cols, m_rows, m_cols)
             for _ in range(B)]
@@ -421,9 +468,10 @@ def trace_chain(cfg: BMF.BMFConfig, n_rows: int, n_cols: int, m_rows: int,
     shapes, the port runs it and records what ran. ``prior_use`` adds the
     streaming executor's per-block prior-use flags (stacked only, both
     priors given). ``sweeps`` sweeps run, the last one kept. There is no
-    ``donate``: the window's slot reuse is the ``reuse`` artifact's."""
-    from repro_torch.analysis import optrace as OPT
-    from repro_torch.core.topology import record_collectives
+    ``donate``: the window's slot reuse is the ``reuse`` artifact's.
+    On ``device="meta"`` the inputs are shapes only (``meta_inputs``) and
+    the kernels record their launches without computing (a dry run's
+    plan)."""
     dev = resolve_device(device)
     B = 1 if batch is None else int(batch)
     inp = lint_inputs(0, B, n_rows, n_cols, m_rows, m_cols, n_test, cfg.K,
@@ -442,6 +490,24 @@ def trace_chain(cfg: BMF.BMFConfig, n_rows: int, n_cols: int, m_rows: int,
                 inp.test_rows, inp.test_cols, cfg, up, vp)
         run = run_gibbs_stacked
         kw = dict(prior_use=lint_flags(B, dev) if prior_use else None)
+    return traced_run(run, args, dict(kw, device=dev), sweeps, dev)
+
+
+def traced_run(run, args, kw, sweeps: int, dev) -> TracedChain:
+    """``run(*args, **kw)`` once under the op and collective recorders:
+    what it ran, its collectives, its live-bytes high-water mark on
+    ``dev`` (the tensors in ``args`` and ``kw`` counted as live
+    throughout) and the bytes of those inputs whose storage the result
+    reuses."""
+    from repro_torch.analysis import optrace as OPT
+    from repro_torch.core.topology import record_collectives
+    from repro_torch.roofline import op_cost as COST
+    inputs = list(_leaves((args, tuple(kw.values()))))
     with OPT.record() as tr, record_collectives() as calls:
-        run(*args, device=dev, **kw)
-    return TracedChain(ops=tr.ops, collectives=calls, sweeps=sweeps)
+        out = run(*args, **kw)
+    dev = torch.device(dev).type
+    return TracedChain(
+        ops=tr.ops, collectives=calls, sweeps=sweeps,
+        peak_bytes=COST.peak_buffer_bytes(tr, inputs, device=dev),
+        input_bytes=COST.storage_bytes(inputs, device=dev),
+        alias_bytes=COST.alias_bytes(inputs, _leaves(out), device=dev))

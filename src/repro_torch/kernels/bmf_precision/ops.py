@@ -21,7 +21,10 @@ take the place of ``tile_occupancy``'s M-tile skip):
     Bound: bytes, mostly Λ's write.
 
 On a CUDA tensor ``precision_accum`` launches the kernel or raises; on a
-CPU tensor it runs the plain version (``ref.precision_accum_plain``).
+CPU tensor it runs the plain version (``ref.precision_accum_plain``); on
+``meta`` tensors (a dry run's plan, ``launch.bmf_dryrun``) it computes
+nothing and returns outputs of the launch's shapes, recording the launch
+it stands for (``_plan``).
 """
 from __future__ import annotations
 
@@ -101,6 +104,9 @@ def precision_accum(idx, val, mask, other, tau: float, live=None):
         with OPT.plain_region("repro_torch::bmf_precision"):
             lam, eta = precision_accum_plain(idx, val, mask, other.float(),
                                              tau, live)
+    elif idx.device.type == "meta":
+        lam, eta = _plan(idx, val, mask, other,
+                         row_live(mask) if live is None else live)
     else:
         lam, eta = _launch(idx, val, mask, other, tau,
                            row_live(mask) if live is None else live)
@@ -141,6 +147,20 @@ def _launch(idx, val, mask, other, tau, live):
              torch.cuda.current_stream(idx.device).cuda_stream)
     BUILD.check(err, "bmf_precision_launch")
     precision_accum.launches += 1
+    OPT.note_kernel("repro_torch::bmf_precision",
+                    dict(idx=idx, val=val, mask=mask, live=live, other=other),
+                    dict(lam=lam, eta=eta))
+    return lam, eta
+
+
+def _plan(idx, val, mask, other, live):
+    """The launch on ``meta`` operands: outputs of its shapes and a
+    ``note_kernel`` record under the kernel's name, nothing computed and
+    no launch counted (``roofline.op_cost`` costs the record)."""
+    B, N, _ = idx.shape
+    K = other.shape[-1]
+    lam = torch.empty((B, N, K, K), dtype=torch.float32, device=idx.device)
+    eta = torch.empty((B, N, K), dtype=torch.float32, device=idx.device)
     OPT.note_kernel("repro_torch::bmf_precision",
                     dict(idx=idx, val=val, mask=mask, live=live, other=other),
                     dict(lam=lam, eta=eta))

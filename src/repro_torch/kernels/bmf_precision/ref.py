@@ -35,6 +35,13 @@ def gather_rows(other: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(other, 1, flat).reshape(B, n, M, other.shape[-1])
 
 
+def stripe_rows(B: int, M: int, K: int) -> int:
+    """Rows of one stripe of ``precision_accum_plain`` (the plain version
+    works stripe by stripe; its cost per stripe depends on nothing
+    else)."""
+    return max(1, STRIPE_ELEMS // max(B * M * K, 1))
+
+
 def precision_accum_plain(idx, val, mask, other, tau: float, live=None):
     """idx/val/mask (B, N, M), other (B, D, K) -> Lam (B, N, K, K), eta
     (B, N, K). ``live`` (B, N) trims each stripe to its longest live row
@@ -43,7 +50,7 @@ def precision_accum_plain(idx, val, mask, other, tau: float, live=None):
     K = other.shape[-1]
     lam = torch.empty((B, N, K, K), dtype=torch.float32, device=idx.device)
     eta = torch.empty((B, N, K), dtype=torch.float32, device=idx.device)
-    ns = max(1, STRIPE_ELEMS // max(B * M * K, 1))
+    ns = stripe_rows(B, M, K)
     for lo in range(0, N, ns):
         hi = min(lo + ns, N)
         m = M if live is None else max(int(live[:, lo:hi].max()), 1)

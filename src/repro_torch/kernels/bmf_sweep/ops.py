@@ -18,7 +18,10 @@ Routes, chosen from what the call can observe:
   - CUDA tensor, K > ``SWEEP_K_MAX``: the B1 kernel for Λ/η, then
     ``cholesky_ex`` / ``solve_triangular`` in torch — what the reference
     runs outside Pallas above its cutoff; B1's launch counter shows it;
-  - CPU tensor: the plain version (``ref.sweep_ref_padded``).
+  - CPU tensor: the plain version (``ref.sweep_ref_padded``);
+  - ``meta`` tensors (a dry run's plan): the CUDA routes' outputs and
+    launch records, nothing computed (``_plan``; above ``SWEEP_K_MAX``
+    B1's plan and the torch factorization on ``meta``).
 Nothing falls back silently from a CUDA tensor to the plain version.
 """
 from __future__ import annotations
@@ -77,6 +80,9 @@ def fused_sweep(z, idx, val, mask, prior_eta, prior_lam, other, tau: float,
         with OPT.plain_region("repro_torch::bmf_sweep"):
             U = sweep_ref_padded(idx, val, mask, prior_eta, prior_lam, z,
                                  other, tau, jitter=jitter, live=live)
+    elif idx.device.type == "meta" and K <= SWEEP_K_MAX:
+        U = _plan(z, idx, val, mask, prior_eta, prior_lam, other,
+                  row_live(mask) if live is None else live)
     elif K > SWEEP_K_MAX:
         lam, eta = PREC.precision_accum(idx, val, mask, other, tau, live)
         U = POST.sample_rows_noise(
@@ -115,6 +121,18 @@ def _launch(z, idx, val, mask, prior_eta, prior_lam, other, tau, jitter,
                  torch.cuda.current_stream(idx.device).cuda_stream)
     BUILD.check(err, "bmf_sweep_launch")
     fused_sweep.launches += 1
+    OPT.note_kernel("repro_torch::bmf_sweep",
+                    dict(idx=idx, val=val, mask=mask, live=live, other=other,
+                         prior_eta=prior_eta, prior_lam=prior_lam, z=z),
+                    dict(U=U))
+    return U
+
+
+def _plan(z, idx, val, mask, prior_eta, prior_lam, other, live):
+    """The launch on ``meta`` operands: U of its shape and a
+    ``note_kernel`` record under the kernel's name, nothing computed and
+    no launch counted (``roofline.op_cost`` costs the record)."""
+    U = torch.empty(z.shape, dtype=torch.float32, device=idx.device)
     OPT.note_kernel("repro_torch::bmf_sweep",
                     dict(idx=idx, val=val, mask=mask, live=live, other=other,
                          prior_eta=prior_eta, prior_lam=prior_lam, z=z),

@@ -41,6 +41,12 @@ def sample_tile(lam, eta, prior_lam, prior_eta, z, jitter: float):
     return (mu + delta)[..., 0]
 
 
+def stripe_rows(B: int, M: int, K: int) -> int:
+    """Rows of one stripe of ``sweep_ref_padded`` (its cost per stripe
+    depends on nothing else)."""
+    return max(1, STRIPE_ELEMS // max(B * min(M, TM) * K, 1))
+
+
 def sweep_ref_padded(idx, val, mask, prior_eta, prior_lam, z, other,
                      tau: float, *, jitter: float = 1e-6, live=None):
     """idx/val/mask (B, N, M); prior_eta/z (B, N, K); prior_lam (B, N, K, K);
@@ -49,7 +55,7 @@ def sweep_ref_padded(idx, val, mask, prior_eta, prior_lam, z, other,
     B, N, M = idx.shape
     K = other.shape[-1]
     U = torch.empty((B, N, K), dtype=torch.float32, device=idx.device)
-    ns = max(1, STRIPE_ELEMS // max(B * min(M, TM) * K, 1))
+    ns = stripe_rows(B, M, K)
     for lo in range(0, N, ns):
         hi = min(lo + ns, N)
         m_end = M if live is None else int(live[:, lo:hi].max())

@@ -25,7 +25,9 @@ only on its own seed (or tape) and the address, so a block draws the same
 numbers whichever executor runs it and whatever else shares its batch.
 
 ``GeneratorNoise`` wraps one ``torch.Generator`` per block on the run's
-device and re-seeds it from (block seed, address) before each draw.
+device and re-seeds it from (block seed, address) before each draw. On
+the ``meta`` device (a dry run's plan) there is no generator and no
+value: the draws are the same ops with their shapes only.
 ``TapeNoise`` replays recorded draws — the tests fill it from the JAX
 reference's key schedule so a port chain can be compared numerically.
 """
@@ -62,15 +64,18 @@ class GeneratorNoise:
     def __init__(self, seeds: Sequence[int], device):
         self.device = torch.device(device)
         self.seeds = [int(s) for s in seeds]
-        self.gens = [torch.Generator(device=self.device) for _ in self.seeds]
+        self.gens = [None if self.device.type == "meta"
+                     else torch.Generator(device=self.device)
+                     for _ in self.seeds]
 
     @property
     def batch(self) -> int:
         return len(self.seeds)
 
-    def _gen(self, b: int, *addr: int) -> torch.Generator:
+    def _gen(self, b: int, *addr: int) -> Optional[torch.Generator]:
         g = self.gens[b]
-        g.manual_seed(derive_seed(self.seeds[b], *addr))
+        if g is not None:
+            g.manual_seed(derive_seed(self.seeds[b], *addr))
         return g
 
     def _normals(self, kind: int, sweep: int, f: int, shape, *extra: int):

@@ -93,7 +93,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         "assert 'repro_torch.serving.scoring' in names, names\n"
         "assert 'repro_torch.baselines.sgd' in names, names\n"
         "for m in ('core.topology', 'core.distributed', 'launch.mesh',\n"
-        "          'analysis.op_passes', 'launch.bmf_lint'):\n"
+        "          'analysis.op_passes', 'launch.bmf_lint',\n"
+        "          'roofline.analysis', 'roofline.op_cost',\n"
+        "          'launch.bmf_dryrun'):\n"
         "    assert 'repro_torch.' + m in names, names\n"
         "sys.path.insert(0, '..')\n"
         "import chip_smoke\n"
