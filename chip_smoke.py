@@ -177,9 +177,42 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      finite logits, and every step's logits of 2 sequences against the
      port's forward through the plain kernel versions, under phase 6's
      limits; each model is freed before the next is built;
- 13. summary: one JSON line ``{"kernels": [...]}`` (L1 and L2 with each
-     variant's launches and times) and, last, the
-     ``{"ok": true, "device": {...}}`` line.
+ 13. L1/L3 parity at the moe and vlm families' hd 64 attention, bf16 and
+     fp32, timed as in phase 5: Granite-MoE (H = 16 over Hkv = 8, GQA
+     group 2) and InternVL2 (H = 14 over Hkv = 2, group 7), causal
+     prefill at 4,000 positions and decode over a full 4,096-slot cache;
+ 14. the moe and vlm serve paths with phase 6's traffic: ``[granite-serve]``
+     (granite-moe-1b-a400m at full depth, 24 layers of 32 experts, top
+     8), ``[mixtral-serve]`` (mixtral-8x7b at full width with its depth
+     cut to MIXTRAL_LAYERS of 32, the cut and its reason printed: 93.4 GB
+     of bf16 weights; its 4,096-token window makes the cache a ring,
+     and it decodes RING_WRAP_STEPS steps past the context, so the ring
+     wraps) and
+     ``[internvl2-serve]`` (internvl2-1b at full depth; the prompt is 256
+     image positions and 3,744 text tokens); exact launch counts (L1 one
+     per layer per prefill, all sm90, L3 one per layer per decode step),
+     peak memory below 80 GB, and the logits of 2 sequences against the
+     port's forward through the plain attention, whose MoE layers take
+     the tokens in the serve path's calls (the prompt in one, then one
+     position at a time), within LOGIT_TOL (the worst step) and
+     LOGIT_MEDIAN_TOL (the median decode step, and that of the steps
+     past a wrapped ring); for the moe models an untimed second run of
+     the serve path records which experts each layer kept for the
+     checked tokens, LOGIT_TOL holds the steps at which it routed as the
+     plain forward did, and it prints ``moe_dropped`` and the tokens that
+     kept more than K experts (router ties);
+ 15. ``[moe-train]``: phase 8 for granite-moe-1b-a400m at full width and
+     depth (24 layers): the one-sequence check under the TRAIN_* limits,
+     then 6 steps with exact L1/L2 launch counts; the model-FLOP share
+     counts the active parameters (router and top-8 experts);
+ 16. ``[examples]``: the port's four ``examples/torch_*.py`` as
+     subprocesses at their defaults, all started together (the LLM one
+     for mixtral-8x7b and granite-moe-1b-a400m); each must exit 0 with
+     ``OK``;
+ 17. summary: one JSON line ``{"kernels": [...]}`` (L1 and L2 with each
+     variant's launches and times, launches by path) and, last, the
+     ``{"ok": true, "device": {...}}`` line. ``[time]`` lines give the
+     run's seconds after each group of phases.
 
 Without a GPU, or without the repository's ``src/repro_torch`` beside it,
 it exits non-zero before printing any result.
@@ -249,6 +282,41 @@ LOGIT_TOL = {LLM_ARCH: 0.2, HYBRID_ARCH: 0.6, SSM_ARCH: 0.2}
 # and the serve path may be at most this much farther from the f32
 # forward than the plain bf16 forward is (measured: 0.94x)
 F32_GAP_TOL = 1.5
+# the moe and vlm families, with phase 6's traffic: Granite-MoE and
+# InternVL2 at full depth (InternVL2's prompt: 256 image positions and
+# 3,744 text tokens), Mixtral at full width with its depth cut to 8 of 32
+# layers (its 46.7e9 parameters take 93.4 GB in bf16, more than the card's
+# 80 GB); then Granite's train step at full width and depth
+MOE_ARCH, MIXTRAL_ARCH, VLM_ARCH = ("granite_moe_1b_a400m", "mixtral_8x7b",
+                                    "internvl2_1b")
+MIXTRAL_LAYERS = 8
+# their LOGIT_TOL. internvl2 takes the dense models' 0.2: on the H100 its
+# plain bf16 forward sits 0.088 from the f32 forward, the serve path
+# 0.091 from the plain bf16 forward. For the moe models it holds the
+# checked tokens (sequence, step) for which an untimed second run of the
+# serve path kept, at every layer, the experts that the plain forward
+# kept: a bf16 rounding that moves a token across the top-K threshold (a
+# routing flip) moves its logits by up to an rms or more whatever the
+# kernels do (mixtral, 8 layers, 8 steps past the ring: 1.203 at one
+# step, and the plain bf16 forward 1.303 from the f32 one), and flips are
+# common (a flip in either sequence at 90 of granite's 97 checked steps
+# and 21 of mixtral's 105). The steps without one measured 0.0488
+# (granite) and 0.0625 (mixtral), so the moe models take the dense
+# models' 0.2 too; flips are counted and printed
+LOGIT_TOL.update({MOE_ARCH: 0.2, MIXTRAL_ARCH: 0.2, VLM_ARCH: 0.2})
+# LOGIT_MEDIAN_TOL bounds the median over the decode steps of the
+# timed run's max |d logit| / rms(logits), which no single step (and no
+# routing flip) can set, and, where the ring wraps, that of the steps past
+# the context. On the H100 (serve path vs the plain bf16 forward):
+# Qwen3-4B 0.0783, zamba2-7b 0.2421, rwkv6-7b 0.1133, granite-moe 0.1112,
+# mixtral (8 layers) 0.0469 (past the ring 0.0469), internvl2 0.0734; each
+# limit is about twice its reading
+LOGIT_MEDIAN_TOL = {LLM_ARCH: 0.15, HYBRID_ARCH: 0.4, SSM_ARCH: 0.2,
+                    MOE_ARCH: 0.2, MIXTRAL_ARCH: 0.1, VLM_ARCH: 0.15}
+# mixtral's window (4,096) is the context, so its cache is a 4,096-slot
+# ring: it decodes this many steps past the context, which wraps the ring
+# over its oldest slots
+RING_WRAP_STEPS = 8
 
 # L4/L5 vs their plain chunked versions on the card, relative to the
 # largest plain value (y and the final state): both f32; the kernels sum
@@ -317,8 +385,16 @@ ALS_ITERS, SGD_EPOCHS, CCD_ITERS = 20, 30, 10
 ALS_PATH_TOL = 1e-4
 
 
+T_START = time.time()
+
+
 def log(*args):
     print(*args, flush=True)
+
+
+def stamp(done):
+    """The run's seconds so far, after the phases named ``done``."""
+    log(f"[time] {time.time() - T_START:.1f}s after {done}")
 
 
 def cuda_ms(fn, reps, warmup=2):
@@ -1899,6 +1975,69 @@ def phase_hd112_parity(dev):
     return results
 
 
+def phase_hd64_parity(dev):
+    """L1 and L3 at the moe and vlm families' hd 64 attention, bf16 and
+    fp32: Granite-MoE (H = 16 over Hkv = 8, group 2) and InternVL2 (H = 14
+    over Hkv = 2, group 7); causal prefill at 4,000 positions, decode over
+    a full 4,096-slot cache."""
+    import torch
+    from repro_torch.configs.base import get_config
+    g = torch.Generator(device=dev).manual_seed(3)
+    results = {"flash_attention": [], "decode_attention": []}
+    for arch in (MOE_ARCH, VLM_ARCH):
+        cfg = get_config(arch)
+        H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        case = f"hd{hd}-group{H // Hkv}"
+        for dtype in ("bf16", "fp32"):
+            results["flash_attention"].append(_l1_case(
+                g, dev, f"{case}-causal-4000", LLM_BATCH, LLM_PROMPT, H, Hkv,
+                hd, True, 0, dtype, tag="hd64-parity"))
+        for dtype in ("bf16", "fp32"):
+            results["decode_attention"].append(_l3_case(
+                g, dev, f"{case}-full-4096", LLM_BATCH, LLM_CONTEXT, H, Hkv,
+                hd, 0, dtype, tag="hd64-parity"))
+    torch.cuda.empty_cache()
+    return results
+
+
+# the examples as a user runs them, at their defaults (the reference's),
+# the LLM one at the moe family's two archs
+EXAMPLES = (("torch_e2e_bmf_webscale", ()),
+            ("torch_pp_block_exploration", ()),
+            ("torch_distributed_block", ()),
+            ("torch_llm_smoke_train", ("--arch", MIXTRAL_ARCH)),
+            ("torch_llm_smoke_train", ("--arch", MOE_ARCH)))
+EXAMPLE_TIMEOUT_S = 600
+
+
+def phase_examples():
+    """The port's examples as subprocesses on the card, all started
+    together: each must exit 0 with ``OK`` as its last line. A failure
+    stops the others."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.time()
+    procs = [(name, args, subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / f"{name}.py"), *args],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)) for name, args in EXAMPLES]
+    try:
+        for name, args, proc in procs:
+            out, err = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)
+            lines = out.strip().splitlines()
+            log(f"[examples] {name} {' '.join(args)}: exit "
+                f"{proc.returncode} by {time.time() - t0:.1f}s; "
+                + " | ".join(lines[-4:]))
+            if proc.returncode != 0 or not lines or lines[-1] != "OK":
+                raise AssertionError(f"{name} {args} failed:\n{out[-3000:]}"
+                                     f"\n{err[-3000:]}")
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
 def _scan_inputs(g, dev, name, B, S, H, N, P, case):
     """Inputs of L4 (``name`` "ssd_chunk": xdt, a, B, C, state0) or L5
     ("wkv6": r, k, v, logw, u, state0) at the serve path's shape, f32,
@@ -2028,6 +2167,16 @@ def _describe(cfg):
                     f"layers), d_inner {d_in}, {d_in // cfg.ssm_head_dim} "
                     f"SSM heads of {cfg.ssm_head_dim}, state "
                     f"{cfg.ssm_state}")
+        if cfg.family == "moe":
+            mix += (f", {cfg.n_experts} experts of d_ff {cfg.d_ff}, top "
+                    f"{cfg.experts_per_token}, capacity factor "
+                    f"{cfg.moe_capacity_factor}")
+        elif cfg.family != "hybrid":
+            mix += f", d_ff {cfg.d_ff}"
+        if cfg.sliding_window:
+            mix += f", window {cfg.sliding_window}"
+        if cfg.family == "vlm":
+            mix += f", {cfg.n_image_tokens} image positions"
     return (f"{cfg.name} ({cfg.family}): {cfg.n_layers} layers, d_model "
             f"{cfg.d_model}, {mix}, vocab {cfg.vocab_size} (padded "
             f"{cfg.padded_vocab_size})")
@@ -2039,7 +2188,8 @@ def _expected_launches(cfg, n_steps):
     attention layer and decode step, L4 / L5 per recurrent layer in
     prefill; nothing else."""
     counts = {name: 0 for name in [*_wrappers(), *SM90]}
-    n_attn = {"dense": cfg.n_layers,
+    n_attn = {"dense": cfg.n_layers, "moe": cfg.n_layers,
+              "vlm": cfg.n_layers,
               "hybrid": cfg.n_layers // max(cfg.shared_attn_period, 1),
               "ssm": 0}[cfg.family]
     counts["flash_attention"] = n_attn
@@ -2061,12 +2211,18 @@ def _tensor_bytes(tree):
     return 0
 
 
-def phase_serve(dev, arch, tag):
-    """One model at full width and depth: prefill of 8 x 4,000 tokens into
-    a 4,096-token context, 96 teacher-forced decode steps, exact launch
+def phase_serve(dev, arch, tag, n_layers=None, past=0):
+    """One model at full width (and full depth, or ``n_layers``): prefill
+    of 8 x 4,000 positions into a 4,096-position context (a vlm prompt:
+    its image positions, then text), 96 teacher-forced decode steps and
+    ``past`` more beyond the context (a ring cache wraps), exact launch
     counts, and the logits of 2 sequences against the port's forward over
-    all 4,096 tokens through the plain kernel versions."""
+    all positions through the plain kernel versions; for the moe family
+    that forward calls the MoE layers on the tokens as the serve path does
+    (``_serve_grouped_moe``), and an untimed second run records the kept
+    experts, the drops and the ties (``_moe_replay``)."""
     import torch
+    from contextlib import ExitStack
     from unittest import mock
     from repro_torch.configs.base import InputShape, get_config
     from repro_torch.data.tokens import synthetic_token_batches
@@ -2076,9 +2232,17 @@ def phase_serve(dev, arch, tag):
     from repro_torch.models import layers as LY
     from repro_torch.models import mamba2 as M2
     from repro_torch.models import model as LM
+    from repro_torch.models import moe as MOE
     from repro_torch.models import rwkv6 as R6
     from repro_torch.models import steps as ST
     cfg = get_config(arch)
+    if n_layers:
+        full = cfg
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        log(f"[{tag}] depth cut to {n_layers} of {full.n_layers} layers at "
+            f"full width: the whole model's {full.param_count()} parameters "
+            f"take {2 * full.param_count() / 1e9:.1f} GB in bf16, more than "
+            f"the card's 80 GB")
     t0 = time.time()
     params = LM.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                             dev)
@@ -2086,11 +2250,20 @@ def phase_serve(dev, arch, tag):
     n_params = sum(p.numel() for p in params.parameters())
     w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
     t1 = time.time()
-    tokens = next(synthetic_token_batches(cfg, LLM_BATCH, LLM_CONTEXT,
-                                          seed=0, device=dev))["tokens"]
-    log(f"[{tag}] {_describe(cfg)}; {n_params} parameters, "
+    # a vlm prompt's first n_img positions are its image embeddings
+    n_img = cfg.n_image_tokens if cfg.family == "vlm" else 0
+    end = LLM_CONTEXT + past
+    batch = next(synthetic_token_batches(cfg, LLM_BATCH, end - n_img,
+                                         seed=0, device=dev))
+    tokens = batch.pop("tokens")
+    prompt = LLM_PROMPT - n_img
+    active = (f" ({cfg.active_param_count()} active per token)"
+              if cfg.is_moe else "")
+    log(f"[{tag}] {_describe(cfg)}; {n_params} parameters{active}, "
         f"{w_bytes / 1e9:.2f} GB of weights made in {t1 - t0:.1f}s; tokens "
-        f"{tuple(tokens.shape)} in {time.time() - t1:.1f}s")
+        f"{tuple(tokens.shape)}"
+        + "".join(f", {k} {tuple(v.shape)}" for k, v in batch.items())
+        + f" in {time.time() - t1:.1f}s")
 
     prefill_step = ST.make_prefill_step(
         cfg, InputShape("serve_4k", LLM_CONTEXT, LLM_BATCH, "prefill"))
@@ -2099,14 +2272,15 @@ def phase_serve(dev, arch, tag):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.time()
-    logits, cache = prefill_step(params, {"tokens": tokens[:, :LLM_PROMPT]})
+    logits, cache = prefill_step(params, {"tokens": tokens[:, :prompt],
+                                          **batch})
     torch.cuda.synchronize()
     prefill_s = time.time() - t0
     cache_bytes = _tensor_bytes(cache)
     kept = [logits[:LLM_CHECK, 0].clone()]
     finite = torch.isfinite(logits).all()
     t0 = time.time()
-    for t in range(LLM_PROMPT, LLM_CONTEXT):
+    for t in range(prompt, end - n_img):
         logits, cache = serve_step(params, cache, tokens[:, t:t + 1])
         finite &= torch.isfinite(logits).all()
         kept.append(logits[:LLM_CHECK, 0].clone())
@@ -2114,45 +2288,62 @@ def phase_serve(dev, arch, tag):
     decode_s = time.time() - t0
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    n_steps = LLM_CONTEXT - LLM_PROMPT
-    log(f"[{tag}-serve] prefill {LLM_BATCH} x {LLM_PROMPT} tokens: "
+    n_steps = end - LLM_PROMPT
+    log(f"[{tag}-serve] prefill {LLM_BATCH} x {LLM_PROMPT} positions: "
         f"{prefill_s:.3f}s, {LLM_BATCH * LLM_PROMPT / prefill_s:.4g} "
         f"tokens/s; decode {n_steps} steps: {decode_s:.3f}s, "
         f"{1e3 * decode_s / n_steps:.3f} ms/step, "
-        f"{LLM_BATCH * n_steps / decode_s:.4g} tokens/s; cache "
-        f"{cache_bytes / 1e9:.2f} GB; peak device memory "
+        f"{LLM_BATCH * n_steps / decode_s:.4g} tokens/s"
+        + (f" ({past} past the {LLM_CONTEXT}-slot ring)" if past else "")
+        + f"; cache {cache_bytes / 1e9:.2f} GB; peak device memory "
         f"{peak / 1e9:.2f} GB; launches {counts}")
     assert bool(finite), f"{arch}: non-finite logits on the serve path"
-    assert cache["pos"] == LLM_CONTEXT
+    assert cache["pos"] == end
+    if past:
+        assert cache["attn"]["k"].shape[2] == LLM_CONTEXT, \
+            f"{arch}: the cache is not a {LLM_CONTEXT}-slot ring"
     want = _expected_launches(cfg, n_steps)
     assert counts == want, f"{arch}: launches {counts}, expected {want}"
+    assert peak < 80e9, f"{arch}: peak device memory {peak / 1e9:.2f} GB"
     # the profiled steps re-run the last decode steps: the recurrent state
     # moves on, and nothing reads it afterwards
-    profile_decode(serve_step, params, cache, tokens, tag)
+    profile_decode(serve_step, params, cache, tokens, tag, end, offset=n_img)
     del cache, logits
     torch.cuda.empty_cache()
+    replay = (_moe_replay(prefill_step, serve_step, params, cfg, tokens,
+                          batch, prompt, tag) if cfg.is_moe else None)
 
     def plain_attention(q, k, v, causal=True, window=0):
         return flash_attention_ref(q, k, v, causal=causal,
                                    window=window).to(q.dtype)
 
-    # the reference: the port's forward over all 4,096 tokens with the
+    # the reference: the port's forward over all positions with the
     # plain kernel versions, in bf16 as served, and in f32 on the same
     # (bf16) weights, which shows how far bf16 rounding alone moves the
     # logits
     V = cfg.vocab_size
     got = torch.stack(kept, dim=1)[..., :V]
-    refs = {}
+    refs, ref_keeps = {}, []
     t0 = time.time()
-    with mock.patch.object(LY, "flash_attention", plain_attention), \
-            mock.patch.object(M2, "ssd_scan", ssd_chunked), \
-            mock.patch.object(R6, "wkv6", wkv_chunked):
+    check = {"tokens": tokens[:LLM_CHECK],
+             **{k: v[:LLM_CHECK] for k, v in batch.items()}}
+    with ExitStack() as stack:
+        for mod, name, fn in ((LY, "flash_attention", plain_attention),
+                              (M2, "ssd_scan", ssd_chunked),
+                              (R6, "wkv6", wkv_chunked),
+                              (MOE, "moe_apply", _serve_grouped_moe(
+                                  _recording(MOE.moe_apply, ref_keeps),
+                                  LLM_PROMPT))):
+            stack.enter_context(mock.patch.object(mod, name, fn))
         for name, c in (("bf16", cfg),
                         ("f32", dataclasses.replace(cfg, dtype="float32"))):
-            full, _ = LM.forward(params, c, {"tokens": tokens[:LLM_CHECK]})
+            full, _ = LM.forward(params, c, check)
             refs[name] = full[:, LLM_PROMPT - 1:, :V].clone()
             del full
             torch.cuda.empty_cache()
+            if name == "bf16" and cfg.is_moe:
+                ref_keep = _keeps_by_step(ref_keeps, cfg.n_layers, n_steps,
+                                          layer_major=True)
 
     def compare(a, b):
         rms = float(b.square().mean().sqrt())
@@ -2163,22 +2354,139 @@ def phase_serve(dev, arch, tag):
     ratio, per_step, agree, rms = compare(got, refs["bf16"])
     r_k32, _, a_k32, _ = compare(got, refs["f32"])
     r_p32, _, a_p32, _ = compare(refs["bf16"], refs["f32"])
-    log(f"[{tag}-serve] vs the plain forward over {LLM_CONTEXT} tokens "
+    median = float(per_step[1:].median())
+    wrap = float(per_step[-past:].median()) if past else 0.0
+    log(f"[{tag}-serve] vs the plain forward over {end} positions "
         f"({LLM_CHECK} sequences, {time.time() - t0:.1f}s): max |d logit| / "
-        f"rms(logits) {ratio:.4g} (rms {rms:.4g}; limit {LOGIT_TOL[arch]}); "
+        f"rms(logits) {ratio:.4g} (rms {rms:.4g}; "
+        + (f"limit {LOGIT_TOL[arch]}" if replay is None
+           else "routing flips included: LOGIT_TOL holds the rest, below")
+        + "); "
         f"prefill step {float(per_step[0]):.4g}, decode steps max "
-        f"{float(per_step[1:].max()):.4g} median "
-        f"{float(per_step[1:].median()):.4g}; argmax agreement {agree:.4f}. "
+        f"{float(per_step[1:].max()):.4g} median {median:.4g} (limit "
+        f"{LOGIT_MEDIAN_TOL[arch]})"
+        + (f", median of the {past} past the ring {wrap:.4g}" if past else "")
+        + f"; argmax agreement {agree:.4f}. "
         f"Against the f32 forward: serve path {r_k32:.4g} (argmax "
         f"{a_k32:.4f}; limit {F32_GAP_TOL} x the plain bf16 forward's), "
         f"plain bf16 forward {r_p32:.4g} (argmax {a_p32:.4f})")
+    if replay is not None:
+        # a (sequence, step) at which the replay kept another expert set
+        # for the token than the reference did, at any layer, moves by
+        # that flip alone: LOGIT_TOL holds the others
+        r_logits, r_keep = replay
+        flip = (r_keep != ref_keep).any(dim=3).any(dim=0)
+        r_gap = (r_logits[..., :V] - refs["bf16"]).abs().amax(dim=2) / rms
+        steady = float(r_gap[~flip].max()) if (~flip).any() else 0.0
+        log(f"[{tag}-serve] routing flips against the plain forward at "
+            f"{int(flip.sum())} of {flip.numel()} checked (sequence, step) "
+            f"pairs; the untimed replay's max |d logit| / rms over the "
+            f"pairs without one {steady:.4g} (limit {LOGIT_TOL[arch]}), with "
+            f"one {float(r_gap[flip].max()) if flip.any() else 0.0:.4g}; "
+            f"replay vs the timed run max |d logit| / rms "
+            f"{float((r_logits[..., :V] - got).abs().max()) / rms:.4g}")
+        ratio = steady
     assert ratio <= LOGIT_TOL[arch], \
         f"{arch}: serve path disagrees with the plain forward"
+    assert median <= LOGIT_MEDIAN_TOL[arch], \
+        f"{arch}: serve path's decode steps move off the plain forward"
+    assert wrap <= LOGIT_MEDIAN_TOL[arch], \
+        f"{arch}: serve path moves off the plain forward past the ring"
     assert r_k32 <= F32_GAP_TOL * r_p32, \
         f"{arch}: serve path is farther from the f32 forward than bf16 rounding"
     del params, refs, got, kept
     torch.cuda.empty_cache()
     return counts
+
+
+def _serve_grouped_moe(moe_apply, prompt):
+    """``moe_apply`` over a forward's (B, S, d) in the calls the serve path
+    makes: the first ``prompt`` positions in one call, as prefill makes
+    it, then one call per later position, as each decode step makes it,
+    so that ``moe_apply`` groups them (and drops from them) as it does
+    there. The aux values are the prompt call's."""
+    import torch
+
+    def grouped(params, cfg, x):
+        y, aux = moe_apply(params, cfg, x[:, :prompt])
+        steps = [moe_apply(params, cfg, x[:, t:t + 1])[0]
+                 for t in range(prompt, x.shape[1])]
+        return torch.cat([y, *steps], dim=1), aux
+
+    return grouped
+
+
+def _recording(moe_apply, calls):
+    """``moe_apply`` that also appends, for the LLM_CHECK checked sequences,
+    which (token, expert) pairs it kept, (rows, S0, E), and the call's
+    ``moe_dropped`` and number of tokens kept by more than K experts
+    (router ties, ``moe.route``) to ``calls``."""
+    from repro_torch.models import moe as MOE
+
+    def recorded(p, c, x):
+        y, aux = moe_apply(p, c, x)
+        B, S0, d = x.shape
+        G, S, C = MOE.groups_and_capacity(c, B, S0)
+        _, mask, _ = MOE.route(p["router"], x.reshape(G, S, d),
+                               c.experts_per_token)
+        keep = MOE.capacity_keep(mask, C)[1].reshape(B, S0, -1)
+        calls.append((keep[:LLM_CHECK], aux["moe_dropped"],
+                      (mask.sum(-1) > c.experts_per_token).sum()))
+        return y, aux
+
+    return recorded
+
+
+def _keeps_by_step(calls, n_layers, n_steps, layer_major):
+    """(n_layers, rows, 1 + n_steps, E) from ``_recording``'s calls: per
+    layer the prompt call's last position, then one per decode step. The
+    forward makes its calls layer by layer (``layer_major``), the serve
+    path step by step."""
+    import torch
+    per = [calls[li * (1 + n_steps):(li + 1) * (1 + n_steps)] if layer_major
+           else [calls[li]] + calls[n_layers + li::n_layers][:n_steps]
+           for li in range(n_layers)]
+    return torch.stack([torch.cat([c[0][0][:, -1:]]
+                                  + [k for k, _, _ in c[1:]], dim=1)
+                        for c in per])
+
+
+def _moe_replay(prefill_step, serve_step, params, cfg, tokens, batch,
+                prompt, tag):
+    """An untimed second run of the serve path, prefill and every decode
+    step, that records each MoE layer's kept pairs for the checked
+    sequences (``_recording``): returns their logits (LLM_CHECK,
+    1 + steps, Vp) and kept pairs (L, LLM_CHECK, 1 + steps, E). Prints the
+    prefill's ``moe_dropped`` and the tokens whose bf16 router
+    probabilities tie at the K-th largest, so that they keep more than K
+    experts, per layer."""
+    import torch
+    from unittest import mock
+    from repro_torch.models import moe as MOE
+    calls, kept = [], []
+    with mock.patch.object(MOE, "moe_apply",
+                           _recording(MOE.moe_apply, calls)):
+        logits, cache = prefill_step(params, {"tokens": tokens[:, :prompt],
+                                              **batch})
+        kept.append(logits[:LLM_CHECK, 0])
+        for t in range(prompt, tokens.shape[1]):
+            logits, cache = serve_step(params, cache, tokens[:, t:t + 1])
+            kept.append(logits[:LLM_CHECK, 0])
+    del cache
+    L, n_steps = cfg.n_layers, tokens.shape[1] - prompt
+    d = torch.stack([c[1] for c in calls[:L]]).float().cpu()
+    o = torch.stack([c[2] for c in calls[:L]]).cpu()
+    G, S, C = MOE.groups_and_capacity(cfg, LLM_BATCH, LLM_PROMPT)
+    log(f"[{tag}-moe] prefill of {LLM_BATCH} x {LLM_PROMPT} tokens in {G} "
+        f"groups of {S}, capacity {C} per expert and group: moe_dropped "
+        f"mean over layers {float(d.mean()):.5f} (min {float(d.min()):.5f}, "
+        f"max {float(d.max()):.5f}); tokens keeping more than "
+        f"{cfg.experts_per_token} experts (router ties) {int(o.sum())} over "
+        f"{len(o)} layers (max {int(o.max())} in one layer, of "
+        f"{LLM_BATCH * LLM_PROMPT} tokens)")
+    keeps = _keeps_by_step(calls, L, n_steps, layer_major=False)
+    torch.cuda.empty_cache()
+    return torch.stack(kept, dim=1), keeps
 
 
 def device_time(prof):
@@ -2202,19 +2510,22 @@ def device_time(prof):
     return kernels, busy / 1e3
 
 
-def profile_decode(serve_step, params, cache, tokens, tag, n=3):
-    """Re-run the last ``n`` decode steps (the cache is rewound; the same
-    tokens rewrite the same slots) under ``torch.profiler``: device time
-    by kernel and the device's busy share of the wall."""
+def profile_decode(serve_step, params, cache, tokens, tag, end, n=3,
+                   offset=0):
+    """Re-run the last ``n`` decode steps, up to position ``end`` (the
+    cache is rewound; the same tokens rewrite the same slots) under
+    ``torch.profiler``: device time by kernel and the device's busy share
+    of the wall. ``offset``: the positions before the first token (a vlm
+    prompt's image)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    start = LLM_CONTEXT - n
+    start = end - n
     cache["pos"] = start
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        for t in range(start, LLM_CONTEXT):
+        for t in range(start - offset, end - offset):
             serve_step(params, cache, tokens[:, t:t + 1])
         torch.cuda.synchronize()
         wall = time.time() - t0
@@ -2390,7 +2701,7 @@ def _grad_stats(a, b):
     return dot / (na * nb) ** 0.5, (na / nb) ** 0.5 - 1.0
 
 
-def train_check(params, cfg, tokens):
+def train_check(params, cfg, tokens, tag="llm-train"):
     """The loss and gradients of ``loss_fn`` for one sequence, before any
     update: through the kernels (bf16, as trained), through the plain
     attention (bf16), and through the plain attention in f32 on the same
@@ -2425,7 +2736,7 @@ def train_check(params, cfg, tokens):
         cos, norm = _grad_stats(paths[a][1], paths[b][1])
         stats[(a, b)] = dict(loss=paths[a][0] - paths[b][0], cos=cos,
                              norm=norm)
-    log(f"[llm-train-check] one sequence of {tokens.shape[1]} tokens, "
+    log(f"[{tag}-check] one sequence of {tokens.shape[1]} tokens, "
         f"{time.time() - t0:.1f}s: loss kernels {paths['kernels'][0]:.6f}, "
         f"plain {paths['plain'][0]:.6f}, f32 {paths['f32'][0]:.6f}; "
         + "; ".join(f"{a} vs {b}: d loss {st['loss']:.3e}, grad cosine "
@@ -2447,27 +2758,33 @@ def train_check(params, cfg, tokens):
 def _train_flops(cfg, batch, seq):
     """Model FLOPs of one train step, without the remat recompute: 6 per
     parameter of every matrix product (the unembedding at the padded
-    vocabulary) and token, plus attention's 12 hd per unmasked (query,
-    key) pair and q-head (4 hd forward, 8 hd backward)."""
+    vocabulary; of a moe layer the router and the K routed experts, its
+    active parameters) and token, plus attention's 12 hd per unmasked
+    (query, key) pair and q-head (4 hd forward, 8 hd backward)."""
     d, hd = cfg.d_model, cfg.head_dim
+    mlp = (cfg.experts_per_token * 3 * d * cfg.d_ff + d * cfg.n_experts
+           if cfg.is_moe else 3 * d * cfg.d_ff)
     per_layer = (d * cfg.n_heads * hd * 2 + 2 * d * cfg.n_kv_heads * hd
-                 + 3 * d * cfg.d_ff)
+                 + mlp)
     n_mm = cfg.n_layers * per_layer + d * cfg.padded_vocab_size
     pairs = seq * (seq + 1) // 2
     attn = 12 * hd * cfg.n_heads * pairs * cfg.n_layers * batch
     return 6 * n_mm * batch * seq + attn
 
 
-def phase_llm_train(dev):
-    """Qwen3-4B at full width, 8 layers: the one-sequence check, then 6
-    train steps with remat and 2 microbatches."""
+def phase_llm_train(dev, arch=LLM_ARCH, n_layers=TRAIN_LAYERS,
+                    tag="llm-train"):
+    """``arch`` at full width, ``n_layers`` layers (Qwen3-4B: 8; Granite-
+    MoE: all 24): the one-sequence check, then 6 train steps with remat
+    and 2 microbatches."""
     import torch
     from repro_torch.configs.base import TrainConfig, get_config
     from repro_torch.data.tokens import synthetic_token_batches
     from repro_torch.models import model as LM
     from repro_torch.models import steps as ST
     from repro_torch.optim import adamw
-    cfg = dataclasses.replace(get_config(LLM_ARCH), n_layers=TRAIN_LAYERS)
+    full_layers = get_config(arch).n_layers
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
     tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=2,
                        total_steps=TRAIN_STEPS, remat=True,
                        microbatches=TRAIN_MICRO)
@@ -2479,13 +2796,13 @@ def phase_llm_train(dev):
     batches = synthetic_token_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0,
                                       device=dev)
     first = next(batches)
-    log(f"[llm-train] {cfg.name}: {cfg.n_layers} of 36 layers, d_model "
-        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
-        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} (padded "
-        f"{cfg.padded_vocab_size}); {n_params} f32 parameters "
+    active = (f", {cfg.active_param_count()} active per token"
+              if cfg.is_moe else "")
+    log(f"[{tag}] {_describe(cfg)} ({cfg.n_layers} of {full_layers} "
+        f"layers); {n_params} f32 parameters{active} "
         f"({4 * n_params / 1e9:.2f} GB) made in {time.time() - t0:.1f}s; "
         f"{tcfg}")
-    train_check(params, cfg, first["tokens"][:1])
+    train_check(params, cfg, first["tokens"][:1], tag)
     torch.cuda.empty_cache()
 
     opt = adamw.init(dict(params.named_parameters()))
@@ -2501,7 +2818,8 @@ def phase_llm_train(dev):
         before = read_counts()
         t1 = time.time()
         if i == TRAIN_STEPS - 1:
-            params, opt, m = profile_train_step(step_fn, params, opt, batch)
+            params, opt, m = profile_train_step(step_fn, params, opt, batch,
+                                                tag)
         else:
             params, opt, m = step_fn(params, opt, batch)
         torch.cuda.synchronize()
@@ -2513,9 +2831,12 @@ def phase_llm_train(dev):
             "flash_attention_bwd_sm90"))
         loss, gn, lr = (float(m[k]) for k in ("loss", "grad_norm", "lr"))
         finite &= all(math.isfinite(x) for x in (loss, gn))
-        log(f"[llm-train] step {i + 1}: {dt:.3f}s, "
+        aux = "".join(f", {k} {float(m[k]):.6f}" for k in ("moe_aux",
+                                                            "moe_dropped")
+                      if k in m)
+        log(f"[{tag}] step {i + 1}: {dt:.3f}s, "
             f"{tokens_per_step / dt:.4g} tokens/s, loss {loss:.6f}, grad "
-            f"norm {gn:.6f}, lr {lr:.4e}; L1 {d1} / L2 {d2} launches, "
+            f"norm {gn:.6f}, lr {lr:.4e}{aux}; L1 {d1} / L2 {d2} launches, "
             f"sm90 {s1} / {s2}"
             + (" (under the profiler)" if i == TRAIN_STEPS - 1 else ""))
         if (d1 != 2 * cfg.n_layers * TRAIN_MICRO
@@ -2531,20 +2852,23 @@ def phase_llm_train(dev):
     peak = torch.cuda.max_memory_allocated()
     steady = step_s[1:-1]
     mean_s = sum(steady) / len(steady)
-    log(f"[llm-train] {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+    log(f"[{tag}] {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
         f"tokens ({TRAIN_MICRO} microbatches, remat): steps 2-"
         f"{TRAIN_STEPS - 1} {mean_s:.3f} s/step, "
         f"{tokens_per_step / mean_s:.4g} tokens/s; model FLOPs "
-        f"{flops / 1e12:.2f} TFLOP/step (6 per matmul parameter and token, "
-        f"12 hd per causal pair and head, no recompute) = "
+        f"{flops / 1e12:.2f} TFLOP/step (6 per active matmul parameter and "
+        f"token, 12 hd per causal pair and head, no recompute) = "
         f"{100 * flops / mean_s / _roof().PEAK_FLOPS['bf16']:.2f}% of the "
         f"989 TFLOP/s bf16 "
         f"peak; peak device memory {peak / 1e9:.2f} GB; launches {counts}")
     assert finite, "non-finite loss or grad norm on the train path"
+    assert peak < 80e9, f"{arch}: peak device memory {peak / 1e9:.2f} GB"
+    del params, opt
+    torch.cuda.empty_cache()
     return counts
 
 
-def profile_train_step(step_fn, params, opt, batch):
+def profile_train_step(step_fn, params, opt, batch, tag="llm-train"):
     """One train step under ``torch.profiler``: device time by kernel and
     the device's busy share of the wall."""
     import torch
@@ -2558,11 +2882,11 @@ def profile_train_step(step_fn, params, opt, batch):
         wall = time.time() - t0
     kernels, busy = device_time(prof)
     if not kernels:
-        log("[llm-train-profile] the profiler recorded no device time: "
+        log(f"[{tag}-profile] the profiler recorded no device time: "
             "device busy share not measured")
         return out
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
-    log(f"[llm-train-profile] one step under the profiler: wall "
+    log(f"[{tag}-profile] one step under the profiler: wall "
         f"{1e3 * wall:.1f} ms, device busy {busy:.1f} ms "
         f"({100 * busy / (1e3 * wall):.1f}% of the wall), "
         f"{sum(c for _, c in kernels.values())} kernels; top: "
@@ -2583,10 +2907,12 @@ def main():
         return 2
     sys.path.insert(0, str(SRC))
     from repro_torch import resolve_device
+    from repro_torch.configs.base import get_config
     from repro_torch.core import bmf as BMF
     dev = resolve_device("cuda")
 
     phase_build()
+    stamp("build")
     preset, train, test, test_p, part = make_data()
     K = preset.K
     parity = phase_parity(part, test_p, K, dev)
@@ -2595,6 +2921,7 @@ def main():
     fused = cfg._replace(sweep_fused=True)
     phase_dryrun(part, test_p, fused, dev, "movielens")
     phase_dryrun_cli()
+    stamp("parity, quickstart and dryrun")
     launches = {}
     counts, stacked_fused, stacked_peak = phase_main(
         train, test, part, fused, "fused-sweep", "bmf_sweep", dev)
@@ -2616,18 +2943,23 @@ def main():
     launches["bmf_precision"] = counts["bmf_precision"]
     phase_bmf_sync(part, test, fused, dev)
     phase_bmf_profile(train, test, part, fused, dev)
+    stamp("BMF executors and placements")
     phase_bmf_serve(train, test, stacked_fused, dev)
     lint_launches = phase_lint(part, test, test_p, K, dev)
+    stamp("BMF serving and lint")
     del train, test, test_p, part, stacked_fused
     torch.cuda.empty_cache()
     als_launches, table2_cases = phase_table2(dev)
     b1_cases, netflix_launches, netflix_streaming = phase_netflix(dev)
+    stamp("table 2 and Netflix")
     llm_parity = phase_llm_parity(dev)
     llm_counts = phase_serve(dev, LLM_ARCH, "llm")
+    stamp("LLM parity and Qwen3 serve")
     launches.update({n: llm_counts[n] for n in llm_parity})
     launches["flash_attention_sm90"] = llm_counts["flash_attention_sm90"]
     llm_parity["flash_attention_bwd"] = phase_l2_parity(dev)
     train_counts = phase_llm_train(dev)
+    stamp("L2 parity and Qwen3 train")
     launches["flash_attention_bwd"] = train_counts["flash_attention_bwd"]
     launches["flash_attention_bwd_sm90"] = train_counts[
         "flash_attention_bwd_sm90"]
@@ -2638,21 +2970,31 @@ def main():
     ssm_counts = phase_serve(dev, SSM_ARCH, "rwkv6")
     launches["ssd_chunk"] = hybrid_counts["ssd_chunk"]
     launches["wkv6"] = ssm_counts["wkv6"]
-    by_path = {"flash_attention": {
-                   "serve": llm_counts["flash_attention"],
-                   "serve_zamba2": hybrid_counts["flash_attention"],
-                   "train": train_counts["flash_attention"]},
-               "flash_attention_sm90": {
-                   "serve": llm_counts["flash_attention_sm90"],
-                   "serve_zamba2": hybrid_counts["flash_attention_sm90"],
-                   "train": train_counts["flash_attention_sm90"]},
-               "flash_attention_bwd": {
-                   "train": train_counts["flash_attention_bwd"]},
-               "flash_attention_bwd_sm90": {
-                   "train": train_counts["flash_attention_bwd_sm90"]},
-               "decode_attention": {
-                   "serve": llm_counts["decode_attention"],
-                   "serve_zamba2": hybrid_counts["decode_attention"]}}
+    stamp("recurrent serve")
+    for name, cases in phase_hd64_parity(dev).items():
+        llm_parity[name] += cases
+    serve_counts = {"serve": llm_counts, "serve_zamba2": hybrid_counts,
+                    "serve_granite": phase_serve(dev, MOE_ARCH, "granite"),
+                    "serve_mixtral": phase_serve(dev, MIXTRAL_ARCH, "mixtral",
+                                                 n_layers=MIXTRAL_LAYERS,
+                                                 past=RING_WRAP_STEPS),
+                    "serve_internvl2": phase_serve(dev, VLM_ARCH,
+                                                   "internvl2")}
+    stamp("moe and vlm serve")
+    train = {"train": train_counts,
+             "train_granite": phase_llm_train(
+                 dev, MOE_ARCH, get_config(MOE_ARCH).n_layers, "moe-train")}
+    stamp("moe train")
+    phase_examples()
+    stamp("examples")
+    by_path = {name: {path: c[name] for path, c in
+                      {**serve_counts, **train}.items()}
+               for name in ("flash_attention", "flash_attention_sm90")}
+    by_path.update({name: {path: c[name] for path, c in train.items()}
+                    for name in ("flash_attention_bwd",
+                                 "flash_attention_bwd_sm90")})
+    by_path["decode_attention"] = {path: c["decode_attention"]
+                                   for path, c in serve_counts.items()}
 
     meta = {
         "bmf_precision": dict(

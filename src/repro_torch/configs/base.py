@@ -5,8 +5,8 @@ The port's own copy of the reference's ``repro/configs/base.py``
 analytic parameter count), so that the port imports nothing of
 ``repro``. Every architecture lives in its own module (``configs/<id>.py``) exporting
 ``CONFIG``. ``get_config`` resolves the families whose serving path the
-port runs (dense, hybrid, ssm); the other families raise
-``NotImplementedError`` naming the ROADMAP step that ports them.
+port runs (dense, moe, vlm, hybrid, ssm); the audio family raises
+``NotImplementedError`` naming the ROADMAP step that ports it.
 """
 from __future__ import annotations
 
@@ -135,6 +135,14 @@ class ArchConfig:
             total += self.n_layers * (attn_params() + mlp_params())
         return total
 
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only routed experts)."""
+        if not self.is_moe:
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        dense_like = self.param_count() - self.n_layers * self.n_experts * 3 * d * f
+        return dense_like + self.n_layers * self.experts_per_token * 3 * d * f
+
     # ------------------------------------------------------------------
     def smoke_variant(self) -> "ArchConfig":
         """Reduced config of the same family: 2 layers, d_model<=512,
@@ -216,15 +224,20 @@ ARCH_IDS = (
 )
 
 DENSE_IDS = ("qwen3_4b", "llama3_8b", "minitron_8b", "chatglm3_6b")
+MOE_IDS = ("granite_moe_1b_a400m", "mixtral_8x7b")
+VLM_IDS = ("internvl2_1b",)
 RECURRENT_IDS = ("zamba2_7b", "rwkv6_7b")
+
+# the families the port runs
+FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm")
+# the families whose layers are all attention + an MLP; they also train,
+# since their attention has a backward (L2)
+ATTENTION_FAMILIES = ("dense", "moe", "vlm")
 
 # the ROADMAP step (section A) that ports each family not ported yet
 NOT_PORTED = {
-    "granite_moe_1b_a400m": "moe family, ROADMAP A.20",
-    "mixtral_8x7b": "moe family, ROADMAP A.20",
     "whisper_medium": "audio family (layernorm, cross-attention), "
                       "ROADMAP A.20",
-    "internvl2_1b": "vlm family, ROADMAP A.20",
 }
 
 _ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}

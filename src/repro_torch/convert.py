@@ -7,10 +7,11 @@ The reference's state types are NamedTuples (``RowGaussians``,
 field name to numpy array (e.g. ``{k: np.asarray(v) for k, v in
 jax_obj._asdict().items()}``) on a device; ``to_numpy`` turns any of the
 port's objects back into nested dicts of numpy arrays. The LLM stack's
-parameters (dense, hybrid and ssm families) travel as the reference's
+parameters (dense, moe, vlm, hybrid and ssm families; the moe family's
+stacked experts as (L, E, …) arrays) travel as the reference's
 ``init_params`` pytree of numpy arrays (``llm_params_from_numpy`` /
 ``llm_params_to_numpy``), in the serving layout (the ``_cast_tree`` rule)
-or the f32 training layout (dense), and
+or the f32 training layout (dense, moe, vlm), and
 so does AdamW's state (``adamw_state_from_numpy`` / ``adamw_state_to_numpy``:
 ``step``, ``mu``, ``nu`` with ``mu``/``nu`` in the parameters' tree). A
 serving ``PosteriorStore`` travels as nested dicts of its fields
@@ -141,18 +142,16 @@ def llm_params_from_numpy(tree: Mapping[str, Any], cfg: ArchConfig,
                           device=None, *, train: bool = False
                           ) -> "LM.CausalLM":
     """The port's ``CausalLM`` from the reference's ``init_params`` pytree
-    as numpy (``jax.tree.map(np.asarray, params)``) of a dense, hybrid or
-    ssm config, whose ``blocks`` hold stacked (L, …) arrays. ``train``
+    as numpy (``jax.tree.map(np.asarray, params)``) of a config of a ported
+    family, whose ``blocks`` hold stacked (L, …) arrays. ``train``
     picks the storage as ``model.init_params`` does: f32 with gradient
-    (dense only), or the serving cast without: the reference's
+    (dense, moe, vlm), or the serving cast without: the reference's
     ``_cast_tree`` rule (``model.serve_dtype``), an f32 array with
     ndim >= 2 and more than ``CAST_MIN_SIZE`` elements goes to
     ``cfg.dtype``, applied to the stacked arrays, as the reference applies
     it, before they are split per layer."""
     dev = resolve_device(device)
-    if train and cfg.family != "dense":
-        raise NotImplementedError(
-            f"training the {cfg.family} family is not ported (ROADMAP A.20)")
+    LM.check_trainable(cfg, train)
 
     def param(name, shape):
         path, layer = _tree_path(name)

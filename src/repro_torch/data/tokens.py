@@ -3,7 +3,10 @@
 Port of ``repro/data/tokens.py``: a deterministic mixture of periodic
 repeats, arithmetic progressions mod V and bigram walks over a small
 alphabet slice, drawn from ``numpy.random.default_rng(seed)`` in the same
-order, so both packages yield identical tokens for one seed.
+order, so both packages yield identical tokens for one seed. A vlm batch
+also carries stub image embeddings (``image_embeds`` (batch,
+n_image_tokens, d_model) bf16), drawn from the same generator after the
+tokens, as the reference draws them.
 """
 from __future__ import annotations
 
@@ -18,11 +21,12 @@ from repro_torch.configs.base import ArchConfig
 
 def synthetic_token_batches(cfg: ArchConfig, batch: int, seq: int,
                             seed: int = 0, device=None) -> Iterator[dict]:
-    """``{"tokens": (batch, seq) int32}`` on ``device`` (the GPU unless the
-    caller names another), one batch per ``next``."""
-    if cfg.family in ("vlm", "audio"):
+    """``{"tokens": (batch, seq) int32}`` (and a vlm batch's
+    ``image_embeds``) on ``device`` (the GPU unless the caller names
+    another), one batch per ``next``."""
+    if cfg.family == "audio":
         raise NotImplementedError(
-            f"{cfg.family} batches carry stub embeddings; that family is not "
+            "audio batches carry stub frame embeddings; that family is not "
             "ported yet (ROADMAP A.20)")
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
@@ -47,4 +51,9 @@ def synthetic_token_batches(cfg: ArchConfig, batch: int, seq: int,
 
     while True:
         toks = np.stack([make_seq() for _ in range(batch)]).astype(np.int32)
-        yield {"tokens": torch.from_numpy(toks).to(dev)}
+        b = {"tokens": torch.from_numpy(toks).to(dev)}
+        if cfg.family == "vlm":
+            img = rng.normal(size=(batch, cfg.n_image_tokens, cfg.d_model))
+            b["image_embeds"] = torch.from_numpy(img).to(torch.bfloat16).to(
+                dev)
+        yield b

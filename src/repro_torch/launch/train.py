@@ -5,8 +5,10 @@ Usage (smoke scale; ``--device cpu`` runs the plain PyTorch versions):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_4b \\
       --smoke --steps 20 --batch 2 --seq 128 [--device cuda|cpu]
 
-The port trains the dense family (qwen3_4b, llama3_8b, minitron_8b,
-chatglm3_6b); the other architectures raise ``NotImplementedError``.
+The port trains the dense (qwen3_4b, llama3_8b, minitron_8b,
+chatglm3_6b), moe (granite_moe_1b_a400m, mixtral_8x7b) and vlm
+(internvl2_1b) families; the other architectures raise
+``NotImplementedError``.
 ``--ckpt PATH`` saves the trained parameters (``checkpoint.ckpt.save``:
 PATH.npz and its PATH.json manifest), which ``ckpt.restore`` reads back.
 """

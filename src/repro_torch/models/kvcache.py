@@ -1,12 +1,14 @@
-"""Serving state of the dense, hybrid and ssm families (port of
+"""Serving state of the dense, moe, vlm, hybrid and ssm families (port of
 ``repro/models/kvcache.py``).
 
 The cache is a dict like the reference's pytree, with ``pos`` (the number
-of tokens consumed, a Python int so that no step reads the device) and:
-- dense: ``"attn": {"k", "v": (L, B, max_len, Hkv, hd), "kv_pos":
+of positions consumed, a Python int so that no step reads the device)
+and:
+- dense, moe, vlm: ``"attn": {"k", "v": (L, B, max_len, Hkv, hd), "kv_pos":
   (L, max_len) int32}``; ``kv_pos`` holds each slot's absolute position
   (-1 = empty), so the attention mask stays exact in a ring buffer
-  (sliding window: ``max_len == window``, slot ``pos % window``);
+  (sliding window: ``max_len == window``, slot ``pos % window``); a vlm
+  prompt's image positions take slots like its text;
 - hybrid (zamba2): ``"mamba"`` per-layer mixer states (``conv_x``,
   ``conv_B``, ``conv_C`` histories (L, B, W-1, ·) in the cache dtype,
   ``ssm`` (L, B, H, P, N) f32) and ``"attn"``, a ring of
@@ -20,8 +22,8 @@ The recurrent states do not grow with ``seq_len``.
 Where the reference is functional and returns a new cache, the port
 writes in place (``attn_cache_update``, ``model.prefill``,
 ``model.decode_step``): that saves a copy of the whole cache on every
-step. The int8 cache (``kv_quant``) and the other families' state are
-not ported yet (ROADMAP A.20).
+step. The int8 cache (``kv_quant``) and the audio family's cross-attention
+state are not ported yet (ROADMAP A.20).
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ from typing import Optional
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ATTENTION_FAMILIES, ArchConfig
 
 
 def attn_cache_init(cfg: ArchConfig, n_layers: int, batch: int, max_len: int,
@@ -87,10 +89,10 @@ def serve_cache_init(cfg: ArchConfig, batch: int, seq_len: int,
                                            n_layers=cfg.n_layers),
                 "attn": attn_cache_init(cfg, n_attn, batch, ring, dtype,
                                         device=dev)}
-    if cfg.family != "dense":
+    if cfg.family not in ATTENTION_FAMILIES:
         raise NotImplementedError(
             f"{cfg.family} serving state is not ported yet; the port serves "
-            "the dense, hybrid and ssm families")
+            "the dense, moe, vlm, hybrid and ssm families")
     max_len = window if window > 0 else seq_len
     return {"pos": 0,
             "attn": attn_cache_init(cfg, cfg.n_layers, batch, max_len, dtype,

@@ -1,8 +1,14 @@
-"""Model assembly for the dense, hybrid and ssm families: init, forward,
-prefill and decode (port of ``repro/models/model.py``).
+"""Model assembly for the dense, moe, vlm, hybrid and ssm families: init,
+forward, prefill and decode (port of ``repro/models/model.py``).
 
 - dense  (qwen3, llama3, minitron, chatglm3): embed -> one ``DenseBlock``
   per layer (attention + SwiGLU, pre-norm) -> final norm -> unembed.
+- moe    (granite-moe, mixtral): the same with the MoE MLP
+  (``moe.MoE``); ``forward`` returns the layers' mean ``moe_aux`` and
+  ``moe_dropped``.
+- vlm    (internvl2): the dense stack over the stub image embeddings
+  (``batch["image_embeds"]`` (B, n_image_tokens, d)) placed before the
+  text in ``forward`` and ``prefill``; it decodes as dense.
 - hybrid (zamba2): embed -> groups of ``shared_attn_period`` Mamba2 layers
   (``MambaBlock``), each full group followed by the one weight-tied
   ``DenseBlock`` ``shared_attn`` -> final norm -> unembed. A remainder
@@ -36,11 +42,11 @@ is updated in place. Two places differ on purpose, for the same result:
 reference's ``jax.checkpoint`` around the scanned block, so its
 activations are recomputed in the backward pass; ``remat_policy="dots"``
 keeps the matrix products' outputs (``dots_saveable``) through selective
-checkpointing. On the card the hybrid and ssm scans (kernels L4, L5) are
-forward-only, so those families train only on the CPU until ROADMAP A.20;
-``init_params(..., train=True)`` takes the dense family only.
-``prefill`` and ``decode_step`` run without gradient. Other families
-raise ``NotImplementedError``.
+checkpointing. The hybrid and ssm scans (kernels L4, L5) are
+forward-only, so those families do not train yet (ROADMAP A.20);
+``init_params(..., train=True)`` takes the dense, moe and vlm families.
+``prefill`` and ``decode_step`` run without gradient. The audio family
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -53,9 +59,10 @@ from torch import nn
 from torch.utils import checkpoint as CKPT
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ATTENTION_FAMILIES, FAMILIES, ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
+from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv6 as R6
 
 # the reference's _cast_tree: float arrays with ndim >= 2 and more than this
@@ -67,9 +74,6 @@ def compute_dtype(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-FAMILIES = ("dense", "hybrid", "ssm")
-
-
 def _check_family(cfg: ArchConfig):
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
@@ -78,19 +82,25 @@ def _check_family(cfg: ArchConfig):
 
 
 class DenseBlock(nn.Module):
-    def __init__(self, cfg: ArchConfig, ln1, attn: L.Attention, ln2,
-                 mlp: L.SwiGLU):
+    """Pre-norm attention and MLP (SwiGLU, or the moe family's MoE), each
+    with a residual. Returns (x, this call's (k, v), aux): aux is the MoE's
+    ``{"moe_aux", "moe_dropped"}``, else empty."""
+
+    def __init__(self, cfg: ArchConfig, ln1, attn: L.Attention, ln2, mlp):
         super().__init__()
         self.ln1 = L.RMSNorm(ln1, cfg.norm_eps)
         self.attn = attn
         self.ln2 = L.RMSNorm(ln2, cfg.norm_eps)
         self.mlp = mlp
+        self.moe = cfg.is_moe      # the MoE returns (y, aux)
 
     def forward(self, x, rope, rot_dim, *, pos=0, window=0, cache=None):
         a, kv = self.attn(self.ln1(x), rope, rot_dim, pos=pos, window=window,
                           cache=cache)
         x = x + a
-        return x + self.mlp(self.ln2(x)), kv
+        m = self.mlp(self.ln2(x))
+        m, aux = m if self.moe else (m, {})
+        return x + m, kv, aux
 
 
 class MambaBlock(nn.Module):
@@ -179,11 +189,14 @@ def serve_dtype(shape, cfg: ArchConfig, n_stack: int = 0) -> torch.dtype:
 
 # leaf name -> how ``init_params`` makes it: "fan_in" (normal × 1/√fan_in,
 # or × the given scale), "normal" (× the given scale) or a constant; the
-# reference's ``init_params`` makes each the same way
+# reference's ``init_params`` makes each the same way. The fan-in of a
+# matrix (d_in, d_out) or of a stack of experts' matrices (E, d_in, d_out)
+# is d_in: the reference draws each expert's with ``_dense_init`` under
+# ``vmap``
 _FAN_IN = {n: None for n in (
     "unembed", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "w_z",
     "w_x", "w_B", "w_C", "w_dt", "out_proj", "wr", "wg", "w_in", "w_out")}
-_FAN_IN.update(decay_A=0.01, decay_B=0.01)
+_FAN_IN.update(decay_A=0.01, decay_B=0.01, router=0.02)
 _NORMAL = {"table": 0.02, "conv_x": 0.2, "conv_B": 0.2, "conv_C": 0.2}
 _CONST = {"scale": 1.0, "D": 1.0, "conv_bias_x": 0.0, "conv_bias_B": 0.0,
           "conv_bias_C": 0.0, "dt_bias": -2.0, "mix_base": 0.5,
@@ -210,9 +223,19 @@ def build(cfg: ArchConfig, param) -> CausalLM:
             *((param(pre + "attn.q_norm.scale", (hd,)),
                param(pre + "attn.k_norm.scale", (hd,))) if cfg.qk_norm
               else ()))
-        mlp = L.SwiGLU(*(param(pre + "mlp." + n, shape) for n, shape in (
-            ("w_gate", (d, cfg.d_ff)), ("w_up", (d, cfg.d_ff)),
-            ("w_down", (cfg.d_ff, d)))))
+        f = cfg.d_ff
+        if cfg.family == "moe":
+            E = cfg.n_experts
+            mlp = MOE.MoE(cfg, *(param(pre + "mlp." + n, shape)
+                                 for n, shape in (
+                                     ("router", (d, E)), ("w_gate", (E, d, f)),
+                                     ("w_up", (E, d, f)),
+                                     ("w_down", (E, f, d)))))
+        else:
+            mlp = L.SwiGLU(*(param(pre + "mlp." + n, shape)
+                             for n, shape in (("w_gate", (d, f)),
+                                              ("w_up", (d, f)),
+                                              ("w_down", (f, d)))))
         return DenseBlock(cfg, param(pre + "ln1.scale", (d,)), attn,
                           param(pre + "ln2.scale", (d,)), mlp)
 
@@ -245,12 +268,19 @@ def build(cfg: ArchConfig, param) -> CausalLM:
         return RwkvBlock(cfg, param(pre + "ln1.scale", (d,)), att,
                          param(pre + "ln2.scale", (d,)), ffn)
 
-    make = {"dense": dense_block, "hybrid": mamba_block,
-            "ssm": rwkv_block}[cfg.family]
+    make = {"dense": dense_block, "moe": dense_block, "vlm": dense_block,
+            "hybrid": mamba_block, "ssm": rwkv_block}[cfg.family]
     blocks = [make(f"blocks.{i}.") for i in range(cfg.n_layers)]
     shared = dense_block("shared_attn.") if cfg.family == "hybrid" else None
     return CausalLM(cfg, table, unembed, param("final_norm.scale", (d,)),
                     blocks, shared)
+
+
+def check_trainable(cfg: ArchConfig, train: bool):
+    if train and cfg.family not in ATTENTION_FAMILIES:
+        raise NotImplementedError(
+            f"training the {cfg.family} family is not ported: its scan "
+            "kernel has no backward (ROADMAP A.20)")
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
@@ -265,21 +295,18 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     ``train=False`` (serving) stores every parameter without gradient in
     the dtype the reference computes with after ``_cast_tree``
     (``serve_dtype``), and no f32 copy of the whole model exists at any
-    time. ``train=True`` (dense family only) keeps every parameter in f32
-    with a gradient: the reference's own master layout, which ``forward``
-    casts at use."""
+    time (a stack of experts is one tensor). ``train=True`` (the dense, moe
+    and vlm families) keeps every parameter in f32 with a gradient: the
+    reference's own master layout, which ``forward`` casts at use."""
     _check_family(cfg)
-    if train and cfg.family != "dense":
-        raise NotImplementedError(
-            f"training the {cfg.family} family is not ported: its scan "
-            "kernel has no backward (ROADMAP A.20)")
+    check_trainable(cfg, train)
     dev = resolve_device(device)
 
     def param(name, shape):
         leaf = name.rsplit(".", 1)[-1]
         if leaf in _FAN_IN or leaf in _NORMAL:
             scale = (_NORMAL.get(leaf) or _FAN_IN[leaf]
-                     or 1.0 / math.sqrt(shape[0]))
+                     or 1.0 / math.sqrt(shape[-2]))
             w = torch.randn(shape, generator=generator, device=dev)
             w.mul_(scale)
         elif leaf == "A_log":
@@ -306,7 +333,10 @@ def _final_logits(params: CausalLM, x):
 
 # the projections' and the MLP's products ((B, S, d) @ (d, n) folds to mm);
 # attention is one opaque kernel call, recomputed, as the reference's Pallas
-# call is (its plain CPU version's batched products are not saved either)
+# call is (its plain CPU version's batched products are not saved either,
+# and it writes them in place). The moe family's expert products are bmm
+# too, so they are recomputed where the reference's policy keeps them: the
+# same values, for more recompute
 _DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
@@ -331,29 +361,47 @@ def _remat(policy: str):
     raise ValueError(policy)
 
 
+def _embed_inputs(params: CausalLM, cfg: ArchConfig, batch, dtype):
+    """The token embeddings, with a vlm batch's ``image_embeds`` placed
+    before the text."""
+    x = L.embed(params.table, batch["tokens"], dtype)
+    if cfg.family == "vlm" and "image_embeds" in batch:
+        x = torch.cat([batch["image_embeds"].to(dtype), x], dim=1)
+    return x
+
+
+def _mean_aux(auxs):
+    """The layers' MoE aux values, each averaged over the layers."""
+    if not auxs or not auxs[0]:
+        return {}
+    return {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
+
+
 def forward(params: CausalLM, cfg: ArchConfig,
             batch: Dict[str, torch.Tensor], *, remat: bool = True,
             remat_policy: str = "full"
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Full-sequence forward: ``batch["tokens"]`` (B, S) -> (logits
-    (B, S, Vp) f32, aux = {}). The recurrent families start from zero
-    states and the hybrid shared block attends with
-    ``cfg.sliding_window``, as in the reference. Differentiable; with
-    ``remat`` (and autograd recording) each block is checkpointed as
-    ``remat_policy`` says."""
+    """Full-sequence forward: ``batch["tokens"]`` (B, S) (and a vlm
+    batch's ``image_embeds``) -> (logits (B, S_total, Vp) f32, aux): aux
+    holds the moe family's layer means of ``moe_aux`` and ``moe_dropped``,
+    else is empty. The recurrent families start from zero states and the
+    hybrid shared block attends with ``cfg.sliding_window``, as in the
+    reference. Differentiable; with ``remat`` (and autograd recording)
+    each block is checkpointed as ``remat_policy`` says."""
     _check_family(cfg)
-    tokens = batch["tokens"]
-    B, S = tokens.shape
     dtype = compute_dtype(cfg)
-    x = L.embed(params.table, tokens, dtype)
+    x = _embed_inputs(params, cfg, batch, dtype)
+    B, S = x.shape[:2]
     run = (_remat(remat_policy) if remat and torch.is_grad_enabled()
            else None)
 
-    def call(block, *args, **kw):
-        """The block's output activations (its other outputs dropped)."""
+    def call(block, *args, keep=(0,), **kw):
+        """The block's outputs at ``keep`` (by default its activations)."""
         def fn(*a, **k):
-            return block(*a, **k)[0]
-        return fn(*args, **kw) if run is None else run(fn, *args, **kw)
+            out = block(*a, **k)
+            return tuple(out[i] for i in keep)
+        out = fn(*args, **kw) if run is None else run(fn, *args, **kw)
+        return out if len(keep) > 1 else out[0]
 
     window = cfg.sliding_window
     if cfg.family == "ssm":
@@ -367,10 +415,13 @@ def forward(params: CausalLM, cfg: ArchConfig,
         return _final_logits(params, x), {}
 
     rope, rot_dim = params.rope(0, S)
-    if cfg.family == "dense":
+    if cfg.family in ATTENTION_FAMILIES:
+        auxs = []
         for block in params.blocks:
-            x = call(block, x, rope, rot_dim, window=window)
-        return _final_logits(params, x), {}
+            x, aux = call(block, x, rope, rot_dim, window=window,
+                          keep=(0, 2))
+            auxs.append(aux)
+        return _final_logits(params, x), _mean_aux(auxs)
 
     state = M2.mamba2_state_init(cfg, B, dtype, x.device)
     for lo, hi, full in hybrid_groups(cfg):
@@ -418,26 +469,28 @@ def _rwkv_layer(block, x, cache, li, shift_att, shift_ffn):
 
 @torch.no_grad()
 def prefill(params: CausalLM, cfg: ArchConfig, batch, cache):
-    """Consume the prompt ``batch["tokens"]`` (B, S), fill ``cache`` in
-    place and return (last-token logits (B, 1, Vp) f32, cache).
+    """Consume the prompt ``batch["tokens"]`` (B, S) (a vlm batch's
+    ``image_embeds`` before it, so that S counts the image positions too),
+    fill ``cache`` in place and return (last-token logits (B, 1, Vp) f32,
+    cache).
 
     Attention layers keep their K/V of the last ``min(S, max_len)``
     positions at ring-aligned slots (``_fill_ring``); recurrent layers
     run the prompt from the cache's state and store the final one."""
     _check_family(cfg)
-    tokens = batch["tokens"]
-    B, S = tokens.shape
     dtype = compute_dtype(cfg)
-    x = L.embed(params.table, tokens, dtype)
+    x = _embed_inputs(params, cfg, batch, dtype)
+    B, S = x.shape[:2]
     if cfg.family == "ssm":
         zero_prev = torch.zeros((B, cfg.d_model), dtype=dtype,
                                 device=x.device)
         for li, block in enumerate(params.blocks):
             x = _rwkv_layer(block, x, cache, li, zero_prev, zero_prev)
-    elif cfg.family == "dense":
+    elif cfg.family in ATTENTION_FAMILIES:
         rope, rot_dim = params.rope(0, S)
         for li, block in enumerate(params.blocks):
-            x, (k1, v1) = block(x, rope, rot_dim, window=cfg.sliding_window)
+            x, (k1, v1), _ = block(x, rope, rot_dim,
+                                   window=cfg.sliding_window)
             _fill_ring(cache["attn"], li, k1, v1, S)
     else:
         rope, rot_dim = params.rope(0, S)
@@ -446,8 +499,8 @@ def prefill(params: CausalLM, cfg: ArchConfig, batch, cache):
             for li in range(lo, hi):
                 x = _mamba_layer(params.blocks[li], x, cache["mamba"], li)
             if full:
-                x, (k1, v1) = params.shared_attn(x, rope, rot_dim,
-                                                 window=window)
+                x, (k1, v1), _ = params.shared_attn(x, rope, rot_dim,
+                                                    window=window)
                 _fill_ring(cache["attn"], g, k1, v1, S)
     cache["pos"] = S
     return _final_logits(params, x[:, -1:]), cache
@@ -460,7 +513,8 @@ def decode_step(params: CausalLM, cfg: ArchConfig, cache, tokens,
     ``cache["pos"]``. Updates ``cache`` in place (the token's K/V, the
     recurrent states) and returns (logits (B, 1, Vp) f32, cache) with
     ``pos`` advanced. ``window_override`` applies to the dense family; the
-    hybrid ring's size is its window."""
+    hybrid ring's size is its window. The moe family's decode groups are
+    dropless (``moe.groups_and_capacity``)."""
     _check_family(cfg)
     pos = cache["pos"]
     x = L.embed(params.table, tokens, compute_dtype(cfg))
@@ -468,15 +522,15 @@ def decode_step(params: CausalLM, cfg: ArchConfig, cache, tokens,
         for li, block in enumerate(params.blocks):
             x = _rwkv_layer(block, x, cache, li, cache["shift_att"][li],
                             cache["shift_ffn"][li])
-    elif cfg.family == "dense":
+    elif cfg.family in ATTENTION_FAMILIES:
         window = (window_override if window_override is not None
                   else cfg.sliding_window)
         ck, cv, kv_pos = (cache["attn"][n] for n in ("k", "v", "kv_pos"))
         ring = window > 0 and ck.shape[2] <= window
         rope, rot_dim = params.rope(pos, 1)
         for li, block in enumerate(params.blocks):
-            x, _ = block(x, rope, rot_dim, pos=pos, window=window,
-                         cache=(ck[li], cv[li], kv_pos[li], ring))
+            x, _, _ = block(x, rope, rot_dim, pos=pos, window=window,
+                            cache=(ck[li], cv[li], kv_pos[li], ring))
     else:
         ck, cv, kv_pos = (cache["attn"][n] for n in ("k", "v", "kv_pos"))
         window = ck.shape[2]
@@ -485,7 +539,7 @@ def decode_step(params: CausalLM, cfg: ArchConfig, cache, tokens,
             for li in range(lo, hi):
                 x = _mamba_layer(params.blocks[li], x, cache["mamba"], li)
             if full:
-                x, _ = params.shared_attn(
+                x, _, _ = params.shared_attn(
                     x, rope, rot_dim, pos=pos, window=window,
                     cache=(ck[g], cv[g], kv_pos[g], True))
     cache["pos"] = pos + 1

@@ -1,6 +1,6 @@
 """Step functions (port of ``repro/models/steps.py``): the loss and the
-train step of the dense family, and the serving steps of the dense,
-hybrid and ssm families.
+train step of the dense, moe and vlm families, and the serving steps of
+the dense, moe, vlm, hybrid and ssm families.
 
 The factories close over the configs, as the reference's do, so a caller
 holds only params, optimizer state, batch and cache. ``make_train_step``'s
@@ -42,8 +42,10 @@ def cross_entropy(logits, labels, mask):
 
 def loss_fn(params, cfg: ArchConfig, batch, *, remat=True,
             remat_policy="full"):
-    """Next-token cross entropy over ``batch["tokens"]`` (B, S): returns
-    (loss, metrics = {"loss": loss, **aux})."""
+    """Next-token cross entropy over the text stream ``batch["tokens"]``
+    (B, S) (a vlm batch's image positions give no loss), plus 0.01 ×
+    ``moe_aux`` for the moe family: returns (loss, metrics = {"loss":
+    loss, **aux})."""
     logits, aux = MODEL.forward(params, cfg, batch, remat=remat,
                                 remat_policy=remat_policy)
     tokens = batch["tokens"]
@@ -53,6 +55,8 @@ def loss_fn(params, cfg: ArchConfig, batch, *, remat=True,
     mask = torch.ones(labels.shape, dtype=torch.float32,
                       device=labels.device)
     loss = cross_entropy(pred, labels, mask)
+    if "moe_aux" in aux:
+        loss = loss + 0.01 * aux["moe_aux"]
     return loss, {"loss": loss, **aux}
 
 
@@ -65,22 +69,25 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig):
     lr_fn = schedules.warmup_cosine(tcfg)
 
     def train_step(params, opt_state: adamw.AdamWState, batch):
-        """One AdamW update from ``batch`` (split into
+        """One AdamW update from ``batch`` (every entry split into
         ``tcfg.microbatches`` equal row chunks whose f32 gradients are
         summed, then averaged, as the reference's scan does), with global
         clipping and the 1-based lr step. Returns (params, opt_state,
-        metrics with loss, grad_norm and lr as 0-dim tensors)."""
+        metrics with loss, grad_norm, lr and any aux, as 0-dim
+        tensors)."""
         M = tcfg.microbatches
-        tokens = batch["tokens"]
-        if tokens.shape[0] % M:
-            raise ValueError(f"batch of {tokens.shape[0]} rows does not "
+        rows = batch["tokens"].shape[0]
+        if rows % M:
+            raise ValueError(f"batch of {rows} rows does not "
                              f"split into {M} microbatches")
         named = dict(params.named_parameters())
         for p in named.values():
             p.grad = None
         metrics = {}
-        for chunk in torch.split(tokens, tokens.shape[0] // M):
-            loss, mb_metrics = loss_fn(params, cfg, {"tokens": chunk},
+        for i in range(M):
+            chunk = {k: v[i * rows // M:(i + 1) * rows // M]
+                     for k, v in batch.items()}
+            loss, mb_metrics = loss_fn(params, cfg, chunk,
                                        remat=tcfg.remat,
                                        remat_policy=tcfg.remat_policy)
             loss.backward()       # accumulates f32 gradients in .grad
@@ -106,7 +113,8 @@ def make_prefill_step(cfg: ArchConfig, shape: InputShape,
                       window_override: Optional[int] = None):
     def prefill_step(params, batch):
         """A fresh cache of ``shape.seq_len`` slots (bf16, on the tokens'
-        device), filled from the prompt; returns (last logits, cache)."""
+        device; a vlm prompt's image positions take slots too), filled
+        from the prompt; returns (last logits, cache)."""
         tokens = batch["tokens"]
         cache = serve_cache_init(cfg, tokens.shape[0], shape.seq_len,
                                  window_override=window_override,

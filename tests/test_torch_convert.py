@@ -95,7 +95,7 @@ def test_port_imports_neither_jax_nor_the_reference():
         "for m in ('core.topology', 'core.distributed', 'launch.mesh',\n"
         "          'analysis.op_passes', 'launch.bmf_lint',\n"
         "          'roofline.analysis', 'roofline.op_cost',\n"
-        "          'launch.bmf_dryrun'):\n"
+        "          'launch.bmf_dryrun', 'models.moe'):\n"
         "    assert 'repro_torch.' + m in names, names\n"
         "sys.path.insert(0, '..')\n"
         "import chip_smoke\n"
@@ -111,14 +111,16 @@ def test_port_imports_neither_jax_nor_the_reference():
 
 @pytest.mark.parametrize("arch,kw", [
     ("zamba2_7b", dict(n_layers=9, d_model=512, shared_attn_period=4)),
-    ("rwkv6_7b", dict(n_layers=8, d_model=512))],
-    ids=["hybrid", "ssm"])
+    ("rwkv6_7b", dict(n_layers=8, d_model=512)),
+    ("granite_moe_1b_a400m", dict(n_layers=8, d_model=512, n_experts=8))],
+    ids=["hybrid", "ssm", "moe"])
 def test_recurrent_params_round_trip_applies_the_cast_rule(arch, kw):
-    """The hybrid and ssm pytrees (numpy -> port -> numpy) in the bf16
-    serving layout, at a width where the reference's ``_cast_tree`` rule
-    casts some small parameters and not others because it looks at the
-    stacked (L, …) arrays: each parameter is stored in bf16 exactly when
-    the reference casts it, and the values come back equal."""
+    """The hybrid, ssm and moe pytrees (numpy -> port -> numpy) in the
+    bf16 serving layout, at a width where the reference's ``_cast_tree``
+    rule casts some small parameters and not others because it looks at
+    the stacked (L, …) arrays (the moe family's router (L, d, E) and its
+    experts (L, E, …)): each parameter is stored in bf16 exactly when the
+    reference casts it, and the values come back equal."""
     import jax
     import jax.numpy as jnp
     from repro.models import model as JM
@@ -137,8 +139,9 @@ def test_recurrent_params_round_trip_applies_the_cast_rule(arch, kw):
             t.dtype == torch.bfloat16)
     assert {k: {v} for k, v in want_dtype.items()} == got_dtype
     # the rule bites below the matrices: stacked conv / mix arrays
-    small = ("blocks/mixer/conv_x" if arch == "zamba2_7b"
-             else "blocks/att/mix_base")
+    small = {"zamba2_7b": "blocks/mixer/conv_x",
+             "rwkv6_7b": "blocks/att/mix_base",
+             "granite_moe_1b_a400m": "blocks/mlp/router"}[arch]
     assert want_dtype[small] and not want_dtype["final_norm/scale"]
     back = CV.llm_params_to_numpy(params)
     want = jax.tree.map(lambda a: np.asarray(a, np.float32), cast)

@@ -265,7 +265,7 @@ def test_serving_state_size_is_independent_of_seq_len(arch):
 
 def test_other_families_still_raise():
     cfg = dataclasses.replace(TCB.get_config("rwkv6_7b").smoke_variant(),
-                              family="moe")
+                              family="audio")
     with pytest.raises(NotImplementedError):
         TM.init_params(cfg, torch.Generator(), "cpu")
     with pytest.raises(NotImplementedError):

@@ -1,9 +1,12 @@
-"""The dense-LLM training path of the port (loss, AdamW, schedules, the
-train step with microbatches and remat, parameter and optimizer-state
+"""The LLM training path of the port (loss, AdamW, schedules, the train
+step with microbatches and remat, parameter and optimizer-state
 conversion, the training CLI) against the JAX reference.
 
 The models are the ``smoke_variant`` of Qwen3-4B (GQA, qk-norm, padded
-vocabulary) and Llama-3-8B in f32 with ``n_kv_heads=2``, B = 2, S = 512,
+vocabulary), Llama-3-8B, Granite-MoE (the loss adds 0.01 × ``moe_aux``;
+the metrics carry ``moe_aux`` and ``moe_dropped``) and InternVL2 (8 image
+positions before the text, which give no loss) in f32 with
+``n_kv_heads=2``, B = 2, S = 512,
 both packages starting from the reference's ``init_params`` (carried with
 ``convert.llm_params_from_numpy(..., train=True)``) and seeing the same
 tokens. The reference runs its Pallas flash-attention forward and backward
@@ -25,7 +28,7 @@ from repro_torch.optim import adamw as TA
 from repro_torch.optim import schedules as TS
 from torch_helpers import assert_rel_close, llm_cfgs, np_tree
 
-ARCHS = ["qwen3_4b", "llama3_8b"]
+ARCHS = ["qwen3_4b", "llama3_8b", "granite_moe_1b_a400m", "internvl2_1b"]
 B, S, N_STEPS = 2, 512, 3
 TRAIN_KW = dict(learning_rate=1e-3, warmup_steps=2, total_steps=10)
 
@@ -53,9 +56,23 @@ MOMENT_RTOL = 2e-4
 FLIP_FRACTION = 2e-4
 
 
+def _batches(cfg, n, seed=0):
+    """``n`` numpy batches of S positions: tokens and, for a vlm config,
+    the bf16 image embeddings as f32, the text then S - n_image_tokens
+    long (the reference's Pallas attention differentiates only whole
+    tiles of 512 positions)."""
+    seq = S - (cfg.n_image_tokens if cfg.family == "vlm" else 0)
+    gen = TTOK.synthetic_token_batches(cfg, B, seq, seed=seed, device="cpu")
+    return [{k: v.float().numpy() if k == "image_embeds" else v.numpy()
+             for k, v in next(gen).items()} for _ in range(n)]
+
+
 def _tokens(cfg, n, seed=0):
-    gen = TTOK.synthetic_token_batches(cfg, B, S, seed=seed, device="cpu")
-    return [next(gen)["tokens"].numpy() for _ in range(n)]
+    return [b["tokens"] for b in _batches(cfg, n, seed)]
+
+
+def _as(batch, conv):
+    return {k: conv(v) for k, v in batch.items()}
 
 
 class _ReferenceRun:
@@ -74,14 +91,14 @@ class _ReferenceRun:
         jtcfg = TrainConfig(**dataclasses.asdict(self.tcfg))
         tree = JM.init_params(jax.random.key(0), self.jcfg)
         self.tree0 = np_tree(tree)
-        self.tokens = _tokens(self.cfg, N_STEPS)
+        self.batches = _batches(self.cfg, N_STEPS)
         opt = JA.init(tree)
         self.metrics = []
         with pytest.MonkeyPatch.context() as mp:
             mp.setenv("REPRO_PALLAS_ATTN", "1")
             step = jax.jit(JST.make_train_step(self.jcfg, jtcfg))
-            for toks in self.tokens:
-                tree, opt, m = step(tree, opt, {"tokens": jnp.asarray(toks)})
+            for batch in self.batches:
+                tree, opt, m = step(tree, opt, _as(batch, jnp.asarray))
                 self.metrics.append({k: float(v) for k, v in m.items()})
         self.tree = np_tree(tree)
         self.opt = np_tree(opt._asdict())
@@ -145,14 +162,19 @@ def test_loss_fn_matches_reference(arch):
     tree = JM.init_params(jax.random.key(0), ref.jcfg)
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("REPRO_PALLAS_ATTN", "1")
-        want, _ = jloss(tree, ref.jcfg, {"tokens": jnp.asarray(
-            ref.tokens[0])}, remat=False)
+        want, wmetrics = jloss(tree, ref.jcfg,
+                               _as(ref.batches[0], jnp.asarray), remat=False)
     params = CV.llm_params_from_numpy(ref.tree0, ref.cfg, "cpu", train=True)
     got, metrics = TST.loss_fn(params, ref.cfg,
-                               {"tokens": torch.from_numpy(ref.tokens[0])},
+                               _as(ref.batches[0], torch.from_numpy),
                                remat=False)
     assert metrics["loss"] is got
     assert_rel_close(got.detach().numpy(), np.asarray(want), 1e-5)
+    assert set(metrics) == set(wmetrics)
+    for k in wmetrics:
+        np.testing.assert_allclose(float(metrics[k].detach()),
+                                   float(wmetrics[k]),
+                                   rtol=1e-5, atol=1e-6, err_msg=k)
 
 
 # ---------------------------------------------------------------------------
@@ -241,8 +263,8 @@ def _port_run(ref, **tcfg_kw):
     tcfg = dataclasses.replace(ref.tcfg, **tcfg_kw)
     step = TST.make_train_step(ref.cfg, tcfg)
     metrics = []
-    for toks in ref.tokens:
-        params, opt, m = step(params, opt, {"tokens": torch.from_numpy(toks)})
+    for batch in ref.batches:
+        params, opt, m = step(params, opt, _as(batch, torch.from_numpy))
         metrics.append({k: float(v) for k, v in m.items()})
     return params, opt, metrics
 
@@ -252,11 +274,15 @@ def _port_run(ref, **tcfg_kw):
 def test_train_steps_match_reference(arch, microbatches):
     ref = reference_run(arch, microbatches)
     params, opt, metrics = _port_run(ref)
+    aux = {"moe_aux", "moe_dropped"} if ref.cfg.is_moe else set()
     for got, want in zip(metrics, ref.metrics):
-        assert set(got) == set(want) == {"loss", "grad_norm", "lr"}
+        assert set(got) == set(want) == {"loss", "grad_norm", "lr"} | aux
         for k, rtol in (("loss", 1e-5), ("grad_norm", 1e-5), ("lr", 1e-6)):
             np.testing.assert_allclose(got[k], want[k], rtol=rtol,
                                        err_msg=k)
+        for k in aux:
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-5,
+                                       atol=1e-6, err_msg=k)
     assert opt.step == int(ref.opt["step"]) == N_STEPS
 
     lr_sum = sum(m["lr"] for m in ref.metrics)
