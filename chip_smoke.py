@@ -205,11 +205,32 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      depth (24 layers): the one-sequence check under the TRAIN_* limits,
      then 6 steps with exact L1/L2 launch counts; the model-FLOP share
      counts the active parameters (router and top-8 experts);
- 16. ``[examples]``: the port's four ``examples/torch_*.py`` as
+ 16. ``[whisper-parity]``: L1, L3 and L2 at whisper-medium's attention
+     (MHA, H = Hkv = 16, hd 64: GQA group 1), bf16, against their plain
+     versions and timed as in phases 5 and 7: L1 over the encoder's
+     1,500 frames (non-causal, a ragged length), the decoder's causal
+     4,000-token prompt and its cross-attention (4,000 queries over
+     1,500 frames); L3 over a full 4,096-slot self cache and the
+     1,500-slot cross cache; L2 (B = 2) over the frames and the
+     cross-attention of 4,096 queries over 1,500 frames;
+ 17. ``[whisper-serve]``: whisper-medium at full width and depth (24
+     encoder and 24 decoder layers) with phase 6's text traffic, each
+     prompt over 1,500 seeded stub frames: exact launch counts (L1 72 per
+     prefill: 24 encoder, 24 self, 24 cross, all sm90; L3 48 per decode
+     step), and the logits of 2 sequences against the serve path itself
+     replayed through the plain kernel versions, bf16 and f32 (its
+     decode adds no position to the token, as the reference's does not,
+     so it is not its forward), within LOGIT_TOL and LOGIT_MEDIAN_TOL;
+ 18. ``[whisper-train]``: phase 8 for whisper-medium at full width and
+     depth, 4 x 4,096 tokens over 4 x 1,500 frames: the one-sequence
+     check under the TRAIN_* limits, then 6 steps with L1 288 and L2 144
+     launches a step (72 attention calls a microbatch, L1 again under
+     remat);
+ 19. ``[examples]``: the port's four ``examples/torch_*.py`` as
      subprocesses at their defaults, all started together (the LLM one
-     for mixtral-8x7b and granite-moe-1b-a400m); each must exit 0 with
-     ``OK``;
- 17. summary: one JSON line ``{"kernels": [...]}`` (L1 and L2 with each
+     for mixtral-8x7b, granite-moe-1b-a400m and whisper-medium); each
+     must exit 0 with ``OK``;
+ 20. summary: one JSON line ``{"kernels": [...]}`` (L1 and L2 with each
      variant's launches and times, launches by path) and, last, the
      ``{"ok": true, "device": {...}}`` line. ``[time]`` lines give the
      run's seconds after each group of phases.
@@ -317,6 +338,19 @@ LOGIT_MEDIAN_TOL = {LLM_ARCH: 0.15, HYBRID_ARCH: 0.4, SSM_ARCH: 0.2,
 # ring: it decodes this many steps past the context, which wraps the ring
 # over its oldest slots
 RING_WRAP_STEPS = 8
+# the audio family: whisper-medium at full width and depth (24 encoder
+# and 24 decoder layers, MHA: GQA group 1), phase 6's text traffic over
+# 8 x 1,500 seeded stub frames, and phase 8's train traffic (4 x 4,096
+# tokens over 4 x 1,500 frames) at full depth. Its serve logits are held
+# against the serve path replayed through the plain kernels (its decode
+# adds no position to the token, as the reference's does not, so it is
+# not its forward), under the dense models' max limit. On the H100 the
+# plain bf16 replay sits 0.0588 from the f32 replay, and the serve path
+# 0.0643 (max) and 0.0490 (median decode step) from the plain bf16
+# replay; the median's limit is about twice its reading
+WHISPER_ARCH = "whisper_medium"
+LOGIT_TOL[WHISPER_ARCH] = 0.2
+LOGIT_MEDIAN_TOL[WHISPER_ARCH] = 0.1
 
 # L4/L5 vs their plain chunked versions on the card, relative to the
 # largest plain value (y and the final state): both f32; the kernels sum
@@ -1747,7 +1781,8 @@ def _attn_line(name, case, dtype, err, scale, tol, ms, pms, bd, lib,
         f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms "
         f"({n_bytes / ms / 1e9:.3f} TB/s), plain {pms:.3f} ms, "
         f"bound {bd[0]:.4f} ms ({bd[1]}), library (SDPA"
-        f"{' backward' if tag == 'l2-parity' else ''}) {lib:.4f} ms{note}")
+        f"{' backward' if name == 'flash_attention_bwd' else ''}) "
+        f"{lib:.4f} ms{note}")
     if not ok:
         raise AssertionError(f"{name} {case} {dtype} disagrees with its "
                              f"plain version")
@@ -1762,21 +1797,18 @@ def _tdt(dtype):
 
 
 def _l1_case(g, dev, case, B, S, H, Hkv, hd, causal, window, dtype,
-             tag="llm-parity"):
+             tag="llm-parity", Skv=None):
     """L1 against its plain version (on the first LLM_CHECK sequences),
-    timed at the full batch beside the plain version, the bound and SDPA."""
+    timed at the full batch beside the plain version, the bound and SDPA;
+    S queries over ``Skv`` keys (by default S)."""
     import torch
     from repro_torch.kernels.flash_attention import ops as L1
-    i = torch.arange(S, device=dev)[:, None]
-    j = torch.arange(S, device=dev)[None, :]
-    mask = torch.ones((S, S), dtype=torch.bool, device=dev)
-    if causal:
-        mask &= j <= i
-    if window:
-        mask &= j > i - window
+    from repro_torch.kernels.flash_attention.ref import attention_mask
+    Skv = Skv or S
+    mask = attention_mask(S, Skv, causal, window, dev)
     pairs = int(mask.sum())
     q = torch.randn((B, S, H, hd), generator=g, device=dev).to(_tdt(dtype))
-    k, v = (torch.randn((B, S, Hkv, hd), generator=g,
+    k, v = (torch.randn((B, Skv, Hkv, hd), generator=g,
                         device=dev).to(_tdt(dtype)) for _ in range(2))
 
     def kern():
@@ -1813,14 +1845,15 @@ def _l1_case(g, dev, case, B, S, H, Hkv, hd, causal, window, dtype,
 def _l3_case(g, dev, case, B, S, H, Hkv, hd, window, dtype,
              tag="llm-parity"):
     """L3 against its plain version over a cache laid out as ``case``
-    says (full, empty-*, ring-*), timed beside the bound and SDPA."""
+    says (its name holds full, empty or else is a ring), timed beside the
+    bound and SDPA."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops as L3
     from repro_torch.kernels.decode_attention.ref import slot_valid
-    if case.startswith("full"):
+    if "full" in case:
         kv_pos, q_pos = torch.arange(S, device=dev), S - 1
-    elif case.startswith("empty"):
+    elif "empty" in case:
         n = int(0.6 * S)
         ar = torch.arange(S, device=dev)
         kv_pos, q_pos = torch.where(ar < n, ar, -1), n - 1
@@ -1975,6 +2008,44 @@ def phase_hd112_parity(dev):
     return results
 
 
+def phase_whisper_parity(dev):
+    """L1, L3 and L2 at whisper-medium's attention (MHA: H = Hkv = 16, hd
+    64, group 1), bf16 as served and trained: L1 over the encoder's 1,500
+    frames (non-causal, ragged: 23 x 64 + 28), the decoder's causal
+    4,000-token prompt and its cross-attention (4,000 queries over 1,500
+    frames); L3 over a full 4,096-slot self cache and the 1,500-slot cross
+    cache (every slot counts); L2 at B = 2 over the encoder's frames and
+    the cross-attention of 4,096 queries over 1,500 frames."""
+    import torch
+    from repro_torch.configs.base import get_config
+    cfg = get_config(WHISPER_ARCH)
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    F, tag = cfg.n_audio_frames, "whisper-parity"
+    pre = f"hd{hd}-group{H // Hkv}"
+    g = torch.Generator(device=dev).manual_seed(4)
+    results = {"flash_attention": [], "decode_attention": [],
+               "flash_attention_bwd": []}
+    for case, S, Skv, causal in (
+            (f"encoder-noncausal-{F}", F, F, False),
+            (f"decoder-causal-{LLM_PROMPT}", LLM_PROMPT, LLM_PROMPT, True),
+            (f"cross-{LLM_PROMPT}x{F}", LLM_PROMPT, F, False)):
+        results["flash_attention"].append(_l1_case(
+            g, dev, f"{pre}-{case}", LLM_BATCH, S, H, Hkv, hd, causal, 0,
+            "bf16", tag=tag, Skv=Skv))
+    for case, S in ((f"self-full-{LLM_CONTEXT}", LLM_CONTEXT),
+                    (f"cross-full-{F}", F)):
+        results["decode_attention"].append(_l3_case(
+            g, dev, f"{pre}-{case}", LLM_BATCH, S, H, Hkv, hd, 0, "bf16",
+            tag=tag))
+    for case, S, Skv in ((f"encoder-noncausal-{F}", F, F),
+                         (f"cross-{L2_SEQ}x{F}", L2_SEQ, F)):
+        results["flash_attention_bwd"].append(_l2_case(
+            g, dev, f"{pre}-{case}", L2_BATCH, S, H, Hkv, hd, False, 0,
+            "bf16", tag=tag, Skv=Skv))
+    torch.cuda.empty_cache()
+    return results
+
+
 def phase_hd64_parity(dev):
     """L1 and L3 at the moe and vlm families' hd 64 attention, bf16 and
     fp32: Granite-MoE (H = 16 over Hkv = 8, group 2) and InternVL2 (H = 14
@@ -2001,12 +2072,13 @@ def phase_hd64_parity(dev):
 
 
 # the examples as a user runs them, at their defaults (the reference's),
-# the LLM one at the moe family's two archs
+# the LLM one at the moe family's two archs and the audio family's
 EXAMPLES = (("torch_e2e_bmf_webscale", ()),
             ("torch_pp_block_exploration", ()),
             ("torch_distributed_block", ()),
             ("torch_llm_smoke_train", ("--arch", MIXTRAL_ARCH)),
-            ("torch_llm_smoke_train", ("--arch", MOE_ARCH)))
+            ("torch_llm_smoke_train", ("--arch", MOE_ARCH)),
+            ("torch_llm_smoke_train", ("--arch", WHISPER_ARCH)))
 EXAMPLE_TIMEOUT_S = 600
 
 
@@ -2177,6 +2249,10 @@ def _describe(cfg):
             mix += f", window {cfg.sliding_window}"
         if cfg.family == "vlm":
             mix += f", {cfg.n_image_tokens} image positions"
+        if cfg.is_encdec:
+            mix += (f", {cfg.n_encoder_layers} encoder layers over "
+                    f"{cfg.n_audio_frames} stub frames, cross-attention in "
+                    f"every decoder layer")
     return (f"{cfg.name} ({cfg.family}): {cfg.n_layers} layers, d_model "
             f"{cfg.d_model}, {mix}, vocab {cfg.vocab_size} (padded "
             f"{cfg.padded_vocab_size})")
@@ -2186,14 +2262,16 @@ def _expected_launches(cfg, n_steps):
     """The kernels the serve path must launch, by family: L1 per
     attention layer in prefill, every one the bf16 sm90 kernel, L3 per
     attention layer and decode step, L4 / L5 per recurrent layer in
-    prefill; nothing else."""
+    prefill; nothing else. The audio family's decoder layers attend
+    twice (self and cross) in prefill and in every decode step, and its
+    encoder layers once in prefill."""
     counts = {name: 0 for name in [*_wrappers(), *SM90]}
     n_attn = {"dense": cfg.n_layers, "moe": cfg.n_layers,
-              "vlm": cfg.n_layers,
+              "vlm": cfg.n_layers, "audio": 2 * cfg.n_layers,
               "hybrid": cfg.n_layers // max(cfg.shared_attn_period, 1),
               "ssm": 0}[cfg.family]
-    counts["flash_attention"] = n_attn
-    counts["flash_attention_sm90"] = n_attn
+    counts["flash_attention"] = n_attn + cfg.n_encoder_layers
+    counts["flash_attention_sm90"] = n_attn + cfg.n_encoder_layers
     counts["decode_attention"] = n_attn * n_steps
     if cfg.family == "hybrid":
         counts["ssd_chunk"] = cfg.n_layers
@@ -2214,18 +2292,23 @@ def _tensor_bytes(tree):
 def phase_serve(dev, arch, tag, n_layers=None, past=0):
     """One model at full width (and full depth, or ``n_layers``): prefill
     of 8 x 4,000 positions into a 4,096-position context (a vlm prompt:
-    its image positions, then text), 96 teacher-forced decode steps and
-    ``past`` more beyond the context (a ring cache wraps), exact launch
-    counts, and the logits of 2 sequences against the port's forward over
-    all positions through the plain kernel versions; for the moe family
-    that forward calls the MoE layers on the tokens as the serve path does
+    its image positions, then text; an audio prompt: 4,000 text tokens
+    over its 1,500 frames), 96 teacher-forced decode steps and ``past``
+    more beyond the context (a ring cache wraps), exact launch counts, and
+    the logits of 2 sequences against the port's forward over all
+    positions through the plain kernel versions; for the moe family that
+    forward calls the MoE layers on the tokens as the serve path does
     (``_serve_grouped_moe``), and an untimed second run records the kept
-    experts, the drops and the ties (``_moe_replay``)."""
+    experts, the drops and the ties (``_moe_replay``). The audio family's
+    decode adds no position to the token, as the reference's does not, so
+    it is not its forward: it is held against the serve path itself
+    replayed through the plain kernel versions (``_serve_replay``)."""
     import torch
     from contextlib import ExitStack
     from unittest import mock
     from repro_torch.configs.base import InputShape, get_config
     from repro_torch.data.tokens import synthetic_token_batches
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.ssd_chunk.ref import ssd_chunked
     from repro_torch.kernels.wkv6.ref import wkv_chunked
@@ -2317,10 +2400,17 @@ def phase_serve(dev, arch, tag, n_layers=None, past=0):
         return flash_attention_ref(q, k, v, causal=causal,
                                    window=window).to(q.dtype)
 
-    # the reference: the port's forward over all positions with the
-    # plain kernel versions, in bf16 as served, and in f32 on the same
-    # (bf16) weights, which shows how far bf16 rounding alone moves the
-    # logits
+    def plain_decode(q, k, v, kv_pos, q_pos, window=0):
+        return decode_attention_ref(q, k, v, kv_pos, q_pos,
+                                    window).to(q.dtype)
+
+    # the reference: the port's forward over all positions (the audio
+    # family: its serve path) with the plain kernel versions, in bf16 as
+    # served, and in f32 on the same (bf16) weights, which shows how far
+    # bf16 rounding alone moves the logits
+    what = ("the serve path replayed through the plain kernels"
+            if cfg.is_encdec else "the plain forward")
+    kind = "replay" if cfg.is_encdec else "forward"
     V = cfg.vocab_size
     got = torch.stack(kept, dim=1)[..., :V]
     refs, ref_keeps = {}, []
@@ -2329,6 +2419,7 @@ def phase_serve(dev, arch, tag, n_layers=None, past=0):
              **{k: v[:LLM_CHECK] for k, v in batch.items()}}
     with ExitStack() as stack:
         for mod, name, fn in ((LY, "flash_attention", plain_attention),
+                              (LY, "decode_attention", plain_decode),
                               (M2, "ssd_scan", ssd_chunked),
                               (R6, "wkv6", wkv_chunked),
                               (MOE, "moe_apply", _serve_grouped_moe(
@@ -2337,8 +2428,12 @@ def phase_serve(dev, arch, tag, n_layers=None, past=0):
             stack.enter_context(mock.patch.object(mod, name, fn))
         for name, c in (("bf16", cfg),
                         ("f32", dataclasses.replace(cfg, dtype="float32"))):
-            full, _ = LM.forward(params, c, check)
-            refs[name] = full[:, LLM_PROMPT - 1:, :V].clone()
+            if cfg.is_encdec:
+                full = _serve_replay(params, c, check, prompt)
+                refs[name] = full[..., :V].clone()
+            else:
+                full, _ = LM.forward(params, c, check)
+                refs[name] = full[:, LLM_PROMPT - 1:, :V].clone()
             del full
             torch.cuda.empty_cache()
             if name == "bf16" and cfg.is_moe:
@@ -2356,7 +2451,7 @@ def phase_serve(dev, arch, tag, n_layers=None, past=0):
     r_p32, _, a_p32, _ = compare(refs["bf16"], refs["f32"])
     median = float(per_step[1:].median())
     wrap = float(per_step[-past:].median()) if past else 0.0
-    log(f"[{tag}-serve] vs the plain forward over {end} positions "
+    log(f"[{tag}-serve] vs {what} over {end} positions "
         f"({LLM_CHECK} sequences, {time.time() - t0:.1f}s): max |d logit| / "
         f"rms(logits) {ratio:.4g} (rms {rms:.4g}; "
         + (f"limit {LOGIT_TOL[arch]}" if replay is None
@@ -2367,9 +2462,9 @@ def phase_serve(dev, arch, tag, n_layers=None, past=0):
         f"{LOGIT_MEDIAN_TOL[arch]})"
         + (f", median of the {past} past the ring {wrap:.4g}" if past else "")
         + f"; argmax agreement {agree:.4f}. "
-        f"Against the f32 forward: serve path {r_k32:.4g} (argmax "
-        f"{a_k32:.4f}; limit {F32_GAP_TOL} x the plain bf16 forward's), "
-        f"plain bf16 forward {r_p32:.4g} (argmax {a_p32:.4f})")
+        f"Against the f32 {kind}: serve path {r_k32:.4g} (argmax "
+        f"{a_k32:.4f}; limit {F32_GAP_TOL} x the plain bf16 {kind}'s), "
+        f"plain bf16 {kind} {r_p32:.4g} (argmax {a_p32:.4f})")
     if replay is not None:
         # a (sequence, step) at which the replay kept another expert set
         # for the token than the reference did, at any layer, moves by
@@ -2387,16 +2482,39 @@ def phase_serve(dev, arch, tag, n_layers=None, past=0):
             f"{float((r_logits[..., :V] - got).abs().max()) / rms:.4g}")
         ratio = steady
     assert ratio <= LOGIT_TOL[arch], \
-        f"{arch}: serve path disagrees with the plain forward"
+        f"{arch}: serve path disagrees with {what}"
     assert median <= LOGIT_MEDIAN_TOL[arch], \
-        f"{arch}: serve path's decode steps move off the plain forward"
+        f"{arch}: serve path's decode steps move off {what}"
     assert wrap <= LOGIT_MEDIAN_TOL[arch], \
-        f"{arch}: serve path moves off the plain forward past the ring"
+        f"{arch}: serve path moves off {what} past the ring"
     assert r_k32 <= F32_GAP_TOL * r_p32, \
         f"{arch}: serve path is farther from the f32 forward than bf16 rounding"
     del params, refs, got, kept
     torch.cuda.empty_cache()
     return counts
+
+
+def _serve_replay(params, cfg, batch, prompt):
+    """The serve path's logits for ``batch`` (its rows): prefill of the
+    first ``prompt`` tokens into a fresh LLM_CONTEXT-slot cache in
+    ``cfg``'s compute dtype, then one teacher-forced decode step per later
+    token; (rows, 1 + steps, Vp). Run under the plain kernel versions, it
+    is the audio family's reference (its decode is not its forward)."""
+    import torch
+    from repro_torch.models import kvcache as KV
+    from repro_torch.models import model as LM
+    tokens = batch["tokens"]
+    cache = KV.serve_cache_init(cfg, tokens.shape[0], LLM_CONTEXT,
+                                dtype=LM.compute_dtype(cfg),
+                                device=tokens.device)
+    logits, cache = LM.prefill(params, cfg,
+                               dict(batch, tokens=tokens[:, :prompt]), cache)
+    out = [logits[:, 0]]
+    for t in range(prompt, tokens.shape[1]):
+        logits, cache = LM.decode_step(params, cfg, cache,
+                                       tokens[:, t:t + 1])
+        out.append(logits[:, 0])
+    return torch.stack(out, dim=1)
 
 
 def _serve_grouped_moe(moe_apply, prompt):
@@ -2582,82 +2700,94 @@ def _rel_err(got, want):
     return worst
 
 
+def _l2_case(g, dev, case, B, S, H, Hkv, hd, causal, window, dtype,
+             tag="l2-parity", Skv=None):
+    """L1's lse against the plain logsumexp, then L2 against its plain
+    version on the same (q, k, v, o, do, lse), compared on the first
+    L2_CHECK sequences, timed at the full batch beside the plain version,
+    the bound and SDPA's backward; S queries over ``Skv`` keys (by
+    default S)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as L1
+    from repro_torch.kernels.flash_attention.ref import (attention_mask,
+                                                         flash_attention_ref,
+                                                         flash_bwd_ref)
+    Skv, C = Skv or S, L2_CHECK
+    mask = attention_mask(S, Skv, causal, window, dev)
+    pairs = int(mask.sum())
+    q, do = (torch.randn((B, S, H, hd), generator=g, device=dev)
+             .to(_tdt(dtype)) for _ in range(2))
+    k, v = (torch.randn((B, Skv, Hkv, hd), generator=g, device=dev)
+            .to(_tdt(dtype)) for _ in range(2))
+    o, lse = L1.flash_attention(q, k, v, causal=causal, window=window,
+                                return_lse=True)
+    _, lse_p = flash_attention_ref(q[:C], k[:C], v[:C], causal=causal,
+                                   window=window, return_lse=True)
+    lse_err = float((lse[:C] - lse_p).abs().max())
+    lse_scale = max(float(lse_p.abs().max()), 1.0)
+    del lse_p
+    ok = lse_err <= LSE_TOL * lse_scale
+    log(f"[{tag}] L1 lse {case} {dtype}: max_abs_err {lse_err:.3e} "
+        f"(tolerance {LSE_TOL:.0e} x {lse_scale:.3g} = "
+        f"{LSE_TOL * lse_scale:.3e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"L1 lse {case} {dtype} disagrees with the "
+                             "plain logsumexp")
+
+    def kern():
+        return L1.flash_bwd(q, k, v, o, do, lse, causal=causal,
+                            window=window)
+
+    def plain():
+        return [flash_bwd_ref(q[b:b + C], k[b:b + C], v[b:b + C],
+                              o[b:b + C], do[b:b + C], lse[b:b + C],
+                              causal=causal, window=window)
+                for b in range(0, B, C)]
+
+    got = [t[:C] for t in kern()]
+    want = [t.to(q.dtype) for t in flash_bwd_ref(
+        q[:C], k[:C], v[:C], o[:C], do[:C], lse[:C], causal=causal,
+        window=window)]
+    err, scale = _rel_err(got, want)
+    del got, want
+    ms, pms = cuda_ms(kern, 3, warmup=1), cuda_ms(plain, 1, warmup=0)
+    torch.cuda.empty_cache()
+    if window:
+        lib = _sdpa_bwd_ms(q, k, v, do, 3, attn_mask=mask)
+    else:
+        lib = _sdpa_bwd_ms(q, k, v, do, 3, is_causal=causal)
+    torch.cuda.empty_cache()
+    elt = q.element_size()
+    # q, k, v, o, do, lse and D read once; dq, dk, dv written once; 10 hd
+    # flops per unmasked pair and q-head (five products)
+    n_bytes = (elt * (3 * q.numel() + 2 * k.numel()) + 2 * 4 * lse.numel()
+               + elt * (q.numel() + 2 * k.numel()))
+    bd = bound(n_bytes, 10 * hd * H * B * pairs, dtype)
+    tol = _limit(L2_TOL[dtype], scale, dtype) / scale
+    del q, k, v, o, do, lse, mask
+    torch.cuda.empty_cache()
+    return _attn_line("flash_attention_bwd", case, dtype, err, scale, tol,
+                      ms, pms, bd, lib, n_bytes, tag=tag)
+
+
 def phase_l2_parity(dev):
     """L2 against its plain version, L1's lse, and the autograd Function,
     at the train path's attention shape."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.flash_attention import ops as L1
-    from repro_torch.kernels.flash_attention.ref import (attention_mask,
-                                                         flash_attention_ref,
-                                                         flash_bwd_ref)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     cfg = get_config(LLM_ARCH)
-    B, S, C = L2_BATCH, L2_SEQ, L2_CHECK
+    B, S = L2_BATCH, L2_SEQ
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     g = torch.Generator(device=dev).manual_seed(1)
     results = []
     for case, causal, window in (("causal-4096", True, 0),
                                  ("window1024-4096", True, 1024),
                                  ("noncausal-4096", False, 0)):
-        mask = attention_mask(S, S, causal, window, dev)
-        pairs = int(mask.sum())
         for dtype in ("bf16", "fp32"):
-            q, do = (torch.randn((B, S, H, hd), generator=g, device=dev)
-                     .to(_tdt(dtype)) for _ in range(2))
-            k, v = (torch.randn((B, S, Hkv, hd), generator=g, device=dev)
-                    .to(_tdt(dtype)) for _ in range(2))
-            o, lse = L1.flash_attention(q, k, v, causal=causal,
-                                        window=window, return_lse=True)
-            _, lse_p = flash_attention_ref(q[:C], k[:C], v[:C],
-                                           causal=causal, window=window,
-                                           return_lse=True)
-            lse_err = float((lse[:C] - lse_p).abs().max())
-            lse_scale = max(float(lse_p.abs().max()), 1.0)
-            del lse_p
-            ok = lse_err <= LSE_TOL * lse_scale
-            log(f"[l2-parity] L1 lse {case} {dtype}: max_abs_err "
-                f"{lse_err:.3e} (tolerance {LSE_TOL:.0e} x {lse_scale:.3g} "
-                f"= {LSE_TOL * lse_scale:.3e}) {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"L1 lse {case} {dtype} disagrees with "
-                                     "the plain logsumexp")
-
-            def kern():
-                return L1.flash_bwd(q, k, v, o, do, lse, causal=causal,
-                                    window=window)
-
-            def plain():
-                return [flash_bwd_ref(q[b:b + C], k[b:b + C], v[b:b + C],
-                                      o[b:b + C], do[b:b + C], lse[b:b + C],
-                                      causal=causal, window=window)
-                        for b in range(0, B, C)]
-
-            got = [t[:C] for t in kern()]
-            want = [t.to(q.dtype) for t in flash_bwd_ref(
-                q[:C], k[:C], v[:C], o[:C], do[:C], lse[:C], causal=causal,
-                window=window)]
-            err, scale = _rel_err(got, want)
-            del got, want
-            ms, pms = cuda_ms(kern, 3, warmup=1), cuda_ms(plain, 1, warmup=0)
-            torch.cuda.empty_cache()
-            if window:
-                lib = _sdpa_bwd_ms(q, k, v, do, 3, attn_mask=mask)
-            else:
-                lib = _sdpa_bwd_ms(q, k, v, do, 3, is_causal=causal)
-            torch.cuda.empty_cache()
-            elt = q.element_size()
-            # q, k, v, o, do, lse and D read once; dq, dk, dv written once;
-            # 10 hd flops per unmasked pair and q-head (five products)
-            n_bytes = (elt * (3 * q.numel() + 2 * k.numel())
-                       + 2 * 4 * lse.numel()
-                       + elt * (q.numel() + 2 * k.numel()))
-            bd = bound(n_bytes, 10 * hd * H * B * pairs, dtype)
-            tol = _limit(L2_TOL[dtype], scale, dtype) / scale
-            results.append(_attn_line(
-                "flash_attention_bwd", case, dtype, err, scale, tol, ms,
-                pms, bd, lib, n_bytes, tag="l2-parity"))
-            del q, k, v, o, do, lse
-            torch.cuda.empty_cache()
+            results.append(_l2_case(g, dev, case, B, S, H, Hkv, hd, causal,
+                                    window, dtype))
 
     # end to end: L1 forward + L2 backward through the autograd Function
     # against autograd through the plain attention, one sequence, do fixed
@@ -2701,12 +2831,13 @@ def _grad_stats(a, b):
     return dot / (na * nb) ** 0.5, (na / nb) ** 0.5 - 1.0
 
 
-def train_check(params, cfg, tokens, tag="llm-train"):
-    """The loss and gradients of ``loss_fn`` for one sequence, before any
-    update: through the kernels (bf16, as trained), through the plain
-    attention (bf16), and through the plain attention in f32 on the same
-    weights, which shows how far bf16 rounding alone moves them. Fails
-    if the kernels' pass is outside the TRAIN_* limits."""
+def train_check(params, cfg, batch, tag="llm-train"):
+    """The loss and gradients of ``loss_fn`` for one sequence (``batch``:
+    its tokens and any frontend stub's embeddings), before any update:
+    through the kernels (bf16, as trained), through the plain attention
+    (bf16), and through the plain attention in f32 on the same weights,
+    which shows how far bf16 rounding alone moves them. Fails if the
+    kernels' pass is outside the TRAIN_* limits."""
     import torch
     from unittest import mock
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -2719,7 +2850,7 @@ def train_check(params, cfg, tokens, tag="llm-train"):
 
     def run(c, attend):
         with mock.patch.object(LY, "flash_attention_trainable", attend):
-            loss, _ = ST.loss_fn(params, c, {"tokens": tokens})
+            loss, _ = ST.loss_fn(params, c, batch)
             loss.backward()
         grads = [p.grad for p in params.parameters()]
         for p in params.parameters():
@@ -2736,7 +2867,7 @@ def train_check(params, cfg, tokens, tag="llm-train"):
         cos, norm = _grad_stats(paths[a][1], paths[b][1])
         stats[(a, b)] = dict(loss=paths[a][0] - paths[b][0], cos=cos,
                              norm=norm)
-    log(f"[{tag}-check] one sequence of {tokens.shape[1]} tokens, "
+    log(f"[{tag}-check] one sequence of {batch['tokens'].shape[1]} tokens, "
         f"{time.time() - t0:.1f}s: loss kernels {paths['kernels'][0]:.6f}, "
         f"plain {paths['plain'][0]:.6f}, f32 {paths['f32'][0]:.6f}; "
         + "; ".join(f"{a} vs {b}: d loss {st['loss']:.3e}, grad cosine "
@@ -2760,16 +2891,29 @@ def _train_flops(cfg, batch, seq):
     parameter of every matrix product (the unembedding at the padded
     vocabulary; of a moe layer the router and the K routed experts, its
     active parameters) and token, plus attention's 12 hd per unmasked
-    (query, key) pair and q-head (4 hd forward, 8 hd backward)."""
-    d, hd = cfg.d_model, cfg.head_dim
-    mlp = (cfg.experts_per_token * 3 * d * cfg.d_ff + d * cfg.n_experts
-           if cfg.is_moe else 3 * d * cfg.d_ff)
-    per_layer = (d * cfg.n_heads * hd * 2 + 2 * d * cfg.n_kv_heads * hd
-                 + mlp)
-    n_mm = cfg.n_layers * per_layer + d * cfg.padded_vocab_size
-    pairs = seq * (seq + 1) // 2
-    attn = 12 * hd * cfg.n_heads * pairs * cfg.n_layers * batch
-    return 6 * n_mm * batch * seq + attn
+    (query, key) pair and q-head (4 hd forward, 8 hd backward). The audio
+    family's encoder layers and its cross K/V projections run on the
+    n_audio_frames frames; its decoder attends causally to the text and
+    to every frame."""
+    d, hd, H = cfg.d_model, cfg.head_dim, cfg.n_heads
+    qo, kv = 2 * d * H * hd, 2 * d * cfg.n_kv_heads * hd
+    if cfg.is_moe:
+        mlp = cfg.experts_per_token * 3 * d * cfg.d_ff + d * cfg.n_experts
+    else:
+        mlp = (2 if cfg.is_encdec else 3) * d * cfg.d_ff
+    # matmul parameters by the rows they multiply, and the attended
+    # (query, key) pairs of one sequence over all layers
+    per_token = cfg.n_layers * (qo + kv + mlp) + d * cfg.padded_vocab_size
+    pairs = cfg.n_layers * seq * (seq + 1) // 2
+    F = per_frame = 0
+    if cfg.is_encdec:
+        F = cfg.n_audio_frames
+        per_token += cfg.n_layers * qo             # cross-attention's q, o
+        per_frame = (cfg.n_encoder_layers * (qo + kv + mlp)
+                     + cfg.n_layers * kv)          # the encoder; cross K/V
+        pairs += cfg.n_layers * seq * F + cfg.n_encoder_layers * F * F
+    return (6 * batch * (per_token * seq + per_frame * F)
+            + 12 * hd * H * pairs * batch)
 
 
 def phase_llm_train(dev, arch=LLM_ARCH, n_layers=TRAIN_LAYERS,
@@ -2802,13 +2946,16 @@ def phase_llm_train(dev, arch=LLM_ARCH, n_layers=TRAIN_LAYERS,
         f"layers); {n_params} f32 parameters{active} "
         f"({4 * n_params / 1e9:.2f} GB) made in {time.time() - t0:.1f}s; "
         f"{tcfg}")
-    train_check(params, cfg, first["tokens"][:1], tag)
+    train_check(params, cfg, {k: v[:1] for k, v in first.items()}, tag)
     torch.cuda.empty_cache()
 
     opt = adamw.init(dict(params.named_parameters()))
     step_fn = ST.make_train_step(cfg, tcfg)
     flops = _train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
     tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
+    # attention calls per forward: one per layer; the audio family's
+    # decoder layers two (self, cross) and its encoder layers one
+    n_attn = cfg.n_layers * (1 + cfg.is_encdec) + cfg.n_encoder_layers
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -2839,11 +2986,11 @@ def phase_llm_train(dev, arch=LLM_ARCH, n_layers=TRAIN_LAYERS,
             f"norm {gn:.6f}, lr {lr:.4e}{aux}; L1 {d1} / L2 {d2} launches, "
             f"sm90 {s1} / {s2}"
             + (" (under the profiler)" if i == TRAIN_STEPS - 1 else ""))
-        if (d1 != 2 * cfg.n_layers * TRAIN_MICRO
-                or d2 != cfg.n_layers * TRAIN_MICRO):
+        if (d1 != 2 * n_attn * TRAIN_MICRO or d2 != n_attn * TRAIN_MICRO):
             raise AssertionError(f"step {i + 1}: L1 {d1} and L2 {d2} "
                                  "launches, expected forward + recompute "
-                                 "and one backward per layer and microbatch")
+                                 "and one backward per attention call and "
+                                 "microbatch")
         if (s1, s2) != (d1, d2):
             raise AssertionError(f"step {i + 1}: {d1 - s1} L1 and {d2 - s2} "
                                  "L2 launches of the bf16 step missed the "
@@ -2857,7 +3004,7 @@ def phase_llm_train(dev, arch=LLM_ARCH, n_layers=TRAIN_LAYERS,
         f"{TRAIN_STEPS - 1} {mean_s:.3f} s/step, "
         f"{tokens_per_step / mean_s:.4g} tokens/s; model FLOPs "
         f"{flops / 1e12:.2f} TFLOP/step (6 per active matmul parameter and "
-        f"token, 12 hd per causal pair and head, no recompute) = "
+        f"token or frame, 12 hd per attended pair and head, no recompute) = "
         f"{100 * flops / mean_s / _roof().PEAK_FLOPS['bf16']:.2f}% of the "
         f"989 TFLOP/s bf16 "
         f"peak; peak device memory {peak / 1e9:.2f} GB; launches {counts}")
@@ -2985,6 +3132,12 @@ def main():
              "train_granite": phase_llm_train(
                  dev, MOE_ARCH, get_config(MOE_ARCH).n_layers, "moe-train")}
     stamp("moe train")
+    for name, cases in phase_whisper_parity(dev).items():
+        llm_parity[name] += cases
+    serve_counts["serve_whisper"] = phase_serve(dev, WHISPER_ARCH, "whisper")
+    train["train_whisper"] = phase_llm_train(
+        dev, WHISPER_ARCH, get_config(WHISPER_ARCH).n_layers, "whisper-train")
+    stamp("whisper parity, serve and train")
     phase_examples()
     stamp("examples")
     by_path = {name: {path: c[name] for path, c in

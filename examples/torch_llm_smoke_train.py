@@ -6,9 +6,10 @@ full-width runs use.
   PYTHONPATH=src python examples/torch_llm_smoke_train.py
       [--arch mixtral_8x7b] [--device cuda|cpu]
 
-Every architecture whose family the port trains (dense, moe, vlm) runs at
-its smoke variant (2 layers, d <= 256, <= 4 experts). ``--steps`` shrinks
-the run (default 60). The loss must fall.
+Every architecture whose family the port trains (dense, moe, vlm, audio)
+runs at its smoke variant (2 layers, d <= 256, <= 4 experts; whisper 2 +
+2 layers over 16 stub frames). ``--steps`` shrinks the run (default 60).
+The loss must fall.
 """
 import argparse
 import time

@@ -4,8 +4,9 @@ The port's own copy of the reference's ``repro/configs/base.py``
 (``ArchConfig``, ``InputShape``, ``TrainConfig``, ``smoke_variant``, the
 analytic parameter count), so that the port imports nothing of
 ``repro``. Every architecture lives in its own module (``configs/<id>.py``) exporting
-``CONFIG``. ``get_config`` resolves the families whose serving path the
-port runs (dense, moe, vlm, hybrid, ssm); the audio family raises
+``CONFIG``. ``get_config`` resolves every architecture: the port serves
+all six families (dense, moe, vlm, audio, hybrid, ssm). ``NOT_PORTED``
+is empty; an architecture named there would raise
 ``NotImplementedError`` naming the ROADMAP step that ports it.
 """
 from __future__ import annotations
@@ -227,18 +228,19 @@ DENSE_IDS = ("qwen3_4b", "llama3_8b", "minitron_8b", "chatglm3_6b")
 MOE_IDS = ("granite_moe_1b_a400m", "mixtral_8x7b")
 VLM_IDS = ("internvl2_1b",)
 RECURRENT_IDS = ("zamba2_7b", "rwkv6_7b")
+AUDIO_IDS = ("whisper_medium",)
 
 # the families the port runs
-FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm")
+FAMILIES = ("dense", "moe", "vlm", "audio", "hybrid", "ssm")
 # the families whose layers are all attention + an MLP; they also train,
-# since their attention has a backward (L2)
-ATTENTION_FAMILIES = ("dense", "moe", "vlm")
+# since their attention has a backward (L2). The audio family's encoder
+# and decoder layers are attention (self, and cross in the decoder) + a
+# GELU MLP
+ATTENTION_FAMILIES = ("dense", "moe", "vlm", "audio")
 
-# the ROADMAP step (section A) that ports each family not ported yet
-NOT_PORTED = {
-    "whisper_medium": "audio family (layernorm, cross-attention), "
-                      "ROADMAP A.20",
-}
+# the ROADMAP step (section A) that ports each architecture not ported
+# yet, by arch id; every one is ported
+NOT_PORTED: dict = {}
 
 _ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
 

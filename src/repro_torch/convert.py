@@ -7,11 +7,12 @@ The reference's state types are NamedTuples (``RowGaussians``,
 field name to numpy array (e.g. ``{k: np.asarray(v) for k, v in
 jax_obj._asdict().items()}``) on a device; ``to_numpy`` turns any of the
 port's objects back into nested dicts of numpy arrays. The LLM stack's
-parameters (dense, moe, vlm, hybrid and ssm families; the moe family's
-stacked experts as (L, E, …) arrays) travel as the reference's
-``init_params`` pytree of numpy arrays (``llm_params_from_numpy`` /
-``llm_params_to_numpy``), in the serving layout (the ``_cast_tree`` rule)
-or the f32 training layout (dense, moe, vlm), and
+parameters (every family; the moe family's stacked experts as (L, E, …)
+arrays, the audio family's encoder as stacked ``enc_blocks``) travel as
+the reference's ``init_params`` pytree of numpy arrays
+(``llm_params_from_numpy`` / ``llm_params_to_numpy``), in the serving
+layout (the ``_cast_tree`` rule) or the f32 training layout (dense, moe,
+vlm, audio), and
 so does AdamW's state (``adamw_state_from_numpy`` / ``adamw_state_to_numpy``:
 ``step``, ``mu``, ``nu`` with ``mu``/``nu`` in the parameters' tree). A
 serving ``PosteriorStore`` travels as nested dicts of its fields
@@ -128,13 +129,14 @@ def to_numpy(obj):
 def _tree_path(name: str):
     """(path in the reference's pytree, layer index or None) of one
     ``CausalLM`` parameter name: ``table``/``unembed`` live under
-    ``embed``, ``blocks.<i>.<path>`` is row i of the stacked ``blocks``
-    array at ``<path>``, any other name is its own path."""
+    ``embed``, ``blocks.<i>.<path>`` (``enc_blocks.<i>.<path>``) is row i
+    of the stacked ``blocks`` (``enc_blocks``) array at ``<path>``, any
+    other name is its own path."""
     parts = name.split(".")
     if parts[0] in ("table", "unembed"):
         return ["embed", parts[0]], None
-    if parts[0] == "blocks":
-        return ["blocks"] + parts[2:], int(parts[1])
+    if parts[0] in ("blocks", "enc_blocks"):
+        return [parts[0]] + parts[2:], int(parts[1])
     return parts, None
 
 
@@ -143,9 +145,10 @@ def llm_params_from_numpy(tree: Mapping[str, Any], cfg: ArchConfig,
                           ) -> "LM.CausalLM":
     """The port's ``CausalLM`` from the reference's ``init_params`` pytree
     as numpy (``jax.tree.map(np.asarray, params)``) of a config of a ported
-    family, whose ``blocks`` hold stacked (L, …) arrays. ``train``
-    picks the storage as ``model.init_params`` does: f32 with gradient
-    (dense, moe, vlm), or the serving cast without: the reference's
+    family, whose ``blocks`` (and ``enc_blocks``) hold stacked (L, …)
+    arrays. ``train`` picks the storage as ``model.init_params`` does: f32
+    with gradient (dense, moe, vlm, audio), or the serving cast without:
+    the reference's
     ``_cast_tree`` rule (``model.serve_dtype``), an f32 array with
     ndim >= 2 and more than ``CAST_MIN_SIZE`` elements goes to
     ``cfg.dtype``, applied to the stacked arrays, as the reference applies
@@ -159,9 +162,10 @@ def llm_params_from_numpy(tree: Mapping[str, Any], cfg: ArchConfig,
         for p in path:
             node = node[p]
         a = np.asarray(node)
-        if layer is not None and a.shape[0] != cfg.n_layers:
+        n_layers = LM.n_stacked(cfg, name)
+        if layer is not None and a.shape[0] != n_layers:
             raise ValueError(f"{'/'.join(path)} has {a.shape[0]} layers, "
-                             f"cfg {cfg.n_layers}")
+                             f"cfg {n_layers}")
         dtype = None
         if not train and a.dtype == np.float32:
             dtype = LM.serve_dtype(a.shape, cfg)

@@ -1,5 +1,5 @@
-"""Serving state of the dense, moe, vlm, hybrid and ssm families (port of
-``repro/models/kvcache.py``).
+"""Serving state of the dense, moe, vlm, audio, hybrid and ssm families
+(port of ``repro/models/kvcache.py``).
 
 The cache is a dict like the reference's pytree, with ``pos`` (the number
 of positions consumed, a Python int so that no step reads the device)
@@ -9,6 +9,12 @@ and:
   (-1 = empty), so the attention mask stays exact in a ring buffer
   (sliding window: ``max_len == window``, slot ``pos % window``); a vlm
   prompt's image positions take slots like its text;
+- audio (whisper): the decoder's ``"attn"`` as above for the text, and
+  the cross-attention state ``cross_k`` / ``cross_v`` (L, B, F, Hkv, hd)
+  in the cache dtype (F = ``n_audio_frames``), which ``prefill`` fills
+  from the encoder's output; beside them the port keeps ``cross_pos``,
+  ``arange(F)`` int32 on the cache's device, the slot positions that
+  ``decode_step`` hands L3 for every cross-attention call;
 - hybrid (zamba2): ``"mamba"`` per-layer mixer states (``conv_x``,
   ``conv_B``, ``conv_C`` histories (L, B, W-1, ·) in the cache dtype,
   ``ssm`` (L, B, H, P, N) f32) and ``"attn"``, a ring of
@@ -22,8 +28,7 @@ The recurrent states do not grow with ``seq_len``.
 Where the reference is functional and returns a new cache, the port
 writes in place (``attn_cache_update``, ``model.prefill``,
 ``model.decode_step``): that saves a copy of the whole cache on every
-step. The int8 cache (``kv_quant``) and the audio family's cross-attention
-state are not ported yet (ROADMAP A.20).
+step. The int8 cache (``kv_quant``) is not ported yet (ROADMAP A.20).
 """
 from __future__ import annotations
 
@@ -92,8 +97,17 @@ def serve_cache_init(cfg: ArchConfig, batch: int, seq_len: int,
     if cfg.family not in ATTENTION_FAMILIES:
         raise NotImplementedError(
             f"{cfg.family} serving state is not ported yet; the port serves "
-            "the dense, moe, vlm, hybrid and ssm families")
+            "the dense, moe, vlm, audio, hybrid and ssm families")
     max_len = window if window > 0 else seq_len
-    return {"pos": 0,
-            "attn": attn_cache_init(cfg, cfg.n_layers, batch, max_len, dtype,
-                                    device=dev)}
+    cache = {"pos": 0,
+             "attn": attn_cache_init(cfg, cfg.n_layers, batch, max_len, dtype,
+                                     device=dev)}
+    if cfg.is_encdec:
+        F = cfg.n_audio_frames
+        shape = (cfg.n_layers, batch, F, cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
+        cache.update(
+            cross_k=torch.zeros(shape, dtype=dtype, device=dev),
+            cross_v=torch.zeros(shape, dtype=dtype, device=dev),
+            cross_pos=torch.arange(F, dtype=torch.int32, device=dev))
+    return cache

@@ -1,11 +1,13 @@
-"""Dense-family transformer layers (port of ``repro/models/layers.py``).
+"""Transformer layers of the attention families (port of
+``repro/models/layers.py``).
 
 Conventions, as in the reference:
 - matmul weights are stored (d_in, d_out) and applied as ``x @ w``, in the
-  compute dtype (``cfg.dtype``); norm scales and other small parameters
-  may stay f32 (``model.CAST_MIN_SIZE``);
-- norms, RoPE, SiLU, softmax statistics and logits are computed in f32
-  and cast back to the activation dtype where the reference casts back.
+  compute dtype (``cfg.dtype``); norm scales, biases and other small
+  parameters may stay f32 (``model.CAST_MIN_SIZE``);
+- norms, RoPE, SiLU, GELU, softmax statistics and logits are computed in
+  f32 and cast back to the activation dtype where the reference casts
+  back; biases are cast to the activation dtype before they are added.
 
 Parameters are plain ``nn.Parameter``s: training keeps them in f32 and
 casts the matrices at use (``w.to(x.dtype)``), so autograd returns f32
@@ -19,8 +21,12 @@ to ``flash_attention`` (L1) or, when a gradient is needed, to
 against a cache goes to ``decode_attention`` (L3). Their plain versions
 run only through those wrappers, for CPU tensors. The matrix products
 outside the kernels stay ``torch.matmul``, as the reference leaves them
-to XLA. Layernorm, GELU,
-cross-attention and the int8 cache wait for the families that use them.
+to XLA. The audio family (whisper) uses layernorm, absolute sinusoidal
+positions in place of RoPE, a GELU MLP with biases, and cross-attention
+(``Attention.cross``) from the decoder to the encoder's output: L1
+(non-causal, Sq != Skv) over the encoder's K/V for a prompt, L3 over the
+layer's cross cache for one token. The int8 cache waits for the dry run
+that uses it (ROADMAP A.20).
 """
 from __future__ import annotations
 
@@ -57,6 +63,51 @@ class RMSNorm(nn.Module):
 
     def forward(self, x):
         return rmsnorm(self.scale, x, self.eps)
+
+
+def layernorm(scale, bias, x, eps: float):
+    """f32 mean and biased variance over the last axis, f32 scale and
+    bias, cast back to x's dtype."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, scale: torch.Tensor, bias: torch.Tensor, eps: float):
+        super().__init__()
+        self.scale = nn.Parameter(scale)
+        self.bias = nn.Parameter(bias)
+        self.eps = eps
+
+    def forward(self, x):
+        return layernorm(self.scale, self.bias, x, self.eps)
+
+
+def make_norm(cfg: ArchConfig, param, name: str) -> nn.Module:
+    """The family's norm (the reference's ``make_norm``): layernorm for
+    the audio family (whisper), RMSNorm for the rest, with its parameters
+    from ``param(name + ".scale" / ".bias", (d,))``."""
+    d = cfg.d_model
+    if cfg.family == "audio":
+        return LayerNorm(param(name + ".scale", (d,)),
+                         param(name + ".bias", (d,)), cfg.norm_eps)
+    return RMSNorm(param(name + ".scale", (d,)), cfg.norm_eps)
+
+
+def sinusoidal_positions(n_pos: int, d: int, device=None):
+    """(n_pos, d) f32 absolute position embeddings, interleaved as the
+    reference's: sin at the even columns, cos at the odd ones, of
+    pos / 10000^(2i / d)."""
+    pos = torch.arange(n_pos, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / torch.pow(10_000.0, dim / d)
+    pe = torch.zeros((n_pos, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(angle)
+    pe[:, 1::2] = torch.cos(angle)
+    return pe
 
 
 def rope_frequencies(head_dim: int, rope_partial: float, theta: float,
@@ -101,6 +152,22 @@ class SwiGLU(nn.Module):
         return h @ self.w_down.to(x.dtype)
 
 
+class GeluMLP(nn.Module):
+    """The audio family's MLP: x @ w_in + b_in, tanh-approximated GELU in
+    f32 (``jax.nn.gelu``'s default), @ w_out + b_out."""
+
+    def __init__(self, w_in, b_in, w_out, b_out):
+        super().__init__()
+        self.w_in, self.b_in, self.w_out, self.b_out = (
+            nn.Parameter(w_in), nn.Parameter(b_in), nn.Parameter(w_out),
+            nn.Parameter(b_out))
+
+    def forward(self, x):
+        h = x @ self.w_in.to(x.dtype) + self.b_in.to(x.dtype)
+        h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+        return h @ self.w_out.to(x.dtype) + self.b_out.to(x.dtype)
+
+
 def embed(table, tokens, dtype):
     return F.embedding(tokens, table).to(dtype)
 
@@ -121,8 +188,19 @@ def unembed(w, x, cfg: ArchConfig):
 LayerCache = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, bool]
 
 
+def _prompt_attention(q, k, v, causal: bool, window: int = 0):
+    """``flash_attention``, or ``flash_attention_trainable`` when autograd
+    records a graph that needs q/k/v's gradient."""
+    trainable = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    attend = flash_attention_trainable if trainable else flash_attention
+    return attend(q, k, v, causal=causal, window=window)
+
+
 class Attention(nn.Module):
-    """GQA self-attention with optional qk-norm and (partial) RoPE."""
+    """GQA self-attention with optional qk-norm and (partial) RoPE
+    (``rot_dim`` 0: none, as for the audio family), and the audio
+    family's cross-attention (``cross_kv``, ``cross``)."""
 
     def __init__(self, cfg: ArchConfig, wq, wk, wv, wo, q_norm=None,
                  k_norm=None):
@@ -168,10 +246,7 @@ class Attention(nn.Module):
         B, S, _ = x.shape
         q, k, v = self.project(x, rope, rot_dim)
         if cache is None:
-            trainable = torch.is_grad_enabled() and any(
-                t.requires_grad for t in (q, k, v))
-            attend = flash_attention_trainable if trainable else flash_attention
-            o = attend(q, k, v, causal=causal, window=window)
+            o = _prompt_attention(q, k, v, causal, window)
         else:
             if S != 1:
                 raise NotImplementedError(
@@ -182,3 +257,40 @@ class Attention(nn.Module):
                                  window=window)[:, None]
         out = o.reshape(B, S, -1) @ self.wo.to(x.dtype)
         return out, (k, v)
+
+    def cross_kv(self, enc):
+        """The encoder output's (B, F, d) K and V for this layer's
+        cross-attention, each (B, F, Hkv, hd): plain projections, no norm
+        and no positions (the reference's ``_cross_kv``)."""
+        cfg = self.cfg
+        B, F_, _ = enc.shape
+        shape = (B, F_, cfg.n_kv_heads, cfg.resolved_head_dim)
+        return ((enc @ self.wk.to(enc.dtype)).reshape(shape),
+                (enc @ self.wv.to(enc.dtype)).reshape(shape))
+
+    def cross(self, x, k, v, kv_pos=None):
+        """Cross-attention of x (B, S, d) to the encoder's K/V (B, F, Hkv,
+        hd), unmasked, with no positions. Without ``kv_pos`` (a prompt, or
+        training): ``flash_attention`` (non-causal, Sq = S, Skv = F), or
+        ``flash_attention_trainable`` when autograd records a graph that
+        needs q/k/v's gradient. With ``kv_pos`` (one token over the
+        layer's cross cache; ``arange(F)`` int32, built once per cache):
+        ``decode_attention`` at query position F - 1, so that every slot
+        counts (L3 counts slot s iff kv_pos[s] <= q_pos).
+        Returns (B, S, d)."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        q = (x @ self.wq.to(x.dtype)).reshape(B, S, cfg.n_heads,
+                                             cfg.resolved_head_dim)
+        if self.q_norm is not None:
+            q = self.q_norm(q)
+        q = q.contiguous()
+        if kv_pos is None:
+            o = _prompt_attention(q, k, v, causal=False)
+        else:
+            if S != 1:
+                raise NotImplementedError(
+                    "the cross cache path takes one token per call (decode)")
+            o = decode_attention(q[:, 0], k, v, kv_pos,
+                                 k.shape[1] - 1)[:, None]
+        return o.reshape(B, S, -1) @ self.wo.to(x.dtype)

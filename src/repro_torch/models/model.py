@@ -1,5 +1,5 @@
-"""Model assembly for the dense, moe, vlm, hybrid and ssm families: init,
-forward, prefill and decode (port of ``repro/models/model.py``).
+"""Model assembly for the dense, moe, vlm, audio, hybrid and ssm families:
+init, forward, prefill and decode (port of ``repro/models/model.py``).
 
 - dense  (qwen3, llama3, minitron, chatglm3): embed -> one ``DenseBlock``
   per layer (attention + SwiGLU, pre-norm) -> final norm -> unembed.
@@ -9,6 +9,16 @@ forward, prefill and decode (port of ``repro/models/model.py``).
 - vlm    (internvl2): the dense stack over the stub image embeddings
   (``batch["image_embeds"]`` (B, n_image_tokens, d)) placed before the
   text in ``forward`` and ``prefill``; it decodes as dense.
+- audio  (whisper): the stub frame embeddings (``batch["audio_embeds"]``
+  (B, n_audio_frames, d)) plus sinusoidal positions -> ``enc_blocks``
+  (``DenseBlock``s with layernorm and the GELU MLP, non-causal) ->
+  ``enc_final_norm``; the text's embeddings plus sinusoidal positions ->
+  one ``DecoderBlock`` per layer (causal self-attention, cross-attention
+  to the encoder's output, GELU MLP) -> final norm -> unembed (tied).
+  No RoPE. ``decode_step`` adds no position to the token, as the
+  reference's does not (its ``forward`` and ``prefill`` do): so the
+  family's decode is held against the reference's decode, not its
+  forward (ROADMAP §C).
 - hybrid (zamba2): embed -> groups of ``shared_attn_period`` Mamba2 layers
   (``MambaBlock``), each full group followed by the one weight-tied
   ``DenseBlock`` ``shared_attn`` -> final norm -> unembed. A remainder
@@ -42,11 +52,11 @@ is updated in place. Two places differ on purpose, for the same result:
 reference's ``jax.checkpoint`` around the scanned block, so its
 activations are recomputed in the backward pass; ``remat_policy="dots"``
 keeps the matrix products' outputs (``dots_saveable``) through selective
-checkpointing. The hybrid and ssm scans (kernels L4, L5) are
+checkpointing (the audio encoder always recomputes its whole block, as
+the reference's does). The hybrid and ssm scans (kernels L4, L5) are
 forward-only, so those families do not train yet (ROADMAP A.20);
-``init_params(..., train=True)`` takes the dense, moe and vlm families.
-``prefill`` and ``decode_step`` run without gradient. The audio family
-raises ``NotImplementedError``.
+``init_params(..., train=True)`` takes the dense, moe, vlm and audio
+families. ``prefill`` and ``decode_step`` run without gradient.
 """
 from __future__ import annotations
 
@@ -82,25 +92,61 @@ def _check_family(cfg: ArchConfig):
 
 
 class DenseBlock(nn.Module):
-    """Pre-norm attention and MLP (SwiGLU, or the moe family's MoE), each
-    with a residual. Returns (x, this call's (k, v), aux): aux is the MoE's
-    ``{"moe_aux", "moe_dropped"}``, else empty."""
+    """Pre-norm attention and MLP (SwiGLU, the moe family's MoE, or the
+    audio encoder's GELU MLP), each with a residual. Returns (x, this
+    call's (k, v), aux): aux is the MoE's ``{"moe_aux", "moe_dropped"}``,
+    else empty."""
 
-    def __init__(self, cfg: ArchConfig, ln1, attn: L.Attention, ln2, mlp):
+    def __init__(self, cfg: ArchConfig, ln1: nn.Module, attn: L.Attention,
+                 ln2: nn.Module, mlp):
         super().__init__()
-        self.ln1 = L.RMSNorm(ln1, cfg.norm_eps)
+        self.ln1 = ln1
         self.attn = attn
-        self.ln2 = L.RMSNorm(ln2, cfg.norm_eps)
+        self.ln2 = ln2
         self.mlp = mlp
         self.moe = cfg.is_moe      # the MoE returns (y, aux)
 
-    def forward(self, x, rope, rot_dim, *, pos=0, window=0, cache=None):
-        a, kv = self.attn(self.ln1(x), rope, rot_dim, pos=pos, window=window,
-                          cache=cache)
+    def forward(self, x, rope, rot_dim, *, pos=0, causal=True, window=0,
+                cache=None):
+        a, kv = self.attn(self.ln1(x), rope, rot_dim, pos=pos, causal=causal,
+                          window=window, cache=cache)
         x = x + a
         m = self.mlp(self.ln2(x))
         m, aux = m if self.moe else (m, {})
         return x + m, kv, aux
+
+
+class DecoderBlock(nn.Module):
+    """The audio family's decoder layer: pre-norm causal self-attention,
+    cross-attention to the encoder and the GELU MLP, each with a
+    residual."""
+
+    def __init__(self, ln1: nn.Module, self_attn: L.Attention,
+                 ln_x: nn.Module, cross_attn: L.Attention, ln2: nn.Module,
+                 mlp: L.GeluMLP):
+        super().__init__()
+        self.ln1, self.self_attn, self.ln_x = ln1, self_attn, ln_x
+        self.cross_attn, self.ln2, self.mlp = cross_attn, ln2, mlp
+
+    def forward(self, x, rope, rot_dim, enc=None, *, pos=0, window=0,
+                cache=None, cross_cache=None):
+        """A prompt (or training): ``enc`` is the encoder's output (B, F,
+        d), from which the layer projects its cross K/V here, so that remat
+        recomputes them with the block, as inside the reference's scanned
+        body. One token: ``cache`` is the self-attention's layer cache and
+        ``cross_cache`` = (k, v, kv_pos) its cross state. Returns (x, this
+        call's self (k, v), the cross (k, v) projected here, or None)."""
+        a, kv = self.self_attn(self.ln1(x), rope, rot_dim, pos=pos,
+                               window=window, cache=cache)
+        x = x + a
+        if cross_cache is None:
+            cross = self.cross_attn.cross_kv(enc)
+            ck, cv, kv_pos = *cross, None
+        else:
+            cross = None
+            ck, cv, kv_pos = cross_cache
+        x = x + self.cross_attn.cross(self.ln_x(x), ck, cv, kv_pos)
+        return x + self.mlp(self.ln2(x)), kv, cross
 
 
 class MambaBlock(nn.Module):
@@ -139,24 +185,35 @@ class RwkvBlock(nn.Module):
 class CausalLM(nn.Module):
     """Parameters of a model: ``table`` (Vp, d), ``unembed`` (d, Vp)
     unless the embeddings are tied, ``final_norm``, ``blocks`` (one module
-    per layer) and, for the hybrid family, ``shared_attn``."""
+    per layer), for the hybrid family ``shared_attn``, and for the audio
+    family ``enc_blocks`` (one module per encoder layer) and
+    ``enc_final_norm``."""
 
-    def __init__(self, cfg: ArchConfig, table, unembed, final_norm,
-                 blocks, shared_attn=None):
+    def __init__(self, cfg: ArchConfig, table, unembed,
+                 final_norm: nn.Module, blocks, shared_attn=None,
+                 enc_blocks=None, enc_final_norm=None):
         super().__init__()
         _check_family(cfg)
         self.cfg = cfg
         self.table = nn.Parameter(table)
         self.unembed = None if unembed is None else nn.Parameter(unembed)
-        self.final_norm = L.RMSNorm(final_norm, cfg.norm_eps)
+        self.final_norm = final_norm
         self.blocks = nn.ModuleList(blocks)
         self.shared_attn = shared_attn
+        self.enc_blocks = (None if enc_blocks is None
+                           else nn.ModuleList(enc_blocks))
+        self.enc_final_norm = enc_final_norm
 
     def unembed_weight(self):
         return self.table.T if self.unembed is None else self.unembed
 
     def rope(self, pos: int, S: int):
+        """(cos and sin of positions pos … pos + S − 1, rot_dim); for the
+        audio family, which adds absolute positions instead, (None, None)
+        and rot_dim 0, so that attention rotates nothing."""
         cfg = self.cfg
+        if cfg.family == "audio":
+            return (None, None), 0
         inv_freq, rot_dim = L.rope_frequencies(
             cfg.resolved_head_dim, cfg.rope_partial, cfg.rope_theta,
             device=self.table.device)
@@ -198,9 +255,19 @@ _FAN_IN = {n: None for n in (
     "w_x", "w_B", "w_C", "w_dt", "out_proj", "wr", "wg", "w_in", "w_out")}
 _FAN_IN.update(decay_A=0.01, decay_B=0.01, router=0.02)
 _NORMAL = {"table": 0.02, "conv_x": 0.2, "conv_B": 0.2, "conv_C": 0.2}
-_CONST = {"scale": 1.0, "D": 1.0, "conv_bias_x": 0.0, "conv_bias_B": 0.0,
-          "conv_bias_C": 0.0, "dt_bias": -2.0, "mix_base": 0.5,
-          "decay_w0": -6.0, "bonus_u": 0.0}
+_CONST = {"scale": 1.0, "bias": 0.0, "b_in": 0.0, "b_out": 0.0, "D": 1.0,
+          "conv_bias_x": 0.0, "conv_bias_B": 0.0, "conv_bias_C": 0.0,
+          "dt_bias": -2.0, "mix_base": 0.5, "decay_w0": -6.0, "bonus_u": 0.0}
+
+
+def n_stacked(cfg: ArchConfig, name: str) -> int:
+    """The layer count of the reference's stacked array that parameter
+    ``name`` is a row of (``blocks.<i>.…``, ``enc_blocks.<i>.…``), or 0."""
+    if name.startswith("blocks."):
+        return cfg.n_layers
+    if name.startswith("enc_blocks."):
+        return cfg.n_encoder_layers
+    return 0
 
 
 def build(cfg: ArchConfig, param) -> CausalLM:
@@ -209,22 +276,33 @@ def build(cfg: ArchConfig, param) -> CausalLM:
     reference's pytree path, with ``blocks.<i>.`` for layer i). Parameters
     are made in a fixed order."""
     _check_family(cfg)
-    d, Vp = cfg.d_model, cfg.padded_vocab_size
+    d, Vp, f = cfg.d_model, cfg.padded_vocab_size, cfg.d_ff
     table = param("table", (Vp, d))
     unembed = None if cfg.tie_embeddings else param("unembed", (d, Vp))
 
-    def dense_block(pre):
+    def norm(name):
+        return L.make_norm(cfg, param, name)
+
+    def attention(pre):
         hd = cfg.resolved_head_dim
         nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
-        attn = L.Attention(
-            cfg, param(pre + "attn.wq", (d, nq)),
-            param(pre + "attn.wk", (d, nkv)), param(pre + "attn.wv", (d, nkv)),
-            param(pre + "attn.wo", (nq, d)),
-            *((param(pre + "attn.q_norm.scale", (hd,)),
-               param(pre + "attn.k_norm.scale", (hd,))) if cfg.qk_norm
+        return L.Attention(
+            cfg, param(pre + "wq", (d, nq)), param(pre + "wk", (d, nkv)),
+            param(pre + "wv", (d, nkv)), param(pre + "wo", (nq, d)),
+            *((param(pre + "q_norm.scale", (hd,)),
+               param(pre + "k_norm.scale", (hd,))) if cfg.qk_norm
               else ()))
-        f = cfg.d_ff
-        if cfg.family == "moe":
+
+    def gelu_mlp(pre):
+        return L.GeluMLP(*(param(pre + n, shape) for n, shape in (
+            ("w_in", (d, f)), ("b_in", (f,)), ("w_out", (f, d)),
+            ("b_out", (d,)))))
+
+    def dense_block(pre):
+        attn = attention(pre + "attn.")
+        if cfg.family == "audio":     # the encoder's layer
+            mlp = gelu_mlp(pre + "mlp.")
+        elif cfg.family == "moe":
             E = cfg.n_experts
             mlp = MOE.MoE(cfg, *(param(pre + "mlp." + n, shape)
                                  for n, shape in (
@@ -236,8 +314,13 @@ def build(cfg: ArchConfig, param) -> CausalLM:
                              for n, shape in (("w_gate", (d, f)),
                                               ("w_up", (d, f)),
                                               ("w_down", (f, d)))))
-        return DenseBlock(cfg, param(pre + "ln1.scale", (d,)), attn,
-                          param(pre + "ln2.scale", (d,)), mlp)
+        return DenseBlock(cfg, norm(pre + "ln1"), attn, norm(pre + "ln2"),
+                          mlp)
+
+    def decoder_block(pre):
+        return DecoderBlock(norm(pre + "ln1"), attention(pre + "self_attn."),
+                            norm(pre + "ln_x"), attention(pre + "cross_attn."),
+                            norm(pre + "ln2"), gelu_mlp(pre + "mlp."))
 
     def mamba_block(pre):
         d_in, H, N, P = M2.mamba2_dims(cfg)
@@ -254,7 +337,6 @@ def build(cfg: ArchConfig, param) -> CausalLM:
         return MambaBlock(cfg, param(pre + "ln.scale", (d,)), mixer)
 
     def rwkv_block(pre):
-        f = cfg.d_ff
         shapes = dict(mix_base=(5, d), wr=(d, d), wk=(d, d), wv=(d, d),
                       wg=(d, d), wo=(d, d), decay_w0=(d,),
                       decay_A=(d, R6.LORA_R), decay_B=(R6.LORA_R, d),
@@ -269,11 +351,17 @@ def build(cfg: ArchConfig, param) -> CausalLM:
                          param(pre + "ln2.scale", (d,)), ffn)
 
     make = {"dense": dense_block, "moe": dense_block, "vlm": dense_block,
-            "hybrid": mamba_block, "ssm": rwkv_block}[cfg.family]
+            "audio": decoder_block, "hybrid": mamba_block,
+            "ssm": rwkv_block}[cfg.family]
     blocks = [make(f"blocks.{i}.") for i in range(cfg.n_layers)]
     shared = dense_block("shared_attn.") if cfg.family == "hybrid" else None
-    return CausalLM(cfg, table, unembed, param("final_norm.scale", (d,)),
-                    blocks, shared)
+    enc = enc_norm = None
+    if cfg.family == "audio":
+        enc = [dense_block(f"enc_blocks.{i}.")
+               for i in range(cfg.n_encoder_layers)]
+        enc_norm = norm("enc_final_norm")
+    return CausalLM(cfg, table, unembed, norm("final_norm"), blocks, shared,
+                    enc, enc_norm)
 
 
 def check_trainable(cfg: ArchConfig, train: bool):
@@ -288,16 +376,17 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     """Seeded random weights, made per tensor on ``device`` (the GPU unless
     the caller names another) as the reference's ``init_params`` makes
     them: matmul weights normal × 1/√fan_in, embeddings normal × 0.02,
-    norm scales ones, the mixers' other parameters as in ``mamba2_init``
-    and ``timemix_init``. ``generator`` must live on ``device``; both
-    storages draw the same numbers.
+    norm scales ones, biases zeros, the mixers' other parameters as in
+    ``mamba2_init`` and ``timemix_init``. ``generator`` must live on
+    ``device``; both storages draw the same numbers.
 
     ``train=False`` (serving) stores every parameter without gradient in
     the dtype the reference computes with after ``_cast_tree``
     (``serve_dtype``), and no f32 copy of the whole model exists at any
-    time (a stack of experts is one tensor). ``train=True`` (the dense, moe
-    and vlm families) keeps every parameter in f32 with a gradient: the
-    reference's own master layout, which ``forward`` casts at use."""
+    time (a stack of experts is one tensor). ``train=True`` (the dense,
+    moe, vlm and audio families) keeps every parameter in f32 with a
+    gradient: the reference's own master layout, which ``forward`` casts
+    at use."""
     _check_family(cfg)
     check_trainable(cfg, train)
     dev = resolve_device(device)
@@ -314,9 +403,8 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
         else:
             w = torch.full(shape, _CONST[leaf], dtype=torch.float32,
                            device=dev)
-        n_stack = cfg.n_layers if name.startswith("blocks.") else 0
         return w.to(torch.float32 if train
-                    else serve_dtype(shape, cfg, n_stack))
+                    else serve_dtype(shape, cfg, n_stacked(cfg, name)))
 
     return build(cfg, param).requires_grad_(train)
 
@@ -377,30 +465,53 @@ def _mean_aux(auxs):
     return {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
 
 
+def _with_positions(x):
+    """x (B, S, d) plus the absolute sinusoidal positions 0 … S − 1, cast
+    to x's dtype (the audio family)."""
+    S, d = x.shape[1:]
+    return x + L.sinusoidal_positions(S, d, x.device).to(x.dtype)
+
+
+def _encode(params: CausalLM, audio, call=None):
+    """The audio encoder (the reference's ``_encode_audio``): frame
+    embeddings (B, F, d) plus positions, the non-causal ``enc_blocks``,
+    ``enc_final_norm``. ``call`` runs each block (``forward``'s, for
+    remat), else the block runs as it is."""
+    x = _with_positions(audio)
+    for block in params.enc_blocks:
+        args = (x, (None, None), 0)
+        x = (block(*args, causal=False)[0] if call is None
+             else call(block, *args, causal=False, policy="full"))
+    return params.enc_final_norm(x)
+
+
 def forward(params: CausalLM, cfg: ArchConfig,
             batch: Dict[str, torch.Tensor], *, remat: bool = True,
             remat_policy: str = "full"
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence forward: ``batch["tokens"]`` (B, S) (and a vlm
-    batch's ``image_embeds``) -> (logits (B, S_total, Vp) f32, aux): aux
-    holds the moe family's layer means of ``moe_aux`` and ``moe_dropped``,
-    else is empty. The recurrent families start from zero states and the
-    hybrid shared block attends with ``cfg.sliding_window``, as in the
-    reference. Differentiable; with ``remat`` (and autograd recording)
-    each block is checkpointed as ``remat_policy`` says."""
+    batch's ``image_embeds``, an audio batch's ``audio_embeds``) ->
+    (logits (B, S_total, Vp) f32, aux): aux holds the moe family's layer
+    means of ``moe_aux`` and ``moe_dropped``, else is empty. The audio
+    family's logits are the text's. The recurrent families start from
+    zero states and the hybrid shared block attends with
+    ``cfg.sliding_window``, as in the reference. Differentiable; with
+    ``remat`` (and autograd recording) each block is checkpointed as
+    ``remat_policy`` says, the audio encoder's as "full" (the
+    reference's ``_encode_audio`` passes no policy)."""
     _check_family(cfg)
     dtype = compute_dtype(cfg)
     x = _embed_inputs(params, cfg, batch, dtype)
     B, S = x.shape[:2]
-    run = (_remat(remat_policy) if remat and torch.is_grad_enabled()
-           else None)
+    remat = remat and torch.is_grad_enabled()
 
-    def call(block, *args, keep=(0,), **kw):
-        """The block's outputs at ``keep`` (by default its activations)."""
+    def call(block, *args, keep=(0,), policy=remat_policy, **kw):
+        """The block's outputs at ``keep`` (by default its activations),
+        checkpointed under ``policy`` with remat."""
         def fn(*a, **k):
             out = block(*a, **k)
             return tuple(out[i] for i in keep)
-        out = fn(*args, **kw) if run is None else run(fn, *args, **kw)
+        out = _remat(policy)(fn, *args, **kw) if remat else fn(*args, **kw)
         return out if len(keep) > 1 else out[0]
 
     window = cfg.sliding_window
@@ -415,6 +526,12 @@ def forward(params: CausalLM, cfg: ArchConfig,
         return _final_logits(params, x), {}
 
     rope, rot_dim = params.rope(0, S)
+    if cfg.family == "audio":
+        enc = _encode(params, batch["audio_embeds"].to(dtype), call)
+        x = _with_positions(x)
+        for block in params.blocks:
+            x = call(block, x, rope, rot_dim, enc)
+        return _final_logits(params, x), {}
     if cfg.family in ATTENTION_FAMILIES:
         auxs = []
         for block in params.blocks:
@@ -470,13 +587,15 @@ def _rwkv_layer(block, x, cache, li, shift_att, shift_ffn):
 @torch.no_grad()
 def prefill(params: CausalLM, cfg: ArchConfig, batch, cache):
     """Consume the prompt ``batch["tokens"]`` (B, S) (a vlm batch's
-    ``image_embeds`` before it, so that S counts the image positions too),
-    fill ``cache`` in place and return (last-token logits (B, 1, Vp) f32,
-    cache).
+    ``image_embeds`` before it, so that S counts the image positions too;
+    an audio batch's ``audio_embeds`` through the encoder), fill ``cache``
+    in place and return (last-token logits (B, 1, Vp) f32, cache).
 
     Attention layers keep their K/V of the last ``min(S, max_len)``
-    positions at ring-aligned slots (``_fill_ring``); recurrent layers
-    run the prompt from the cache's state and store the final one."""
+    positions at ring-aligned slots (``_fill_ring``); the audio decoder's
+    layers also write their cross K/V into ``cross_k`` / ``cross_v``;
+    recurrent layers run the prompt from the cache's state and store the
+    final one."""
     _check_family(cfg)
     dtype = compute_dtype(cfg)
     x = _embed_inputs(params, cfg, batch, dtype)
@@ -486,6 +605,16 @@ def prefill(params: CausalLM, cfg: ArchConfig, batch, cache):
                                 device=x.device)
         for li, block in enumerate(params.blocks):
             x = _rwkv_layer(block, x, cache, li, zero_prev, zero_prev)
+    elif cfg.family == "audio":
+        enc = _encode(params, batch["audio_embeds"].to(dtype))
+        x = _with_positions(x)
+        rope, rot_dim = params.rope(0, S)
+        for li, block in enumerate(params.blocks):
+            x, (k1, v1), (ck, cv) = block(x, rope, rot_dim, enc,
+                                          window=cfg.sliding_window)
+            _fill_ring(cache["attn"], li, k1, v1, S)
+            cache["cross_k"][li].copy_(ck)
+            cache["cross_v"][li].copy_(cv)
     elif cfg.family in ATTENTION_FAMILIES:
         rope, rot_dim = params.rope(0, S)
         for li, block in enumerate(params.blocks):
@@ -514,7 +643,10 @@ def decode_step(params: CausalLM, cfg: ArchConfig, cache, tokens,
     recurrent states) and returns (logits (B, 1, Vp) f32, cache) with
     ``pos`` advanced. ``window_override`` applies to the dense family; the
     hybrid ring's size is its window. The moe family's decode groups are
-    dropless (``moe.groups_and_capacity``)."""
+    dropless (``moe.groups_and_capacity``). The audio family's decoder
+    attends over its cross cache too (``cross_pos`` at query position
+    F − 1: every frame), and the token gets no position embedding, as in
+    the reference."""
     _check_family(cfg)
     pos = cache["pos"]
     x = L.embed(params.table, tokens, compute_dtype(cfg))
@@ -529,8 +661,12 @@ def decode_step(params: CausalLM, cfg: ArchConfig, cache, tokens,
         ring = window > 0 and ck.shape[2] <= window
         rope, rot_dim = params.rope(pos, 1)
         for li, block in enumerate(params.blocks):
+            cross = ({"cross_cache": (cache["cross_k"][li],
+                                      cache["cross_v"][li],
+                                      cache["cross_pos"])}
+                     if cfg.is_encdec else {})
             x, _, _ = block(x, rope, rot_dim, pos=pos, window=window,
-                            cache=(ck[li], cv[li], kv_pos[li], ring))
+                            cache=(ck[li], cv[li], kv_pos[li], ring), **cross)
     else:
         ck, cv, kv_pos = (cache["attn"][n] for n in ("k", "v", "kv_pos"))
         window = ck.shape[2]

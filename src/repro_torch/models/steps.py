@@ -1,6 +1,6 @@
 """Step functions (port of ``repro/models/steps.py``): the loss and the
-train step of the dense, moe and vlm families, and the serving steps of
-the dense, moe, vlm, hybrid and ssm families.
+train step of the dense, moe, vlm and audio families, and the serving
+steps of every family.
 
 The factories close over the configs, as the reference's do, so a caller
 holds only params, optimizer state, batch and cache. ``make_train_step``'s
@@ -43,7 +43,8 @@ def cross_entropy(logits, labels, mask):
 def loss_fn(params, cfg: ArchConfig, batch, *, remat=True,
             remat_policy="full"):
     """Next-token cross entropy over the text stream ``batch["tokens"]``
-    (B, S) (a vlm batch's image positions give no loss), plus 0.01 ×
+    (B, S) (a vlm batch's image positions give no loss; an audio batch's
+    ``audio_embeds`` feed the encoder and have no logits), plus 0.01 ×
     ``moe_aux`` for the moe family: returns (loss, metrics = {"loss":
     loss, **aux})."""
     logits, aux = MODEL.forward(params, cfg, batch, remat=remat,
@@ -113,8 +114,9 @@ def make_prefill_step(cfg: ArchConfig, shape: InputShape,
                       window_override: Optional[int] = None):
     def prefill_step(params, batch):
         """A fresh cache of ``shape.seq_len`` slots (bf16, on the tokens'
-        device; a vlm prompt's image positions take slots too), filled
-        from the prompt; returns (last logits, cache)."""
+        device; a vlm prompt's image positions take slots too; an audio
+        model's cross state holds ``n_audio_frames``), filled from the
+        prompt; returns (last logits, cache)."""
         tokens = batch["tokens"]
         cache = serve_cache_init(cfg, tokens.shape[0], shape.seq_len,
                                  window_override=window_override,

@@ -66,12 +66,11 @@ def test_distributed_block(capsys, one_torch_thread):
 
 
 @pytest.mark.parametrize("arch", ["granite_moe_1b_a400m", "mixtral_8x7b",
-                                  "internvl2_1b"])
+                                  "internvl2_1b", "whisper_medium"])
 def test_llm_smoke_train(arch, capsys, one_torch_thread):
     mod = _example("torch_llm_smoke_train")
     assert {"llama3_8b", "qwen3_4b", arch} <= set(mod.TRAINABLE)
-    assert not {"zamba2_7b", "rwkv6_7b", "whisper_medium"} & set(
-        mod.TRAINABLE)
+    assert not {"zamba2_7b", "rwkv6_7b"} & set(mod.TRAINABLE)
     losses = mod.main(["--arch", arch, "--steps", "12", "--device", "cpu"])
     _ok(capsys)
     assert len(losses) == 12 and all(np.isfinite(losses))
