@@ -45,7 +45,9 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      padding time and the first dispatch to last resolve; streaming also
      prints ``peak_window_blocks`` × the largest ``block_bytes``);
      since PR 21, the placements of ``core.topology`` on the one card,
-     at the same shape with the fused sweep: ``[main:async-groups]``
+     with the fused sweep on the same shape's first 1/PLACEMENT_ROWS of
+     the rows (``cut_rows``, the same grid), each held to a stacked run
+     of that cut (``[main:fused-sweep-rows/4]``): ``[main:async-groups]``
      (async on Topology(4, 1): 4 groups, a stream each) and
      ``[main:streaming-groups]`` (Topology(2, 1), W = 4 per group, depth
      2), each within PP_RMSE_TOL of the stacked run, with wall, pad and
@@ -129,7 +131,10 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      (``ms``, ``library_ms``: the measure of the earlier rows, which counts
      the host's enqueue) and beside it as device time per call (20 calls
      in a CUDA graph: ``device_ms_per_call``,
-     ``library_device_ms_per_call``);
+     ``library_device_ms_per_call``); and the serving shapes': L1 causal
+     over one 32,768-token prompt, held on its last 1,024 query rows (the
+     plain version's scores for all would not fit), and L3 over 32,768
+     filled slots at batch 8 with its split plan;
   6. the LLM serve path at full width: Qwen3-4B, all 36 layers, seeded
      random bf16 weights made on the card; 8 sequences of 4,096 synthetic
      tokens; ``make_prefill_step`` consumes 4,000 of them into a
@@ -138,7 +143,17 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      L1 must launch 36 times, all on the sm90 kernel, and L3 36 x 96
      times, and for 2 sequences every step's logits must agree with the
      port's ``forward`` over all 4,096 tokens run through the plain
-     attention versions;
+     attention versions; then ``[serving-shapes]``: the reference's
+     ``INPUT_SHAPES`` on Qwen3-4B at full width and depth (see
+     SHAPE_SEQ's comment): ``[shape-prefill32k]`` (``prefill_32k``'s
+     prompt at batch 1; the prefill of S + 1 tokens against the prefill
+     of S into S + 1 slots plus one decode step), ``[int8-decode]``
+     (``decode_32k``'s cache at batch 8 in int8, whose attention is the
+     plain ``layers.flash_attend`` and launches no kernel, against
+     bf16; each cache's bytes equal to its spec on ``meta``) and
+     ``[long-context]`` (``long_500k``'s 8,192-slot ring after a
+     16,384-token prompt against an unringed cache with the same window
+     mask), each with exact launch counts;
   7. L2 parity: L2 (flash attention backward) against its plain version
      on the same (q, k, v, o, do, lse), bf16 and fp32, at the train path's
      attention shape (B = 2, S = 4,096, H = 32, Hkv = 8, hd = 128): causal,
@@ -233,7 +248,8 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
  20. summary: one JSON line ``{"kernels": [...]}`` (L1 and L2 with each
      variant's launches and times, launches by path) and, last, the
      ``{"ok": true, "device": {...}}`` line. ``[time]`` lines give the
-     run's seconds after each group of phases.
+     run's seconds after each group of phases. Every profiled window
+     traces the device's activity only (``device_profile``).
 
 Without a GPU, or without the repository's ``src/repro_torch`` beside it,
 it exits non-zero before printing any result.
@@ -269,6 +285,12 @@ PP_RMSE_TOL = 1e-4
 PSUM_RMSE_TOL, SCATTER_RMSE_TOL = 1e-3, 0.15
 # the placements of the new phases, every slot on the one card
 ASYNC_GROUPS, STREAM_GROUPS, SHARDED = (4, 1), (2, 1), (2, 2)
+# the placement runs ([main:async-groups], [main:streaming-groups],
+# [main:sharded], [group-faults]) take the MovieLens shape's first
+# 1/PLACEMENT_ROWS of the rows on the same 16 x 4 grid, held against a
+# stacked run of that cut: each full-shape run spent ~15 s, mostly the
+# host's padding, which scales with the rows
+PLACEMENT_ROWS = 4
 # [group-faults]: the watchdog floor (a healthy block resolves in well
 # under it), and the straggler's delay and hedge: a twin needs an idle
 # group, which this host-bound run has only where the ready queue runs
@@ -351,6 +373,34 @@ RING_WRAP_STEPS = 8
 WHISPER_ARCH = "whisper_medium"
 LOGIT_TOL[WHISPER_ARCH] = 0.2
 LOGIT_MEDIAN_TOL[WHISPER_ARCH] = 0.1
+
+# the serving shapes (INPUT_SHAPES) on Qwen3-4B at full width and depth:
+# [shape-prefill32k] one prompt of prefill_32k's 32,768 tokens (its batch
+# of 32 cut to 1), held against the prefill of 32,768 tokens plus one
+# decode step of the next; [int8-decode] decode_32k's 32,768-slot cache
+# at batch 8 (of 128: the int8 cache of 128 rows would take 319 GB), a
+# 32-token prompt decoded from the empty cache (the reference's int8
+# route) and 32 teacher-forced steps, int8 against the bf16 cache on the
+# same tokens; [long-context] long_500k as the reference runs a dense
+# model: long_context_window's 8,192-slot ring at batch 1, a 16,384-token
+# prompt (full causal attention, the last 8,192 positions kept at
+# ring-aligned slots), 32 decode steps that overwrite the oldest slots,
+# against a 16,416-slot cache decoded with the same window mask
+SHAPE_SEQ = 32_768
+L1_LONG_CHECK_ROWS = 1024
+INT8_BATCH, INT8_PROMPT, INT8_STEPS = 8, 32, 32
+LONG_PROMPT, LONG_STEPS = 16_384, 32
+# max |d logit| / rms(logits) limits of the three, each about twice its
+# first reading on the H100 (NVIDIA H100 80GB HBM3, 700 W): the prefill
+# of S + 1 tokens against the prefill of S and one decode step (L1
+# against L3, both bf16: 0.1016); int8 against the bf16 cache over the
+# steps (0.1679) and its median step (0.1406); the ring against the
+# unringed cache (0.0704: the same prefill, bitwise, then L3 over 8,192
+# ring slots against 16,416 masked ones, whose bf16 outputs round apart
+# through 36 layers)
+PREFILL32K_LOGIT_TOL = 0.2
+INT8_LOGIT_TOL, INT8_LOGIT_MEDIAN_TOL = 0.35, 0.3
+LONG_LOGIT_TOL = 0.15
 
 # L4/L5 vs their plain chunked versions on the card, relative to the
 # largest plain value (y and the final state): both f32; the kernels sum
@@ -571,6 +621,26 @@ def make_data(table=TABLE1_MOVIELENS, n_blocks=64):
         f"partition {t2 - t1:.1f}s")
     test_p = apply_permutation(test, part.row_perm, part.col_perm)
     return preset, train, test, test_p, part
+
+
+def cut_rows(train, test, part, n):
+    """The ratings of the first 1/n of the rows (train and test) and their
+    partition on ``part``'s grid."""
+    from repro_torch.core.partition import partition
+    from repro_torch.data.sparse import COO
+    rows = train.n_rows // n
+
+    def cut(c):
+        keep = c.row < rows
+        return COO(c.row[keep], c.col[keep], c.val[keep], rows, c.n_cols)
+
+    t0 = time.time()
+    train_c, test_c = cut(train), cut(test)
+    part_c = partition(train_c, part.I, part.J)
+    log(f"[data] placement cut: the first 1/{n} of the rows, {rows} x "
+        f"{train_c.n_cols}, {train_c.nnz} train / {test_c.nnz} test "
+        f"ratings, grid {part.I}x{part.J}; {time.time() - t0:.1f}s")
+    return train_c, test_c, part_c
 
 
 def bucket_planes(part, test_p, K, dev, tag="parity"):
@@ -1052,7 +1122,6 @@ def phase_bmf_profile(train, test, part, cfg, dev):
     """One profiled repeat of the stacked, async and streaming runs: the
     device's busy share of the wall (union of device intervals)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import engine as ENG
     from repro_torch.core import pp as PP
     shares = {}
@@ -1063,8 +1132,7 @@ def phase_bmf_profile(train, test, part, cfg, dev):
                       ("streaming", ENG.StreamingExecutor(window=4,
                                                           depth=2))):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with device_profile() as prof:
             t0 = time.time()
             PP.run_pp(0, part, cfg, test, executor=ex, device=dev)
             torch.cuda.synchronize()
@@ -1366,10 +1434,8 @@ def _serve_profile(router, reqs, n=512):
     """``n`` requests through ``router`` under ``torch.profiler``: the
     device's busy share of the wall and its top kernels."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         t0 = time.time()
         for r in reqs[:n]:
             router.submit(r)
@@ -1907,7 +1973,7 @@ def _l3_case(g, dev, case, B, S, H, Hkv, hd, window, dtype,
     n_splits, chunk = L3.split_plan(
         B, Hkv, S, hd, torch.cuda.get_device_properties(dev)
         .multi_processor_count)
-    if case.endswith("full-4096") and dtype == "bf16":
+    if case.endswith(("full-4096", "full-32768")) and dtype == "bf16":
         _l3_split_sweep(q, k, v, kv_pos, q_pos, n_splits, case, tag)
     del q, k, v
     torch.cuda.empty_cache()
@@ -1921,6 +1987,49 @@ def _l3_case(g, dev, case, B, S, H, Hkv, hd, window, dtype,
         device_ms_per_call=dev_ms, library_device_ms_per_call=dev_lib,
         device_tb_per_s=n_bytes / dev_ms / 1e9, one_call_floor_ms=floor,
         splits=n_splits)
+
+
+def _l1_long_case(g, dev, case, S, H, Hkv, hd, dtype, check_rows,
+                  tag="llm-parity"):
+    """L1 at one causal sequence of S positions (prefill_32k's length),
+    held against its plain version on the last ``check_rows`` query rows
+    (positions S - check_rows ... S - 1, which see all but the last keys):
+    the plain version's (S, S) f32 scores would not fit the card. Timed
+    beside the bound and SDPA; ``plain_ms`` is the plain version on those
+    rows."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as L1
+    q = torch.randn((1, S, H, hd), generator=g, device=dev).to(_tdt(dtype))
+    k, v = (torch.randn((1, S, Hkv, hd), generator=g,
+                        device=dev).to(_tdt(dtype)) for _ in range(2))
+
+    def kern():
+        return L1.flash_attention(q, k, v, causal=True)
+
+    def plain():
+        return L1.flash_attention_ref(
+            q[:, -check_rows:], k, v, causal=True,
+            q_offset=S - check_rows).to(q.dtype)
+
+    out = kern()[:, -check_rows:].float()
+    want = plain().float()
+    err = float((out - want).abs().max())
+    scale = max(float(want.abs().max()), 1.0)
+    del out, want
+    torch.cuda.empty_cache()
+    ms, pms = cuda_ms(kern, 3, warmup=1), cuda_ms(plain, 1, warmup=0)
+    torch.cuda.empty_cache()
+    lib = _sdpa_ms(q, k, v, 3, is_causal=True)
+    pairs = S * (S + 1) // 2
+    elt = q.element_size()
+    n_bytes = elt * (2 * q.numel() + k.numel() + v.numel())
+    bd = bound(n_bytes, 4 * H * hd * pairs, dtype)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return _attn_line("flash_attention", case, dtype, err, scale,
+                      ATTN_TOL[dtype], ms, pms, bd, lib, n_bytes, tag=tag,
+                      note=f" (held and plain-timed on the last "
+                           f"{check_rows} query rows; {pairs} causal pairs)")
 
 
 def _l3_split_sweep(q, k, v, kv_pos, q_pos, n_plan, case, tag):
@@ -1982,6 +2091,14 @@ def phase_llm_parity(dev):
         for dtype in ("bf16", "fp32"):
             results["decode_attention"].append(_l3_case(
                 g, dev, case, B, S, H, Hkv, hd, window, dtype))
+    # the serving shapes' attention: L1 over prefill_32k's one 32,768-token
+    # prompt, L3 over decode_32k's 32,768 filled slots at [int8-decode]'s
+    # batch (its bf16 comparator)
+    results["flash_attention"].append(_l1_long_case(
+        g, dev, "causal-32768-B1", SHAPE_SEQ, H, Hkv, hd, "bf16",
+        L1_LONG_CHECK_ROWS))
+    results["decode_attention"].append(_l3_case(
+        g, dev, "full-32768", INT8_BATCH, SHAPE_SEQ, H, Hkv, hd, 0, "bf16"))
     torch.cuda.empty_cache()
     return results
 
@@ -2440,15 +2557,9 @@ def phase_serve(dev, arch, tag, n_layers=None, past=0):
                 ref_keep = _keeps_by_step(ref_keeps, cfg.n_layers, n_steps,
                                           layer_major=True)
 
-    def compare(a, b):
-        rms = float(b.square().mean().sqrt())
-        per_step = (a - b).abs().amax(dim=(0, 2)) / rms
-        agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
-        return float(per_step.max()), per_step, agree, rms
-
-    ratio, per_step, agree, rms = compare(got, refs["bf16"])
-    r_k32, _, a_k32, _ = compare(got, refs["f32"])
-    r_p32, _, a_p32, _ = compare(refs["bf16"], refs["f32"])
+    ratio, per_step, agree, rms = _logit_gap(got, refs["bf16"], V)
+    r_k32, _, a_k32, _ = _logit_gap(got, refs["f32"], V)
+    r_p32, _, a_p32, _ = _logit_gap(refs["bf16"], refs["f32"], V)
     median = float(per_step[1:].median())
     wrap = float(per_step[-past:].median()) if past else 0.0
     log(f"[{tag}-serve] vs {what} over {end} positions "
@@ -2492,6 +2603,291 @@ def phase_serve(dev, arch, tag, n_layers=None, past=0):
     del params, refs, got, kept
     torch.cuda.empty_cache()
     return counts
+
+
+def _logit_gap(a, b, V):
+    """(max over rows and steps of max |a - b| / rms(b), the per-step
+    ratios, argmax agreement, rms(b)) of f32 logits (B, steps, ·) over
+    the real vocabulary, the first V."""
+    a, b = a[..., :V], b[..., :V]
+    rms = float(b.square().mean().sqrt())
+    per_step = (a - b).abs().amax(dim=(0, 2)) / rms
+    agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    return float(per_step.max()), per_step, agree, rms
+
+
+def _check_launches(tag, counts, want):
+    """The run's launch counts must be exactly ``want`` (the named kernels;
+    every other kernel 0)."""
+    full = {name: 0 for name in counts}
+    full.update(want)
+    assert counts == full, f"[{tag}] launches {counts}, expected {full}"
+
+
+def phase_serving_shapes(dev):
+    """The reference's serving shapes on Qwen3-4B at full width and depth
+    with seeded random bf16 weights: [shape-prefill32k], [int8-decode] and
+    [long-context] (see SHAPE_SEQ's comment for each one's cuts). Returns
+    the launch counts of each phase's runs, by path."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as LM
+    cfg = get_config(LLM_ARCH)
+    t0 = time.time()
+    params = LM.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    torch.cuda.synchronize()
+    log(f"[serving-shapes] {_describe(cfg)}; weights made in "
+        f"{time.time() - t0:.1f}s")
+    counts = {"serve_prefill32k": phase_shape_prefill32k(dev, params, cfg)}
+    counts.update(phase_int8_decode(dev, params, cfg))
+    counts.update(phase_long_context(dev, params, cfg))
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _peak_reset():
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+
+
+def phase_shape_prefill32k(dev, params, cfg):
+    """prefill_32k through ``make_prefill_step``: one 32,768-token prompt
+    (the shape's batch of 32 cut to 1) into its 32,768-slot cache, L1 at
+    the shape's length; then the gate: the prefill of S + 1 tokens (L1;
+    the shape's cache keeps their last S positions) against the prefill of
+    S tokens into an (S + 1)-slot cache plus one ``decode_step`` of token
+    S (L3), the same last-token function by two routes. (A decode step
+    into the full S-slot cache would overwrite its last slot, as the
+    reference's clamped write does.)"""
+    import torch
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.data.tokens import synthetic_token_batches
+    from repro_torch.models import steps as ST
+    tag = "shape-prefill32k"
+    shape = INPUT_SHAPES["prefill_32k"]
+    S = shape.seq_len
+    assert S == SHAPE_SEQ
+    tokens = next(synthetic_token_batches(cfg, 1, S + 1, seed=1,
+                                          device=dev))["tokens"]
+    prefill_step = ST.make_prefill_step(cfg, shape)
+    serve_step = ST.make_serve_step(cfg)
+    _peak_reset()
+    t0 = time.time()
+    logits, cache = prefill_step(params, {"tokens": tokens[:, :S]})
+    torch.cuda.synchronize()
+    prefill_s = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    timed = read_counts()
+    cache_bytes = _tensor_bytes(cache)
+    del cache, logits
+    torch.cuda.empty_cache()
+    longer, cache = prefill_step(params, {"tokens": tokens})
+    assert cache["pos"] == S + 1 and int(cache["attn"]["kv_pos"][0].max()) \
+        == S and int(cache["attn"]["kv_pos"][0].min()) == 1
+    del cache
+    torch.cuda.empty_cache()
+    roomy = ST.make_prefill_step(cfg, dataclasses.replace(
+        shape, name="prefill_32k_plus_one", seq_len=S + 1))
+    _, cache = roomy(params, {"tokens": tokens[:, :S]})
+    step, cache = serve_step(params, cache, tokens[:, S:S + 1])
+    counts = read_counts()
+    del cache
+    torch.cuda.empty_cache()
+    gap, _, agree, _ = _logit_gap(step, longer, cfg.vocab_size)
+    log(f"[{tag}] prefill_32k cut to batch 1 (of {shape.global_batch}): "
+        f"prefill 1 x {S} tokens {prefill_s:.3f}s, {S / prefill_s:.4g} "
+        f"tokens/s; cache {cache_bytes / 1e9:.2f} GB; peak device memory "
+        f"{peak / 1e9:.2f} GB; L1 {timed['flash_attention']} launches "
+        f"(sm90 {timed['flash_attention_sm90']}); prefill of {S + 1} "
+        f"tokens vs prefill of {S} into {S + 1} slots + one decode step: "
+        f"max |d logit| / rms "
+        f"{gap:.4g} (limit {PREFILL32K_LOGIT_TOL}), argmax "
+        f"{'same' if agree == 1.0 else 'differs'}; phase launches {counts}")
+    n = cfg.n_layers
+    _check_launches(tag, timed, {"flash_attention": n,
+                                 "flash_attention_sm90": n})
+    _check_launches(tag, counts, {"flash_attention": 3 * n,
+                                  "flash_attention_sm90": 3 * n,
+                                  "decode_attention": n})
+    assert bool(torch.isfinite(step).all() & torch.isfinite(longer).all())
+    assert gap <= PREFILL32K_LOGIT_TOL, f"[{tag}] the two routes disagree"
+    assert peak < 80e9
+    return counts
+
+
+def phase_int8_decode(dev, params, cfg):
+    """decode_32k's cache length at batch INT8_BATCH: INT8_PROMPT tokens
+    decoded from the empty int8 cache, then INT8_STEPS teacher-forced
+    steps; the same tokens through the bf16 cache (L3 over 32,768 slots).
+    Gates: the int8 logits against the bf16 ones (max and median step),
+    each cache's bytes equal to its spec tree on ``meta``, and launches:
+    none in the int8 run (its attention is plain, as the reference routes
+    an int8 cache), L3 per layer and step in the bf16 run."""
+    import torch
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.data.tokens import synthetic_token_batches
+    from repro_torch.models import kvcache as KV
+    from repro_torch.models import steps as ST
+    tag = "int8-decode"
+    shape = dataclasses.replace(INPUT_SHAPES["decode_32k"],
+                                global_batch=INT8_BATCH)
+    n_tok = INT8_PROMPT + INT8_STEPS
+    tokens = next(synthetic_token_batches(cfg, INT8_BATCH, n_tok, seed=2,
+                                          device=dev))["tokens"]
+    serve_step = ST.make_serve_step(cfg)
+    runs = {}
+    for quant in (True, False):
+        name = "int8" if quant else "bf16"
+        _peak_reset()
+        cache = KV.serve_cache_init(cfg, INT8_BATCH, shape.seq_len,
+                                    device=dev, kv_quant=quant)
+        spec = (ST.cache_specs_quant if quant else ST.cache_specs)(cfg, shape)
+        cache_bytes = _tensor_bytes(cache)
+        assert cache_bytes == _tensor_bytes(spec), \
+            f"[{tag}] {name} cache {cache_bytes} bytes, spec " \
+            f"{_tensor_bytes(spec)}"
+        assert {k: (v.shape, v.dtype) for k, v in cache["attn"].items()} == \
+            {k: (v.shape, v.dtype) for k, v in spec["attn"].items()}
+        kept = []
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for t in range(n_tok):
+            if t == INT8_PROMPT:
+                torch.cuda.synchronize()
+                t1 = time.time()
+            logits, cache = serve_step(params, cache, tokens[:, t:t + 1])
+            kept.append(logits[:, 0])
+        torch.cuda.synchronize()
+        t2 = time.time()
+        runs[name] = dict(
+            logits=torch.stack(kept, dim=1), bytes=cache_bytes,
+            peak=torch.cuda.max_memory_allocated(), counts=read_counts(),
+            prompt_ms=1e3 * (t1 - t0) / INT8_PROMPT,
+            step_ms=1e3 * (t2 - t1) / INT8_STEPS)
+        assert cache["pos"] == n_tok
+        if quant:
+            # the plain route's host cost: kernels a step and busy share
+            # (after the counts: the profiled step reruns the last one)
+            profile_decode(serve_step, params, cache, tokens, f"{tag}-int8",
+                           n_tok, n=1)
+        del cache, kept, logits
+    i8, bf = runs["int8"], runs["bf16"]
+    gap, per_step, agree, _ = _logit_gap(i8["logits"], bf["logits"],
+                                         cfg.vocab_size)
+    median = float(per_step.median())
+    finite = bool(torch.isfinite(i8["logits"]).all()
+                  & torch.isfinite(bf["logits"]).all())
+    for name, r in runs.items():
+        log(f"[{tag}] {name} cache of {shape.seq_len} slots x "
+            f"{INT8_BATCH} rows (decode_32k's batch of "
+            f"{INPUT_SHAPES['decode_32k'].global_batch} cut to "
+            f"{INT8_BATCH}): {r['bytes'] / 1e9:.2f} GB (= its spec on meta); "
+            f"prompt of {INT8_PROMPT} tokens by decode_step "
+            f"{r['prompt_ms']:.2f} ms/step, then {INT8_STEPS} steps "
+            f"{r['step_ms']:.2f} ms/step, {INT8_BATCH * 1e3 / r['step_ms']:.4g}"
+            f" tokens/s; peak device memory {r['peak'] / 1e9:.2f} GB; "
+            f"launches {r['counts']}")
+    log(f"[{tag}] int8 vs bf16 cache over {n_tok} steps: max |d logit| / "
+        f"rms {gap:.4g} (limit {INT8_LOGIT_TOL}), median step {median:.4g} "
+        f"(limit {INT8_LOGIT_MEDIAN_TOL}), last step {float(per_step[-1]):.4g}"
+        f"; argmax agreement {agree:.4f}")
+    n = cfg.n_layers
+    _check_launches(tag, i8["counts"], {})
+    _check_launches(tag, bf["counts"], {"decode_attention": n * n_tok})
+    assert finite, f"[{tag}] non-finite logits"
+    assert gap <= INT8_LOGIT_TOL and median <= INT8_LOGIT_MEDIAN_TOL, \
+        f"[{tag}] the int8 cache moves the logits off the bf16 cache's"
+    assert max(i8["peak"], bf["peak"]) < 80e9
+    return {"serve_int8_decode": i8["counts"],
+            "serve_int8_decode_bf16": bf["counts"]}
+
+
+def phase_long_context(dev, params, cfg):
+    """long_500k as the reference runs a full-attention dense model:
+    ``make_prefill_step`` with ``long_context_window``'s override (an
+    8,192-slot ring) over a LONG_PROMPT-token prompt, which attends with
+    full causal attention and keeps its last 8,192 positions at
+    ring-aligned slots; LONG_STEPS decode steps through
+    ``make_serve_step`` with the window, which overwrite the oldest slots.
+    Gate: the same prompt and steps through a LONG_PROMPT + LONG_STEPS
+    slot cache decoded with the same window mask (no ring)."""
+    import torch
+    from repro_torch.configs.base import INPUT_SHAPES, InputShape
+    from repro_torch.data.tokens import synthetic_token_batches
+    from repro_torch.models import model as LM
+    from repro_torch.models import steps as ST
+    tag = "long-context"
+    shape = INPUT_SHAPES["long_500k"]
+    window = ST.long_context_window(cfg, shape)
+    end = LONG_PROMPT + LONG_STEPS
+    tokens = next(synthetic_token_batches(cfg, 1, end, seed=3,
+                                          device=dev))["tokens"]
+    unringed = InputShape("long_500k_unringed", end, 1, "decode")
+    runs = {}
+    for name, pshape, override in (("ring", shape, window),
+                                   ("unringed", unringed, None)):
+        prefill_step = ST.make_prefill_step(cfg, pshape, override)
+        serve_step = ST.make_serve_step(cfg, window)
+        _peak_reset()
+        t0 = time.time()
+        logits, cache = prefill_step(params,
+                                     {"tokens": tokens[:, :LONG_PROMPT]})
+        torch.cuda.synchronize()
+        prefill_s = time.time() - t0
+        slots = cache["attn"]["k"].shape[2]
+        kv_pos = cache["attn"]["kv_pos"][0]
+        kept_pos = (int(kv_pos[kv_pos >= 0].min()), int(kv_pos.max()))
+        kept = [logits[:, 0]]
+        t0 = time.time()
+        for t in range(LONG_PROMPT, end):
+            logits, cache = serve_step(params, cache, tokens[:, t:t + 1])
+            kept.append(logits[:, 0])
+        torch.cuda.synchronize()
+        runs[name] = dict(
+            logits=torch.stack(kept, dim=1), slots=slots, kept=kept_pos,
+            prefill_s=prefill_s,
+            step_ms=1e3 * (time.time() - t0) / LONG_STEPS,
+            peak=torch.cuda.max_memory_allocated(), counts=read_counts(),
+            end_pos=(int(cache["attn"]["kv_pos"][0].min()),
+                     int(cache["attn"]["kv_pos"][0].max())))
+        del cache, logits, kept
+    ring, ref = runs["ring"], runs["unringed"]
+    gap, per_step, agree, _ = _logit_gap(ring["logits"], ref["logits"],
+                                         cfg.vocab_size)
+    for name, r in runs.items():
+        log(f"[{tag}] {name}: {r['slots']} slots at batch 1, prefill of "
+            f"{LONG_PROMPT} tokens {r['prefill_s']:.3f}s (kept positions "
+            f"{r['kept'][0]}-{r['kept'][1]}), {LONG_STEPS} decode steps with "
+            f"window {window} {r['step_ms']:.2f} ms/step (positions "
+            f"{r['end_pos'][0]}-{r['end_pos'][1]} in the cache after them); "
+            f"peak device memory {r['peak'] / 1e9:.2f} GB; launches "
+            f"{r['counts']}")
+    log(f"[{tag}] long_500k cut: the decode reaches position {end - 1}, "
+        f"not {shape.seq_len - 1} (the ring arithmetic is the same past any "
+        f"multiple of the window); ring vs unringed over the prefill and "
+        f"{LONG_STEPS} steps: max |d logit| / rms {gap:.4g} (limit "
+        f"{LONG_LOGIT_TOL}; the prefill step {float(per_step[0]):.4g}, "
+        f"which must be 0), argmax agreement {agree:.4f}")
+    assert window == LM.LONG_CONTEXT_WINDOW and ring["slots"] == window
+    assert ring["kept"] == (LONG_PROMPT - window, LONG_PROMPT - 1)
+    assert ring["end_pos"] == (end - window, end - 1)
+    assert ref["slots"] == end and ref["kept"] == (0, LONG_PROMPT - 1)
+    n = cfg.n_layers
+    for r in runs.values():
+        _check_launches(tag, r["counts"], {
+            "flash_attention": n, "flash_attention_sm90": n,
+            "decode_attention": n * LONG_STEPS})
+    assert bool(torch.isfinite(ring["logits"]).all())
+    # the prefill attends alike whatever the cache's size
+    assert float(per_step[0]) == 0.0, f"[{tag}] the override moved prefill"
+    assert gap <= LONG_LOGIT_TOL, f"[{tag}] the ring moves off the window mask"
+    return {"serve_long_context": ring["counts"],
+            "serve_long_context_unringed": ref["counts"]}
 
 
 def _serve_replay(params, cfg, batch, prompt):
@@ -2607,6 +3003,15 @@ def _moe_replay(prefill_step, serve_step, params, cfg, tokens, batch,
     return torch.stack(kept, dim=1), keeps
 
 
+def device_profile():
+    """``torch.profiler`` over the device's activity only: ``device_time``
+    reads nothing else, and the host ops' events cost the post-processing
+    of every profiled window seconds (on the H100 with both, a profiled
+    train step took 10-18 s beside 0.7-1.6 s unprofiled; PERF.md)."""
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CUDA])
+
+
 def device_time(prof):
     """({kernel name: (device us, count)}, busy ms) of a ``torch.profiler``
     run: busy is the union of the device activities' intervals, so that
@@ -2636,12 +3041,10 @@ def profile_decode(serve_step, params, cache, tokens, tag, end, n=3,
     of the wall. ``offset``: the positions before the first token (a vlm
     prompt's image)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     start = end - n
     cache["pos"] = start
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         t0 = time.time()
         for t in range(start - offset, end - offset):
             serve_step(params, cache, tokens[:, t:t + 1])
@@ -3019,10 +3422,8 @@ def profile_train_step(step_fn, params, opt, batch, tag="llm-train"):
     """One train step under ``torch.profiler``: device time by kernel and
     the device's busy share of the wall."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         t0 = time.time()
         out = step_fn(params, opt, batch)
         torch.cuda.synchronize()
@@ -3076,14 +3477,19 @@ def main():
     b2_by_path = {"stacked": counts["bmf_sweep"],
                   **phase_overlapped(train, test, part, fused, stacked_fused,
                                      stacked_peak, dev)}
-    grouped, async_groups = phase_groups(train, test, part, fused,
-                                         stacked_fused, stacked_peak, dev)
+    placed = cut_rows(train, test, part, PLACEMENT_ROWS)
+    counts, placed_ref, placed_peak = phase_main(
+        *placed, fused, f"fused-sweep-rows/{PLACEMENT_ROWS}", "bmf_sweep",
+        dev)
+    b2_by_path[f"stacked-rows/{PLACEMENT_ROWS}"] = counts["bmf_sweep"]
+    grouped, async_groups = phase_groups(*placed, fused, placed_ref,
+                                         placed_peak, dev)
     b2_by_path.update(grouped)
-    b1_sharded, b2_sharded = phase_sharded(train, test, part, fused,
-                                           stacked_fused, stacked_peak, dev)
+    b1_sharded, b2_sharded = phase_sharded(*placed, fused, placed_ref,
+                                           placed_peak, dev)
     b2_by_path.update(b2_sharded)
-    phase_group_faults(train, test, part, fused, async_groups, dev)
-    del async_groups
+    phase_group_faults(*placed, fused, async_groups, dev)
+    del async_groups, placed, placed_ref
     counts, _, _ = phase_main(train, test, part,
                               cfg._replace(use_kernel=True), "use-kernel",
                               "bmf_precision", dev)
@@ -3102,6 +3508,8 @@ def main():
     llm_parity = phase_llm_parity(dev)
     llm_counts = phase_serve(dev, LLM_ARCH, "llm")
     stamp("LLM parity and Qwen3 serve")
+    shape_counts = phase_serving_shapes(dev)
+    stamp("serving shapes (prefill_32k, int8 decode_32k, long_500k)")
     launches.update({n: llm_counts[n] for n in llm_parity})
     launches["flash_attention_sm90"] = llm_counts["flash_attention_sm90"]
     llm_parity["flash_attention_bwd"] = phase_l2_parity(dev)
@@ -3126,7 +3534,8 @@ def main():
                                                  n_layers=MIXTRAL_LAYERS,
                                                  past=RING_WRAP_STEPS),
                     "serve_internvl2": phase_serve(dev, VLM_ARCH,
-                                                   "internvl2")}
+                                                   "internvl2"),
+                    **shape_counts}
     stamp("moe and vlm serve")
     train = {"train": train_counts,
              "train_granite": phase_llm_train(

@@ -2,8 +2,9 @@
 
 The port's own copy of the reference's ``repro/configs/base.py``
 (``ArchConfig``, ``InputShape``, ``TrainConfig``, ``smoke_variant``, the
-analytic parameter count), so that the port imports nothing of
-``repro``. Every architecture lives in its own module (``configs/<id>.py``) exporting
+analytic parameter count, the four input shapes ``INPUT_SHAPES`` and
+``shape_supported``), so that the port imports nothing of ``repro``.
+Every architecture lives in its own module (``configs/<id>.py``) exporting
 ``CONFIG``. ``get_config`` resolves every architecture: the port serves
 all six families (dense, moe, vlm, audio, hybrid, ssm). ``NOT_PORTED``
 is empty; an architecture named there would raise
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 import importlib
 from dataclasses import dataclass, replace
+from typing import Tuple
 
 @dataclass(frozen=True)
 class ArchConfig:
@@ -189,6 +191,20 @@ class InputShape:
     global_batch: int
     kind: str  # "train" | "prefill" | "decode"
 
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+# the reference's four input shapes, by name and number
+TRAIN_4K = InputShape("train_4k", 4_096, 256, "train")
+PREFILL_32K = InputShape("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = InputShape("decode_32k", 32_768, 128, "decode")
+LONG_500K = InputShape("long_500k", 524_288, 1, "decode")
+
+INPUT_SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K,
+                                    LONG_500K)}
+
 
 @dataclass(frozen=True)
 class TrainConfig:
@@ -255,3 +271,13 @@ def get_config(arch_id: str) -> ArchConfig:
     mod = importlib.import_module(f"repro_torch.configs.{arch_id}")
     return mod.CONFIG
 
+
+def shape_supported(cfg: ArchConfig, shape: InputShape) -> Tuple[bool, str]:
+    """Whether (arch, shape) is in scope; returns (ok, note), as the
+    reference's. long_500k needs sub-quadratic decode: a dense, moe or vlm
+    model without a sliding window runs it under the window of
+    ``steps.long_context_window``; whisper (enc-dec) skips it."""
+    if shape.name == "long_500k" and cfg.is_encdec:
+        return False, ("enc-dec decoder has no meaningful 524k "
+                       "autoregressive context (DESIGN.md §4)")
+    return True, ""

@@ -211,12 +211,18 @@ class FaultPlan:
     ``group_dead_at`` (``{group: n}``) and ``group_slow_at`` (``{group:
     (n, slow_s)}``) key on a device group and its dispatch ordinal
     (``PhaseContext.next_group_ordinal``): from the group's n-th dispatch
-    on, completion is never observed, or withheld for ``slow_s``."""
+    on, completion is never observed, or withheld for ``slow_s``. With
+    ``group_release`` (an object with ``is_set()``, e.g. a
+    ``threading.Event``) a slow group's completion is withheld until it
+    is set, ``slow_s`` being the timeout: a test can hold a straggler
+    until the behaviour it waits for (a steal) has happened, whatever the
+    host's speed."""
     nan_at: Dict[Coord, int] = field(default_factory=dict)
     hang_at: Dict[Coord, int] = field(default_factory=dict)
     fail_dispatch_at: Dict[Coord, int] = field(default_factory=dict)
     group_dead_at: Dict[int, int] = field(default_factory=dict)
     group_slow_at: Dict[int, Tuple[int, float]] = field(default_factory=dict)
+    group_release: Optional[object] = None
 
     def nan(self, c: Coord, attempt: int) -> bool:
         return attempt < self.nan_at.get(tuple(c), 0)
@@ -375,6 +381,15 @@ class PhaseContext:
             return float("inf")
         slow = self.fault_plan.group_slow_s(g, ordinal)
         return td + slow if slow else 0.0
+
+    def group_withheld(self, sup: float) -> bool:
+        """Whether a flight's completion is still withheld: before its
+        ``group_suppressed_until`` time, unless the plan's
+        ``group_release`` is set (a dead group is never released)."""
+        if not sup or time.time() >= sup:
+            return False
+        release = self.fault_plan.group_release
+        return math.isinf(sup) or release is None or not release.is_set()
 
     def record_fault(self, c: Coord, kind: str, action: str):
         self.faults.append(FaultRecord(coord=c, kind=kind,
@@ -1325,7 +1340,7 @@ class AsyncExecutor(_Overlapped):
         def flight_ready(c, f):
             if ctx.is_hung(c):
                 return False
-            if f.sup and time.time() < f.sup:
+            if ctx.group_withheld(f.sup):
                 return False
             return self._is_resolved(c, f.sig)
 
@@ -2009,7 +2024,7 @@ class StreamingExecutor(_Overlapped):
         def flight_ready(f):
             if any(ctx.is_hung(t.coord) for t in f.tasks):
                 return False
-            if f.sup and time.time() < f.sup:
+            if ctx.group_withheld(f.sup):
                 return False
             return self._is_resolved(f.tasks[0].coord, f.sig)
 

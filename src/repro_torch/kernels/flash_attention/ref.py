@@ -16,10 +16,12 @@ import math
 import torch
 
 
-def attention_mask(Sq: int, Skv: int, causal: bool, window: int, device):
+def attention_mask(Sq: int, Skv: int, causal: bool, window: int, device,
+                   q_offset: int = 0):
     """(Sq, Skv) bool: query i sees key j iff (not causal or j <= i) and
-    (window == 0 or j > i - window); positions start at 0 on both sides."""
-    qpos = torch.arange(Sq, device=device)[:, None]
+    (window == 0 or j > i - window); key positions start at 0, query
+    positions at ``q_offset`` (the last rows of a longer prompt)."""
+    qpos = q_offset + torch.arange(Sq, device=device)[:, None]
     kpos = torch.arange(Skv, device=device)[None, :]
     mask = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
     if causal:
@@ -30,17 +32,17 @@ def attention_mask(Sq: int, Skv: int, causal: bool, window: int, device):
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                        return_lse: bool = False):
-    """q: (B, Sq, H, hd); k/v: (B, Skv, Hkv, hd). A row with no key gets
-    zeros. Returns (B, Sq, H, hd) f32 and, with ``return_lse``, the per-row
-    logsumexp (B, Sq, H) f32 as L1 writes it: m + log(max(l, 1e-30)) with
-    m := 0 where the row saw no key."""
+                        return_lse: bool = False, q_offset: int = 0):
+    """q: (B, Sq, H, hd) at positions q_offset …; k/v: (B, Skv, Hkv, hd).
+    A row with no key gets zeros. Returns (B, Sq, H, hd) f32 and, with
+    ``return_lse``, the per-row logsumexp (B, Sq, H) f32 as L1 writes it:
+    m + log(max(l, 1e-30)) with m := 0 where the row saw no key."""
     B, Sq, H, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     group = H // Hkv
     qf = q.float().reshape(B, Sq, Hkv, group, hd) * (1.0 / math.sqrt(hd))
     s = torch.einsum("bqhgd,bkhd->bqhgk", qf, k.float())
-    mask = attention_mask(Sq, Skv, causal, window, q.device)
+    mask = attention_mask(Sq, Skv, causal, window, q.device, q_offset)
     s.masked_fill_(~mask[None, :, None, None, :], -math.inf)
     # the row max only steadies the exponent: no gradient flows through it
     m = s.detach().amax(dim=-1, keepdim=True)

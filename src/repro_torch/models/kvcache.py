@@ -28,7 +28,13 @@ The recurrent states do not grow with ``seq_len``.
 Where the reference is functional and returns a new cache, the port
 writes in place (``attn_cache_update``, ``model.prefill``,
 ``model.decode_step``): that saves a copy of the whole cache on every
-step. The int8 cache (``kv_quant``) is not ported yet (ROADMAP A.20).
+step.
+
+The int8 cache (``kv_quant``, the dense, moe and vlm families): ``k`` and
+``v`` int8 (L, B, max_len, Hkv, hd) with f32 ``k_scale`` / ``v_scale``
+(L, B, max_len, Hkv), one scale per slot and head (``quantize_kv``).
+Only ``model.decode_step`` fills it, one token at a time, as in the
+reference, whose ``prefill`` casts K/V into it without scales.
 """
 from __future__ import annotations
 
@@ -41,38 +47,82 @@ from repro_torch.configs.base import ATTENTION_FAMILIES, ArchConfig
 
 
 def attn_cache_init(cfg: ArchConfig, n_layers: int, batch: int, max_len: int,
-                    dtype=torch.bfloat16, device=None):
+                    dtype=torch.bfloat16, device=None, quant: bool = False):
+    """Empty K/V of ``max_len`` slots per layer (``kv_pos`` -1); with
+    ``quant`` int8 values and their f32 per (slot, head) scales."""
     dev = resolve_device(device)
     shape = (n_layers, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=dev),
-        "v": torch.zeros(shape, dtype=dtype, device=dev),
+    vdtype = torch.int8 if quant else dtype
+    cache = {
+        "k": torch.zeros(shape, dtype=vdtype, device=dev),
+        "v": torch.zeros(shape, dtype=vdtype, device=dev),
         "kv_pos": torch.full((n_layers, max_len), -1, dtype=torch.int32,
                              device=dev),
     }
+    if quant:
+        cache.update(k_scale=torch.zeros(shape[:-1], dtype=torch.float32,
+                                         device=dev),
+                     v_scale=torch.zeros(shape[:-1], dtype=torch.float32,
+                                         device=dev))
+    return cache
+
+
+def quantize_kv(x):
+    """x: (..., hd) -> (int8 values, (...) f32 scales): scale = max(amax
+    over hd, 1e-6) / 127 in f32, values clip(round(x / scale), ±127),
+    rounded half to even as ``jnp.round`` rounds."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(-1), min=1e-6) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
 
 
 def attn_cache_update(cache_layer_k, cache_layer_v, kv_pos, k_new, v_new,
-                      pos: int, ring: bool):
+                      pos: int, ring: bool, k_scale=None, v_scale=None):
     """Write one token (k_new/v_new: (B, 1, Hkv, hd)) of one layer at
     absolute position ``pos``, in place (cast to the cache dtype): at slot
     ``pos % max_len`` in a ring, else at ``pos`` clamped to the last slot,
-    as the reference's ``dynamic_update_slice`` clamps it."""
+    as the reference's ``dynamic_update_slice`` clamps it. An int8 cache
+    takes ``quantize_kv``'s values, and its scales go to ``k_scale`` /
+    ``v_scale`` (B, max_len, Hkv) at the same slot."""
     max_len = cache_layer_k.shape[1]
     slot = pos % max_len if ring else min(pos, max_len - 1)
-    cache_layer_k[:, slot].copy_(k_new[:, 0])
-    cache_layer_v[:, slot].copy_(v_new[:, 0])
+    if cache_layer_k.dtype == torch.int8:
+        for c, sc, new in ((cache_layer_k, k_scale, k_new),
+                           (cache_layer_v, v_scale, v_new)):
+            q, scale = quantize_kv(new[:, 0])
+            c[:, slot].copy_(q)
+            sc[:, slot].copy_(scale)
+    else:
+        cache_layer_k[:, slot].copy_(k_new[:, 0])
+        cache_layer_v[:, slot].copy_(v_new[:, 0])
     kv_pos[slot] = pos
+
+
+# the families whose reference decode reads an int8 cache: the audio
+# family's decode unpacks its cross cache where the scales would be, and
+# the hybrid and ssm families build no quantized cache
+QUANT_FAMILIES = ("dense", "moe", "vlm")
 
 
 def serve_cache_init(cfg: ArchConfig, batch: int, seq_len: int,
                      dtype=torch.bfloat16,
-                     window_override: Optional[int] = None, device=None):
+                     window_override: Optional[int] = None, device=None,
+                     kv_quant: bool = False):
     """The serving state of ``cfg``'s family for a context of ``seq_len``
     tokens: a dense model gets ``seq_len`` slots, or ``window`` slots (a
     ring) under sliding-window attention; recurrent layers get constant
-    state."""
+    state. ``kv_quant``: the int8 cache (``QUANT_FAMILIES`` only).
+    ``device="meta"`` gives the state's shapes and dtypes without
+    allocating it (``steps.cache_specs``)."""
     from repro_torch.models.mamba2 import mamba2_state_init
+    if kv_quant and cfg.family not in QUANT_FAMILIES:
+        raise NotImplementedError(
+            f"the {cfg.family} family has no int8 cache: the reference's "
+            "decode reads one only for the "
+            f"{', '.join(QUANT_FAMILIES)} families (its audio decode "
+            "unpacks the cross cache where the scales would be; its hybrid "
+            "and ssm states build none)")
     window = (window_override if window_override is not None
               else cfg.sliding_window)
     dev = resolve_device(device)
@@ -101,7 +151,7 @@ def serve_cache_init(cfg: ArchConfig, batch: int, seq_len: int,
     max_len = window if window > 0 else seq_len
     cache = {"pos": 0,
              "attn": attn_cache_init(cfg, cfg.n_layers, batch, max_len, dtype,
-                                     device=dev)}
+                                     device=dev, quant=kv_quant)}
     if cfg.is_encdec:
         F = cfg.n_audio_frames
         shape = (cfg.n_layers, batch, F, cfg.n_kv_heads,

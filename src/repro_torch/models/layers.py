@@ -25,11 +25,17 @@ to XLA. The audio family (whisper) uses layernorm, absolute sinusoidal
 positions in place of RoPE, a GELU MLP with biases, and cross-attention
 (``Attention.cross``) from the decoder to the encoder's output: L1
 (non-causal, Sq != Skv) over the encoder's K/V for a prompt, L3 over the
-layer's cross cache for one token. The int8 cache waits for the dry run
-that uses it (ROADMAP A.20).
+layer's cross cache for one token.
+
+One token against an int8 cache goes to ``flash_attend``, a plain
+chunked online-softmax attention that dequantizes K/V chunk by chunk, on
+the CPU and on the GPU alike: the reference routes an int8 cache so too
+(its ``attention_apply`` hands the Pallas decode kernel only a cache
+without scales, and reads the int8 one through its ``_flash_attend``).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -113,12 +119,15 @@ def sinusoidal_positions(n_pos: int, d: int, device=None):
 def rope_frequencies(head_dim: int, rope_partial: float, theta: float,
                      device=None):
     """(inv_freq (rot_dim / 2,) f32, rot_dim): ChatGLM's partial RoPE
-    rotates only the first ``rope_partial`` of each head."""
+    rotates only the first ``rope_partial`` of each head. theta ** exps is
+    rounded once from f64, as the reference's f32 power is: torch's f32
+    power missed it by an ulp at one of Qwen3-4B's 64 frequencies, which
+    at position 524,287 turns the angle by 1.5e-5 rad."""
     rot_dim = int(head_dim * rope_partial)
     rot_dim -= rot_dim % 2
     exps = torch.arange(0, rot_dim, 2, dtype=torch.float32,
                         device=device) / rot_dim
-    return 1.0 / (theta ** exps), rot_dim
+    return 1.0 / (theta ** exps.double()).float(), rot_dim
 
 
 def rope_angles(positions, inv_freq):
@@ -185,7 +194,64 @@ def unembed(w, x, cfg: ArchConfig):
 # Attention
 # ---------------------------------------------------------------------------
 
-LayerCache = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, bool]
+# one layer's (k, v, kv_pos, ring), and for an int8 cache its (k_scale,
+# v_scale) after them
+LayerCache = Tuple
+# slots per chunk of ``flash_attend`` (the reference's default ``chunk``)
+ATTEND_CHUNK = 1024
+
+
+def flash_attend(q, k, v, k_scale, v_scale, *, window: int, q_offset: int,
+                 kv_positions, kv_valid):
+    """The reference's ``_flash_attend`` over an int8 cache: causal
+    chunked online-softmax attention in f32. q: (B, Sq, H, hd) at
+    positions q_offset … q_offset + Sq − 1; k/v: (B, Skv, Hkv, hd) int8,
+    in ATTEND_CHUNK-slot chunks, each dequantized with its slots'
+    ``k_scale`` / ``v_scale`` (B, Skv, Hkv) f32; kv_positions (Skv,) the
+    slots' positions, kv_valid (Skv,) bool. A slot counts iff valid, at or
+    before the query, and within ``window`` > 0 of it. Returns (B, Sq, H,
+    hd) in q's dtype; a row with no valid key returns 0.
+
+    The reference's arithmetic with fewer launches (on the GPU each chunk
+    costs its ops' host time): the mask is made once, not per chunk; a
+    row with no valid key yet gets a finite stand-in for its running max
+    (the reference's guard sets 0), so that exp gives the masked scores 0
+    and the correction factor 0 without the reference's two ``where``s.
+    The values are the reference's up to the order of the products'
+    sums."""
+    B, Sq, H, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    dev = q.device
+    # each KV head's Sq * G queries as one (Sq * G, hd) matrix
+    qh = (q.float() * (1.0 / math.sqrt(hd))).reshape(
+        B, Sq, Hkv, G, hd).transpose(1, 2).reshape(B, Hkv, Sq * G, hd)
+    q_pos = q_offset + torch.arange(Sq, device=dev)
+    mask = kv_valid[None, :] & (kv_positions[None, :] <= q_pos[:, None])
+    if window > 0:
+        mask = mask & (kv_positions[None, :] > q_pos[:, None] - window)
+    masked = ~mask.repeat_interleave(G, dim=0)               # (Sq * G, Skv)
+    inf, lowest = float("inf"), torch.finfo(torch.float32).min
+    m = torch.full((B, Hkv, Sq * G), -inf, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, Hkv, Sq * G), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Hkv, Sq * G, hd), dtype=torch.float32, device=dev)
+    for lo in range(0, Skv, ATTEND_CHUNK):
+        hi = min(lo + ATTEND_CHUNK, Skv)
+        # int8 * f32: the values exact in f32, times the scale
+        kb, vb = (t[:, lo:hi].transpose(1, 2)
+                  * sc[:, lo:hi].transpose(1, 2)[..., None]
+                  for t, sc in ((k, k_scale), (v, v_scale)))
+        s = (qh @ kb.transpose(-1, -2)).masked_fill_(masked[:, lo:hi], -inf)
+        m_new = torch.maximum(m, s.amax(-1))
+        m_safe = m_new.clamp(min=lowest)
+        p = s.sub_(m_safe[..., None]).exp_()
+        corr = torch.exp(m - m_safe)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + p @ vb
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.reshape(B, Hkv, Sq, G, hd).transpose(1, 2).reshape(
+        B, Sq, H, hd).to(q.dtype)
 
 
 def _prompt_attention(q, k, v, causal: bool, window: int = 0):
@@ -239,9 +305,10 @@ class Attention(nn.Module):
         Without ``cache`` (a prompt): attention over x itself through
         ``flash_attention``, or ``flash_attention_trainable`` when autograd
         records a graph that needs q/k/v's gradient. With ``cache`` =
-        (k, v, kv_pos, ring) of one layer (one token, S == 1): the token's
-        K/V are written into the cache in place, then ``decode_attention``
-        reads the cache.
+        (k, v, kv_pos, ring) of one layer, and (k_scale, v_scale) after
+        them for an int8 cache (one token, S == 1): the token's K/V are
+        written into the cache in place, then ``decode_attention`` reads
+        the cache, or ``flash_attend`` an int8 one.
         Returns (out (B, S, d), (k, v) of this call)."""
         B, S, _ = x.shape
         q, k, v = self.project(x, rope, rot_dim)
@@ -251,10 +318,15 @@ class Attention(nn.Module):
             if S != 1:
                 raise NotImplementedError(
                     "the cache path takes one token per call (decode)")
-            ck, cv, kv_pos, ring = cache
-            attn_cache_update(ck, cv, kv_pos, k, v, pos, ring)
-            o = decode_attention(q[:, 0], ck, cv, kv_pos, pos,
-                                 window=window)[:, None]
+            ck, cv, kv_pos, ring, *scales = cache
+            attn_cache_update(ck, cv, kv_pos, k, v, pos, ring, *scales)
+            if ck.dtype == torch.int8:
+                o = flash_attend(q, ck, cv, *scales, window=window,
+                                 q_offset=pos, kv_positions=kv_pos,
+                                 kv_valid=kv_pos >= 0)
+            else:
+                o = decode_attention(q[:, 0], ck, cv, kv_pos, pos,
+                                     window=window)[:, None]
         out = o.reshape(B, S, -1) @ self.wo.to(x.dtype)
         return out, (k, v)
 

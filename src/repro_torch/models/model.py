@@ -57,6 +57,13 @@ the reference's does). The hybrid and ssm scans (kernels L4, L5) are
 forward-only, so those families do not train yet (ROADMAP A.20);
 ``init_params(..., train=True)`` takes the dense, moe, vlm and audio
 families. ``prefill`` and ``decode_step`` run without gradient.
+
+An int8 cache (``kvcache.serve_cache_init(..., kv_quant=True)``, dense,
+moe and vlm) is filled by ``decode_step`` only, one token at a time from
+the empty cache, as the reference's only working route: its ``prefill``
+casts K/V into the int8 cache without scales and returns the cache
+without ``k_scale`` / ``v_scale``, so that its next ``decode_step``
+raises ``KeyError``. The port's ``prefill`` refuses an int8 cache.
 """
 from __future__ import annotations
 
@@ -74,6 +81,11 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv6 as R6
+
+# the sliding window a full-attention dense, moe or vlm model runs
+# long_500k under (the reference's documented variant, DESIGN.md §4;
+# ``steps.long_context_window``)
+LONG_CONTEXT_WINDOW = 8192
 
 # the reference's _cast_tree: float arrays with ndim >= 2 and more than this
 # many elements are kept in the compute dtype, the rest in f32
@@ -597,6 +609,13 @@ def prefill(params: CausalLM, cfg: ArchConfig, batch, cache):
     recurrent layers run the prompt from the cache's state and store the
     final one."""
     _check_family(cfg)
+    if "attn" in cache and cache["attn"]["k"].dtype == torch.int8:
+        raise NotImplementedError(
+            "prefill into an int8 cache is not defined: the reference's "
+            "prefill casts K/V into it without scales and drops k_scale / "
+            "v_scale from the cache it returns (its next decode_step "
+            "raises KeyError); fill an int8 cache with decode_step from "
+            "the empty cache, the reference's int8 route")
     dtype = compute_dtype(cfg)
     x = _embed_inputs(params, cfg, batch, dtype)
     B, S = x.shape[:2]
@@ -646,7 +665,8 @@ def decode_step(params: CausalLM, cfg: ArchConfig, cache, tokens,
     dropless (``moe.groups_and_capacity``). The audio family's decoder
     attends over its cross cache too (``cross_pos`` at query position
     F − 1: every frame), and the token gets no position embedding, as in
-    the reference."""
+    the reference. An int8 cache (dense, moe, vlm) takes the token's
+    quantized K/V and scales and is read by ``layers.flash_attend``."""
     _check_family(cfg)
     pos = cache["pos"]
     x = L.embed(params.table, tokens, compute_dtype(cfg))
@@ -657,7 +677,10 @@ def decode_step(params: CausalLM, cfg: ArchConfig, cache, tokens,
     elif cfg.family in ATTENTION_FAMILIES:
         window = (window_override if window_override is not None
                   else cfg.sliding_window)
-        ck, cv, kv_pos = (cache["attn"][n] for n in ("k", "v", "kv_pos"))
+        attn = cache["attn"]
+        ck, cv, kv_pos = (attn[n] for n in ("k", "v", "kv_pos"))
+        scales = ((attn["k_scale"], attn["v_scale"])
+                  if ck.dtype == torch.int8 else ())
         ring = window > 0 and ck.shape[2] <= window
         rope, rot_dim = params.rope(pos, 1)
         for li, block in enumerate(params.blocks):
@@ -665,8 +688,10 @@ def decode_step(params: CausalLM, cfg: ArchConfig, cache, tokens,
                                       cache["cross_v"][li],
                                       cache["cross_pos"])}
                      if cfg.is_encdec else {})
+            layer = (ck[li], cv[li], kv_pos[li], ring,
+                     *(sc[li] for sc in scales))
             x, _, _ = block(x, rope, rot_dim, pos=pos, window=window,
-                            cache=(ck[li], cv[li], kv_pos[li], ring), **cross)
+                            cache=layer, **cross)
     else:
         ck, cv, kv_pos = (cache["attn"][n] for n in ("k", "v", "kv_pos"))
         window = ck.shape[2]

@@ -7,10 +7,18 @@ holds only params, optimizer state, batch and cache. ``make_train_step``'s
 step updates the parameters (a ``CausalLM`` in the f32 training layout,
 ``model.init_params(..., train=True)``) and the AdamW state in place and
 returns them with the step's metrics.
+
+The input specs (``params_specs``, ``opt_specs``, ``batch_specs``,
+``cache_specs``, ``cache_specs_quant``, ``decode_token_specs``) are the
+structures the steps take, built on ``torch.device("meta")``: shapes and
+dtypes with no storage, the counterpart of the reference's
+``jax.eval_shape`` / ``ShapeDtypeStruct``. Nothing on ``meta`` launches or
+plans a kernel. ``long_context_window`` gives the window a full-attention
+model runs ``long_500k`` under.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -113,10 +121,13 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig):
 def make_prefill_step(cfg: ArchConfig, shape: InputShape,
                       window_override: Optional[int] = None):
     def prefill_step(params, batch):
-        """A fresh cache of ``shape.seq_len`` slots (bf16, on the tokens'
-        device; a vlm prompt's image positions take slots too; an audio
-        model's cross state holds ``n_audio_frames``), filled from the
-        prompt; returns (last logits, cache)."""
+        """A fresh cache of ``shape.seq_len`` slots, or of
+        ``window_override`` (a ring; the prompt still attends with
+        ``cfg.sliding_window``, as in the reference: only the cache's size
+        follows the override), bf16 on the tokens' device (a vlm prompt's
+        image positions take slots too; an audio model's cross state holds
+        ``n_audio_frames``), filled from the prompt; returns (last logits,
+        cache)."""
         tokens = batch["tokens"]
         cache = serve_cache_init(cfg, tokens.shape[0], shape.seq_len,
                                  window_override=window_override,
@@ -132,3 +143,80 @@ def make_serve_step(cfg: ArchConfig, window_override: Optional[int] = None):
                                  window_override=window_override)
 
     return serve_step
+
+
+# ---------------------------------------------------------------------------
+# Input specs (on the meta device: no allocation)
+# ---------------------------------------------------------------------------
+
+META = torch.device("meta")
+
+
+def _meta(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device=META)
+
+
+def params_specs(cfg: ArchConfig) -> MODEL.CausalLM:
+    """``cfg``'s ``CausalLM`` on ``meta`` with ``model.init_params``'s
+    names and shapes, f32 for every family: the reference's
+    ``init_params`` layout (its master weights; the port's
+    ``init_params(..., train=True)``)."""
+    return MODEL.build(
+        cfg, lambda name, shape: _meta(shape, torch.float32)
+    ).requires_grad_(False)
+
+
+def opt_specs(cfg: ArchConfig) -> adamw.AdamWState:
+    """The AdamW state of ``params_specs(cfg)`` on ``meta``: f32 moments
+    by parameter name, ``step`` 0."""
+    return adamw.init(dict(params_specs(cfg).named_parameters()))
+
+
+def batch_specs(cfg: ArchConfig, shape: InputShape
+                ) -> Dict[str, torch.Tensor]:
+    """The training / prefill batch of one (arch, shape) on ``meta``:
+    tokens (B, S) int32; a vlm batch's text is S − n_image_tokens long
+    beside its bf16 ``image_embeds``; an audio batch carries bf16
+    ``audio_embeds`` (B, n_audio_frames, d)."""
+    B, S = shape.global_batch, shape.seq_len
+    if cfg.family == "vlm":
+        n_img = cfg.n_image_tokens
+        return {"tokens": _meta((B, S - n_img), torch.int32),
+                "image_embeds": _meta((B, n_img, cfg.d_model),
+                                      torch.bfloat16)}
+    if cfg.family == "audio":
+        return {"tokens": _meta((B, S), torch.int32),
+                "audio_embeds": _meta((B, cfg.n_audio_frames, cfg.d_model),
+                                      torch.bfloat16)}
+    return {"tokens": _meta((B, S), torch.int32)}
+
+
+def cache_specs(cfg: ArchConfig, shape: InputShape,
+                window_override: Optional[int] = None) -> Dict[str, Any]:
+    """``serve_cache_init``'s state for one (arch, shape) on ``meta``
+    (``pos`` stays the Python int 0)."""
+    return serve_cache_init(cfg, shape.global_batch, shape.seq_len,
+                            window_override=window_override, device=META)
+
+
+def cache_specs_quant(cfg: ArchConfig, shape: InputShape,
+                      window_override: Optional[int] = None
+                      ) -> Dict[str, Any]:
+    """The int8 cache's state (``kv_quant=True``) on ``meta``."""
+    return serve_cache_init(cfg, shape.global_batch, shape.seq_len,
+                            window_override=window_override, device=META,
+                            kv_quant=True)
+
+
+def decode_token_specs(shape: InputShape) -> torch.Tensor:
+    return _meta((shape.global_batch, 1), torch.int32)
+
+
+def long_context_window(cfg: ArchConfig, shape: InputShape
+                        ) -> Optional[int]:
+    """The window override of a full-attention dense, vlm or moe model at
+    long_500k (``model.LONG_CONTEXT_WINDOW``; DESIGN.md §4), else None."""
+    if (shape.name == "long_500k" and cfg.family in ("dense", "vlm", "moe")
+            and cfg.sliding_window == 0):
+        return MODEL.LONG_CONTEXT_WINDOW
+    return None

@@ -572,20 +572,40 @@ def test_group_slow_speculative_winner_deterministic(conf_run, one_group,
         _assert_group_trace_clean(ex, conf_run[0])
 
 
+# how long the straggler of test_group_steal_resolves_exactly_once waits
+# for a steal before it resolves anyway (then the test fails on n_steals)
+STEAL_WAIT_S = 30.0
+
+
 @pytest.mark.parametrize("name", OVERLAPPED)
 def test_group_steal_resolves_exactly_once(conf_run, one_group, name):
     """With ``depth=1`` (and window=1 for streaming: single-block chunks,
     so the straggler's prefetch slot holds stealable work) the groups hold
     staged shares; an idle group steals from the most-loaded one. Every
-    block still resolves exactly once and the numbers stay bitwise."""
+    block still resolves exactly once and the numbers stay bitwise. The
+    straggler (group 1) is held until the first steal is recorded
+    (``FaultPlan.group_release``), with STEAL_WAIT_S as the timeout: a
+    fixed delay raced the host's speed."""
     import collections
+    import threading
     kw = {"window": 1} if name == "streaming" else {}
     clean = (_run(conf_run, TENG.StreamingExecutor(window=1)) if kw
              else one_group[name])
     pol = TENG.FaultPolicy(timeout_floor_s=60.0, timeout_slack=0.0)
     ex = _grouped(name, record_trace=True, depth=1, **kw)
+    stolen = threading.Event()
+    record = ex._record
+
+    def record_steal(event, *args):
+        if event == "steal":
+            stolen.set()
+        return record(event, *args)
+
+    ex._record = record_steal
     res = _run(conf_run, ex,
-               fault_plan=TENG.FaultPlan(group_slow_at={1: (0, 0.3)}),
+               fault_plan=TENG.FaultPlan(
+                   group_slow_at={1: (0, STEAL_WAIT_S)},
+                   group_release=stolen),
                fault_policy=pol)
     assert res.group_stats["n_steals"] >= 1, res.group_stats
     resolves = collections.Counter(c for ev, c, *_ in ex.trace

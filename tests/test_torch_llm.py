@@ -5,8 +5,9 @@ reference.
 Parameters come from the reference's ``init_params`` and are carried
 across with ``convert.llm_params_from_numpy``; tokens (and a vlm batch's
 image embeddings) are numpy-seeded. The models are the ``smoke_variant``
-of Qwen3-4B (GQA, qk-norm, padded vocabulary) and Llama-3-8B (dense),
-Granite-MoE and Mixtral (moe: 4 experts, top-2 routing with capacity
+of Qwen3-4B (GQA, qk-norm, padded vocabulary), Llama-3-8B, Minitron-8B
+and ChatGLM3-6B (dense; ChatGLM rotates half of each head: the
+partial-RoPE branch of ``apply_rope``), Granite-MoE and Mixtral (moe: 4 experts, top-2 routing with capacity
 drops in prefill; Mixtral's 64-token sliding window under an 80-token
 prompt, so that its cache is a ring that wraps) and InternVL2 (vlm: 8
 image positions before the text), in f32, with ``n_kv_heads=2`` so that
@@ -46,8 +47,8 @@ from torch_helpers import assert_rel_close
 from torch_helpers import llm_cfgs as _cfgs
 from torch_helpers import np_tree as _np_tree
 
-ARCHS = ["qwen3_4b", "llama3_8b", "granite_moe_1b_a400m", "mixtral_8x7b",
-         "internvl2_1b"]
+ARCHS = ["qwen3_4b", "llama3_8b", "minitron_8b", "chatglm3_6b",
+         "granite_moe_1b_a400m", "mixtral_8x7b", "internvl2_1b"]
 B, S_PROMPT, MAX_LEN, N_DECODE = 2, 40, 48, 4
 # per arch: Mixtral's prompt passes its 64-token window (the cache is a
 # 64-slot ring); InternVL2's 8 image positions take cache slots too

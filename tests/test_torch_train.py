@@ -3,7 +3,8 @@ step with microbatches and remat, parameter and optimizer-state
 conversion, the training CLI) against the JAX reference.
 
 The models are the ``smoke_variant`` of Qwen3-4B (GQA, qk-norm, padded
-vocabulary), Llama-3-8B, Granite-MoE (the loss adds 0.01 × ``moe_aux``;
+vocabulary), Llama-3-8B, Minitron-8B, ChatGLM3-6B (partial RoPE),
+Granite-MoE (the loss adds 0.01 × ``moe_aux``;
 the metrics carry ``moe_aux`` and ``moe_dropped``) and InternVL2 (8 image
 positions before the text, which give no loss) in f32 with
 ``n_kv_heads=2``, B = 2, S = 512,
@@ -28,7 +29,8 @@ from repro_torch.optim import adamw as TA
 from repro_torch.optim import schedules as TS
 from torch_helpers import assert_rel_close, llm_cfgs, np_tree
 
-ARCHS = ["qwen3_4b", "llama3_8b", "granite_moe_1b_a400m", "internvl2_1b"]
+ARCHS = ["qwen3_4b", "llama3_8b", "minitron_8b", "chatglm3_6b",
+         "granite_moe_1b_a400m", "internvl2_1b"]
 B, S, N_STEPS = 2, 512, 3
 TRAIN_KW = dict(learning_rate=1e-3, warmup_steps=2, total_steps=10)
 
