@@ -173,7 +173,10 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      last step under ``torch.profiler``;
   9. L1/L3 parity at zamba2's shared attention block (MHA, H = Hkv = 32,
      hd = 112), bf16 and fp32: causal prefill at 4,000 tokens and decode
-     over a full 4,096-slot ring, timed as in phase 5;
+     over a full 4,096-slot ring, timed as in phase 5; and L2 at its train
+     shape (B = 2, S = 4,096, causal; the sm90 kernel in its 128-column
+     tiles, the f32 kernel's own hd 112 instantiation) with the autograd
+     Function, as in phase 7;
  10. L4 (ssd_chunk) and L5 (wkv6) parity, f32, against their plain
      chunked versions at the serve path's shapes (B = 8, S = 4,096;
      zamba2: H = 112, P = N = 64; rwkv6: H = 64, N = 64): the serve
@@ -182,7 +185,13 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      (a ~ -2 per step for L4, log w ~ -1 for L5); each timed beside its
      plain version, its bound and its achieved TB/s (L4 and L5: the bytes
      bound, their bf16 split products and the f32 operations of their
-     first designs);
+     first designs); then ``[scan-train-parity]``: the training scans
+     (the route a prompt takes under autograd: the plain chunked scans,
+     each chunk checkpointed, as the reference trains) at the full head
+     counts, B 1, S 512, f32, against L4 / L5 (y and the final state,
+     SCAN_TRAIN_TOL) and their gradients with respect to every input
+     against autograd through the sequential oracles (SCAN_GRAD_TOL),
+     a random layer's decay and strong decay;
  11. the hybrid serve path at full width and depth: zamba2-7b, all 81
      Mamba2 layers and the shared block (13 applications), and
  12. the ssm serve path: rwkv6-7b, all 32 layers; each with the traffic
@@ -241,12 +250,23 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      check under the TRAIN_* limits, then 6 steps with L1 288 and L2 144
      launches a step (72 attention calls a microbatch, L1 again under
      remat);
- 19. ``[examples]``: the port's four ``examples/torch_*.py`` as
+ 19. ``[hybrid-train]`` and ``[ssm-train]``: phase 8 for zamba2-7b at
+     full width with 15 of 81 Mamba2 layers (two full groups and a
+     remainder of 3; the shared block applied twice) and for rwkv6-7b at
+     full width with 8 of 32 layers: the one-sequence check (zamba2 under
+     the TRAIN_* limits; rwkv6, whose step launches no kernel, bf16
+     against f32 under the SSM_TRAIN_* limits), then 6 steps with exact
+     launch counts (zamba2: L1 8 and L2 4 a step, all sm90; neither
+     launches L4 or L5, since a scan under autograd takes the training
+     scan), s/step, tokens/s, model-FLOP share, peak memory below 80 GB
+     and a device-only profile of the last step;
+ 20. ``[examples]``: the port's four ``examples/torch_*.py`` as
      subprocesses at their defaults, all started together (the LLM one
      for mixtral-8x7b, granite-moe-1b-a400m and whisper-medium); each
      must exit 0 with ``OK``;
- 20. summary: one JSON line ``{"kernels": [...]}`` (L1 and L2 with each
-     variant's launches and times, launches by path) and, last, the
+ 21. summary: one JSON line ``{"kernels": [...]}`` (L1 and L2 with each
+     variant's launches and times, launches by path; L4 and L5 by serve
+     and train path) and, last, the
      ``{"ok": true, "device": {...}}`` line. ``[time]`` lines give the
      run's seconds after each group of phases. Every profiled window
      traces the device's activity only (``device_profile``).
@@ -406,6 +426,16 @@ LONG_LOGIT_TOL = 0.15
 # largest plain value (y and the final state): both f32; the kernels sum
 # in 64-step chunks, the plain versions in the reference's 128-step chunks
 SCAN_TOL = 1e-4
+# [scan-train-parity]: the training scans (the plain chunked versions with
+# each chunk checkpointed) at full head counts, B 1, S 512, f32. Their y
+# and final state against L4 / L5: the reference's own limit between its
+# Pallas scans and their oracles (tests/test_kernels.py), 2e-4 of the
+# largest value. Their values and gradients with respect to every input
+# against autograd through the sequential oracles: 2e-4 of each one's
+# largest value, about 5x the CPU's gap at this shape with fewer heads
+# (tests/test_torch_recurrent_train.py: 3.7e-5, A_log's gradient)
+SCAN_TRAIN_B, SCAN_TRAIN_S = 1, 512
+SCAN_TRAIN_TOL, SCAN_GRAD_TOL = 2e-4, 2e-4
 
 # L2 parity at the train path's attention shape; the plain version's f32
 # (S, S) tiles allow L2_CHECK sequences at a time
@@ -437,6 +467,20 @@ TRAIN_LOSS_TOL, TRAIN_COS_TOL, TRAIN_NORM_TOL = 2e-3, 2e-4, 5e-4
 # of 4 x 4,096 tokens in 2 microbatches (each f32 logits tensor 4.98 GB)
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 8, 4, 4096, 2
 TRAIN_STEPS = 6
+# the recurrent families' train paths at full width, with phase 8's
+# traffic: zamba2-7b with 15 of its 81 Mamba2 layers (two full groups of 6,
+# each followed by the shared block, then a remainder of 3: both branches
+# of hybrid_groups, and the tied block's gradient summed over two
+# applications; 1.605e9 parameters, 25.7 GB of f32 parameters, gradients
+# and AdamW moments, where all 81 layers would take 108 GB) and rwkv6-7b
+# with 8 of its 32 layers (2.152e9 parameters, 34.4 GB; all 32: 112 GB)
+HYBRID_TRAIN_LAYERS, SSM_TRAIN_LAYERS = 15, 8
+# [ssm-train]'s one-sequence check: its step launches no kernel, so the
+# bf16 pass is held against the f32 pass on the same weights: |d loss|,
+# 1 - cosine of the gradients and |gradient norm ratio - 1|. On the H100
+# (NVIDIA H100 80GB HBM3, 700 W) the first reading was 1.841e-4,
+# 1.809e-4 and 2.710e-4; the limits are about twice that
+SSM_TRAIN_LOSS_TOL, SSM_TRAIN_COS_TOL, SSM_TRAIN_NORM_TOL = 4e-4, 4e-4, 6e-4
 
 TABLE1_MOVIELENS = dict(name="movielens-20m", n_rows=138_493, n_cols=27_278,
                         ratings_per_row=144, scale_lo=1, scale_hi=5, K=10,
@@ -591,6 +635,11 @@ def phase_build():
                 if "registers" in ln or "spill" in ln]
         full = name in SM90 or name in NO_SPILL
         log(f"[build] {name}: " + " | ".join(regs if full else regs[:4]))
+        if name == "flash_attention_bwd":
+            # by instantiation: at hd 112 each thread holds 14 accumulator
+            # columns per row (2 x 14 x 2 in the dk/dv pass)
+            log("[build] flash_attention_bwd by kernel: "
+                + "; ".join(_ptxas_by_kernel(lines)))
         # the tensor-core kernels keep every accumulator in registers, and
         # the redesigned B2, L3, L4 and L5 their rows, q, partial sums and
         # states
@@ -599,6 +648,25 @@ def phase_build():
                                         "stores, 0 bytes spill loads")]
         if full and spills:
             raise AssertionError(f"{name}: ptxas spills: {spills}")
+
+
+def _ptxas_by_kernel(log_text):
+    """'<kernel><HD>: <registers>; <spills>' per entry function of a ptxas
+    -v log whose templates take the head size (the f32 L2's
+    ``flash_bwd_{dq,dkv}_kernel<HD>``): ptxas reports each function's
+    name, spills and registers in that order."""
+    import re
+    names, regs, spills = [], [], []
+    for ln in log_text.splitlines():
+        m = re.search(r"Compiling entry function '\w*?(flash_bwd_\w+?)"
+                      r"ILi(\d+)E", ln)
+        if m:
+            names.append(f"{m.group(1)}<{m.group(2)}>")
+        elif "registers" in ln:
+            regs.append(re.sub(r".*Used", "Used", ln).split(",")[0])
+        elif "spill" in ln:
+            spills.append(ln.strip())
+    return [f"{n}: {r}; {sp}" for n, r, sp in zip(names, regs, spills)]
 
 
 def make_data(table=TABLE1_MOVIELENS, n_blocks=64):
@@ -2104,15 +2172,17 @@ def phase_llm_parity(dev):
 
 
 def phase_hd112_parity(dev):
-    """L1 and L3 at zamba2's shared attention block (MHA, H = Hkv = 32,
-    hd = 112): causal prefill at 4,000 tokens, decode over a full
-    4,096-slot ring."""
+    """L1, L3 and L2 at zamba2's shared attention block (MHA, H = Hkv =
+    32, hd = 112): causal prefill at 4,000 tokens, decode over a full
+    4,096-slot ring, and L2 with the autograd Function at the train
+    shape (B = 2, S = 4,096, causal)."""
     import torch
     from repro_torch.configs.base import get_config
     cfg = get_config(HYBRID_ARCH)
     B, H, Hkv, hd = LLM_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     g = torch.Generator(device=dev).manual_seed(2)
-    results = {"flash_attention": [], "decode_attention": []}
+    results = {"flash_attention": [], "decode_attention": [],
+               "flash_attention_bwd": []}
     for dtype in ("bf16", "fp32"):
         results["flash_attention"].append(_l1_case(
             g, dev, "hd112-causal-4000", B, LLM_PROMPT, H, Hkv, hd, True, 0,
@@ -2121,6 +2191,15 @@ def phase_hd112_parity(dev):
         results["decode_attention"].append(_l3_case(
             g, dev, "hd112-full-4096", B, LLM_CONTEXT, H, Hkv, hd, 0, dtype,
             tag="hd112-parity"))
+    # the sm90 L2 runs hd 112 in its 128-column tiles, the f32 one as its
+    # own instantiation
+    for dtype in ("bf16", "fp32"):
+        results["flash_attention_bwd"].append(_l2_case(
+            g, dev, "hd112-causal-4096", L2_BATCH, L2_SEQ, H, Hkv, hd, True,
+            0, dtype, tag="hd112-parity"))
+    for dtype in ("bf16", "fp32"):
+        _l2_e2e(g, dev, L2_SEQ, H, Hkv, hd, dtype, "hd112-causal-4096",
+                tag="hd112-parity")
     torch.cuda.empty_cache()
     return results
 
@@ -2344,6 +2423,121 @@ def phase_scan_parity(dev):
     return results
 
 
+def _scan_train_inputs(g, dev, name, H, N, P, strong):
+    """The training scan's inputs, f32 leaves that need a gradient, at B =
+    SCAN_TRAIN_B, S = SCAN_TRAIN_S: (x, dt, A_log, B, C, state0) in the
+    reference's ``ssd_chunked`` layout for "ssd_chunk" (dt = softplus(noise
+    − 2), A_log = log(linspace(1, 16)), as a random layer has; ``strong``:
+    a ≈ −2 per step) or (r, k, v, logw, u, state0) for "wkv6" (``strong``:
+    log w ≈ −1); and cotangents for y and the final state."""
+    import torch
+    import torch.nn.functional as F
+    B, S = SCAN_TRAIN_B, SCAN_TRAIN_S
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    if name == "ssd_chunk":
+        if strong:
+            dt = F.softplus(1.0 + randn(B, S, H, scale=0.1))
+            A_log = torch.full((H,), math.log(2.0 / math.log1p(math.e)),
+                               device=dev)
+        else:
+            dt = F.softplus(randn(B, S, H, scale=0.5) - 2.0)
+            A_log = torch.log(torch.linspace(1.0, 16.0, H, device=dev))
+        args = [randn(B, S, H, P), dt, A_log, randn(B, S, N), randn(B, S, N),
+                randn(B, H, P, N, scale=0.1)]
+        cots = [randn(B, S, H, P), randn(B, H, P, N)]
+    else:
+        logw = (-1.0 + randn(B, S, H, N, scale=0.1) if strong
+                else -torch.exp(randn(B, S, H, N) - 3.0))
+        args = [randn(B, S, H, N), randn(B, S, H, N, scale=0.5),
+                randn(B, S, H, N), logw, randn(H, N, scale=0.1),
+                randn(B, H, N, N, scale=0.1)]
+        cots = [randn(B, S, H, N), randn(B, H, N, N)]
+    return [t.requires_grad_() for t in args], cots
+
+
+def phase_scan_train_parity(dev):
+    """The training scans (``ssd_scan_train``, ``wkv_scan_train``: the
+    route a prompt takes when autograd records a gradient) at the full
+    models' head counts (zamba2: H = 112, P = N = 64; rwkv6: H = 64, N =
+    64), B 1, S 512, f32: y and the final state against L4 / L5 on the
+    same inputs within SCAN_TRAIN_TOL, and the gradients with respect to
+    every input against autograd through the sequential oracles within
+    SCAN_GRAD_TOL; a random layer's decay and strong decay. The training
+    scan's forward and backward are timed beside the kernel's forward."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.ssd_chunk import ops as L4
+    from repro_torch.kernels.ssd_chunk.ref import ssd_sequential
+    from repro_torch.kernels.wkv6 import ops as L5
+    from repro_torch.kernels.wkv6.ref import wkv_sequential
+    from repro_torch.models import mamba2 as M2
+    from repro_torch.models import rwkv6 as R6
+    hyb, ssm = get_config(HYBRID_ARCH), get_config(SSM_ARCH)
+
+    def ssd_kernel(x, dt, A_log, B_, C_, s0):
+        a = -torch.exp(A_log)[None, None, :] * dt
+        return L4.ssd_scan(x * dt[..., None], a.contiguous(), B_, C_, s0)
+
+    def ssd_oracle(x, dt, A_log, B_, C_, s0):
+        a = -torch.exp(A_log)[None, None, :] * dt
+        return ssd_sequential(x * dt[..., None], a, B_, C_, s0)
+
+    scans = {
+        "ssd_chunk": (M2.ssd_scan_train, ssd_kernel, ssd_oracle,
+                      hyb.ssm_expand * hyb.d_model // hyb.ssm_head_dim,
+                      hyb.ssm_state, hyb.ssm_head_dim,
+                      ("x", "dt", "A_log", "B", "C", "state0")),
+        "wkv6": (R6.wkv_scan_train, L5.wkv6, wkv_sequential,
+                 ssm.d_model // ssm.wkv_head_dim, ssm.wkv_head_dim,
+                 ssm.wkv_head_dim, ("r", "k", "v", "logw", "u", "state0"))}
+    g = torch.Generator(device=dev).manual_seed(4)
+    for name, (train_fn, kern_fn, oracle, H, N, P, names) in scans.items():
+        for strong in (False, True):
+            case = "strong-decay" if strong else "decay"
+            args, cots = _scan_train_inputs(g, dev, name, H, N, P, strong)
+
+            def fwd_bwd(fn):
+                for t in args:
+                    t.grad = None
+                out = fn(*args)
+                torch.autograd.backward(out, cots)
+                return [t.detach() for t in out], [t.grad for t in args]
+
+            out, grads = fwd_bwd(train_fn)
+            with torch.no_grad():
+                kern = kern_fn(*args)
+            v_err, v_scale = _rel_err(out, kern)
+            finite = all(bool(torch.isfinite(t).all()) for t in out + grads)
+            want_out, want_grads = fwd_bwd(oracle)
+            worst = max(((float((a - b).abs().max())
+                          / max(float(b.abs().max()), 1.0), n)
+                         for a, b, n in zip(out + grads,
+                                            want_out + want_grads,
+                                            ("y", "state", *names))),
+                        key=lambda e: e[0])
+            ms = cuda_ms(lambda: fwd_bwd(train_fn), 3, warmup=1)
+            with torch.no_grad():
+                kms = cuda_ms(lambda: kern_fn(*args), 3, warmup=1)
+            ok = (finite and v_err <= SCAN_TRAIN_TOL * v_scale
+                  and worst[0] <= SCAN_GRAD_TOL)
+            log(f"[scan-train-parity] {name} {case} B {SCAN_TRAIN_B} S "
+                f"{SCAN_TRAIN_S} H {H} fp32: training scan vs the kernel "
+                f"max_abs_err {v_err:.3e} (tolerance {SCAN_TRAIN_TOL:.0e} x "
+                f"{v_scale:.3g}); gradients and values vs the sequential "
+                f"oracle: worst {worst[0]:.3e} of the largest ({worst[1]}; "
+                f"tolerance {SCAN_GRAD_TOL:.0e}) {'ok' if ok else 'FAIL'}; "
+                f"training scan forward + backward {ms:.3f} ms, kernel "
+                f"forward {kms:.3f} ms")
+            if not ok:
+                raise AssertionError(f"{name} training scan {case} "
+                                     "disagrees with the kernel or oracle")
+            del args, cots, out, grads, kern, want_out, want_grads
+            torch.cuda.empty_cache()
+
+
 def _describe(cfg):
     if cfg.family == "ssm":
         mix = f"{cfg.d_model // cfg.wkv_head_dim} WKV heads of " \
@@ -2375,6 +2569,17 @@ def _describe(cfg):
             f"{cfg.padded_vocab_size})")
 
 
+def _attention_calls(cfg):
+    """(decoder-side attention calls, encoder calls) of one forward: one
+    per layer; the audio family's decoder layers two (self and cross) and
+    its encoder layers one; the hybrid family's shared block one per full
+    group; the ssm family none."""
+    return ({"dense": cfg.n_layers, "moe": cfg.n_layers,
+             "vlm": cfg.n_layers, "audio": 2 * cfg.n_layers,
+             "hybrid": cfg.n_layers // max(cfg.shared_attn_period, 1),
+             "ssm": 0}[cfg.family], cfg.n_encoder_layers)
+
+
 def _expected_launches(cfg, n_steps):
     """The kernels the serve path must launch, by family: L1 per
     attention layer in prefill, every one the bf16 sm90 kernel, L3 per
@@ -2383,12 +2588,9 @@ def _expected_launches(cfg, n_steps):
     twice (self and cross) in prefill and in every decode step, and its
     encoder layers once in prefill."""
     counts = {name: 0 for name in [*_wrappers(), *SM90]}
-    n_attn = {"dense": cfg.n_layers, "moe": cfg.n_layers,
-              "vlm": cfg.n_layers, "audio": 2 * cfg.n_layers,
-              "hybrid": cfg.n_layers // max(cfg.shared_attn_period, 1),
-              "ssm": 0}[cfg.family]
-    counts["flash_attention"] = n_attn + cfg.n_encoder_layers
-    counts["flash_attention_sm90"] = n_attn + cfg.n_encoder_layers
+    n_attn, n_enc = _attention_calls(cfg)
+    counts["flash_attention"] = n_attn + n_enc
+    counts["flash_attention_sm90"] = n_attn + n_enc
     counts["decode_attention"] = n_attn * n_steps
     if cfg.family == "hybrid":
         counts["ssd_chunk"] = cfg.n_layers
@@ -3178,8 +3380,6 @@ def phase_l2_parity(dev):
     at the train path's attention shape."""
     import torch
     from repro_torch.configs.base import get_config
-    from repro_torch.kernels.flash_attention import ops as L1
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     cfg = get_config(LLM_ARCH)
     B, S = L2_BATCH, L2_SEQ
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -3195,31 +3395,41 @@ def phase_l2_parity(dev):
     # end to end: L1 forward + L2 backward through the autograd Function
     # against autograd through the plain attention, one sequence, do fixed
     for dtype in ("bf16", "fp32"):
-        q = torch.randn((1, S, H, hd), generator=g, device=dev).to(_tdt(dtype))
-        k, v = (torch.randn((1, S, Hkv, hd), generator=g, device=dev)
-                .to(_tdt(dtype)) for _ in range(2))
-        do = torch.randn((1, S, H, hd), generator=g, device=dev)
-
-        def grads(attend):
-            qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
-            (attend(qs, ks, vs).float() * do).sum().backward()
-            return [t.grad for t in (qs, ks, vs)]
-
-        got = grads(lambda a, b, c: L1.flash_attention_trainable(a, b, c))
-        want = grads(lambda a, b, c: flash_attention_ref(a, b, c).to(a.dtype))
-        err, scale = _rel_err(got, want)
-        tol = _limit(E2E_TOL[dtype], scale, dtype) / scale
-        ok = err <= tol * scale
-        log(f"[l2-parity] autograd Function (L1 + L2) vs autograd through "
-            f"the plain attention, causal-4096 {dtype}: max_abs_err "
-            f"{err:.3e} (tolerance {tol:.3g} x {scale:.3g} = "
-            f"{tol * scale:.3e}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"autograd Function {dtype} disagrees with "
-                                 "autograd through the plain attention")
-        del q, k, v, do, got, want
-        torch.cuda.empty_cache()
+        _l2_e2e(g, dev, S, H, Hkv, hd, dtype, "causal-4096")
     return results
+
+
+def _l2_e2e(g, dev, S, H, Hkv, hd, dtype, case, tag="l2-parity"):
+    """The autograd Function (L1 + L2) against autograd through the plain
+    attention on one causal sequence of S positions, do fixed, under
+    E2E_TOL."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as L1
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    q = torch.randn((1, S, H, hd), generator=g, device=dev).to(_tdt(dtype))
+    k, v = (torch.randn((1, S, Hkv, hd), generator=g, device=dev)
+            .to(_tdt(dtype)) for _ in range(2))
+    do = torch.randn((1, S, H, hd), generator=g, device=dev)
+
+    def grads(attend):
+        qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+        (attend(qs, ks, vs).float() * do).sum().backward()
+        return [t.grad for t in (qs, ks, vs)]
+
+    got = grads(lambda a, b, c: L1.flash_attention_trainable(a, b, c))
+    want = grads(lambda a, b, c: flash_attention_ref(a, b, c).to(a.dtype))
+    err, scale = _rel_err(got, want)
+    tol = _limit(E2E_TOL[dtype], scale, dtype) / scale
+    ok = err <= tol * scale
+    log(f"[{tag}] autograd Function (L1 + L2) vs autograd through the "
+        f"plain attention, {case} {dtype}: max_abs_err {err:.3e} "
+        f"(tolerance {tol:.3g} x {scale:.3g} = {tol * scale:.3e}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"autograd Function {case} {dtype} disagrees "
+                             "with autograd through the plain attention")
+    del q, k, v, do, got, want
+    torch.cuda.empty_cache()
 
 
 def _grad_stats(a, b):
@@ -3240,7 +3450,9 @@ def train_check(params, cfg, batch, tag="llm-train"):
     through the kernels (bf16, as trained), through the plain attention
     (bf16), and through the plain attention in f32 on the same weights,
     which shows how far bf16 rounding alone moves them. Fails if the
-    kernels' pass is outside the TRAIN_* limits."""
+    kernels' pass is outside the TRAIN_* limits. A model without
+    attention (the ssm family) trains through no kernel: its bf16 pass is
+    held against the f32 pass under the SSM_TRAIN_* limits."""
     import torch
     from unittest import mock
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -3261,9 +3473,25 @@ def train_check(params, cfg, batch, tag="llm-train"):
         return float(loss.detach()), grads
 
     t0 = time.time()
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    if not _attention_calls(cfg)[0]:
+        bf16, ref = run(cfg, plain), run(f32, plain)
+        torch.cuda.synchronize()
+        cos, norm = _grad_stats(bf16[1], ref[1])
+        gap = dict(loss=bf16[0] - ref[0], cos=1.0 - cos, norm=norm)
+        log(f"[{tag}-check] one sequence of {batch['tokens'].shape[1]} "
+            f"tokens, {time.time() - t0:.1f}s, no kernel on the path: loss "
+            f"bf16 {bf16[0]:.6f}, f32 {ref[0]:.6f}; bf16 vs f32: d loss "
+            f"{gap['loss']:.3e}, 1 - grad cosine {gap['cos']:.3e}, |g| "
+            f"ratio - 1 {gap['norm']:.3e}; limits {SSM_TRAIN_LOSS_TOL}, "
+            f"{SSM_TRAIN_COS_TOL}, {SSM_TRAIN_NORM_TOL}")
+        assert abs(gap["loss"]) <= SSM_TRAIN_LOSS_TOL, "train loss: bf16"
+        assert gap["cos"] <= SSM_TRAIN_COS_TOL, "gradients: bf16 vs f32"
+        assert abs(gap["norm"]) <= SSM_TRAIN_NORM_TOL, "grad norm: bf16"
+        return
     paths = {"kernels": run(cfg, LY.flash_attention_trainable),
              "plain": run(cfg, plain),
-             "f32": run(dataclasses.replace(cfg, dtype="float32"), plain)}
+             "f32": run(f32, plain)}
     torch.cuda.synchronize()
     stats = {}
     for a, b in (("kernels", "plain"), ("kernels", "f32"), ("plain", "f32")):
@@ -3297,7 +3525,11 @@ def _train_flops(cfg, batch, seq):
     (query, key) pair and q-head (4 hd forward, 8 hd backward). The audio
     family's encoder layers and its cross K/V projections run on the
     n_audio_frames frames; its decoder attends causally to the text and
-    to every frame."""
+    to every frame. The recurrent families' scans count as their
+    sequential recurrences do, 4 P N per step and head forward (the
+    state update and the read, 2 P N each; rwkv6 P = N) and twice that
+    backward; the hybrid family's shared block counts once per
+    application."""
     d, hd, H = cfg.d_model, cfg.head_dim, cfg.n_heads
     qo, kv = 2 * d * H * hd, 2 * d * cfg.n_kv_heads * hd
     if cfg.is_moe:
@@ -3306,8 +3538,24 @@ def _train_flops(cfg, batch, seq):
         mlp = (2 if cfg.is_encdec else 3) * d * cfg.d_ff
     # matmul parameters by the rows they multiply, and the attended
     # (query, key) pairs of one sequence over all layers
-    per_token = cfg.n_layers * (qo + kv + mlp) + d * cfg.padded_vocab_size
-    pairs = cfg.n_layers * seq * (seq + 1) // 2
+    n_attn = cfg.n_layers
+    per_token = d * cfg.padded_vocab_size
+    if cfg.family == "hybrid":
+        d_in = cfg.ssm_expand * d
+        n_heads, P, N = d_in // cfg.ssm_head_dim, cfg.ssm_head_dim, \
+            cfg.ssm_state
+        n_attn = cfg.n_layers // cfg.shared_attn_period
+        per_token += (cfg.n_layers * (3 * d * d_in + 2 * d * N + d * n_heads
+                                      + 2 * n_heads * P * N)
+                      + n_attn * (qo + kv + mlp))
+    elif cfg.family == "ssm":
+        n_attn = 0
+        per_token += cfg.n_layers * (5 * d * d + 2 * 64 * d
+                                     + 2 * d * cfg.d_ff
+                                     + 2 * d * cfg.wkv_head_dim)
+    else:
+        per_token += cfg.n_layers * (qo + kv + mlp)
+    pairs = n_attn * seq * (seq + 1) // 2
     F = per_frame = 0
     if cfg.is_encdec:
         F = cfg.n_audio_frames
@@ -3322,8 +3570,10 @@ def _train_flops(cfg, batch, seq):
 def phase_llm_train(dev, arch=LLM_ARCH, n_layers=TRAIN_LAYERS,
                     tag="llm-train"):
     """``arch`` at full width, ``n_layers`` layers (Qwen3-4B: 8; Granite-
-    MoE: all 24): the one-sequence check, then 6 train steps with remat
-    and 2 microbatches."""
+    MoE: all 24; zamba2-7b: 15; rwkv6-7b: 8): the one-sequence check, then
+    6 train steps with remat and 2 microbatches, with exact launch counts
+    (the recurrent families' scans take the training scans: no L4 or L5
+    launch)."""
     import torch
     from repro_torch.configs.base import TrainConfig, get_config
     from repro_torch.data.tokens import synthetic_token_batches
@@ -3356,9 +3606,7 @@ def phase_llm_train(dev, arch=LLM_ARCH, n_layers=TRAIN_LAYERS,
     step_fn = ST.make_train_step(cfg, tcfg)
     flops = _train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
     tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
-    # attention calls per forward: one per layer; the audio family's
-    # decoder layers two (self, cross) and its encoder layers one
-    n_attn = cfg.n_layers * (1 + cfg.is_encdec) + cfg.n_encoder_layers
+    n_attn = sum(_attention_calls(cfg))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -3376,9 +3624,9 @@ def phase_llm_train(dev, arch=LLM_ARCH, n_layers=TRAIN_LAYERS,
         dt = time.time() - t1
         step_s.append(dt)
         after = read_counts()
-        d1, d2, s1, s2 = (after[n] - before[n] for n in (
+        d1, d2, s1, s2, d4, d5 = (after[n] - before[n] for n in (
             "flash_attention", "flash_attention_bwd", "flash_attention_sm90",
-            "flash_attention_bwd_sm90"))
+            "flash_attention_bwd_sm90", "ssd_chunk", "wkv6"))
         loss, gn, lr = (float(m[k]) for k in ("loss", "grad_norm", "lr"))
         finite &= all(math.isfinite(x) for x in (loss, gn))
         aux = "".join(f", {k} {float(m[k]):.6f}" for k in ("moe_aux",
@@ -3387,7 +3635,7 @@ def phase_llm_train(dev, arch=LLM_ARCH, n_layers=TRAIN_LAYERS,
         log(f"[{tag}] step {i + 1}: {dt:.3f}s, "
             f"{tokens_per_step / dt:.4g} tokens/s, loss {loss:.6f}, grad "
             f"norm {gn:.6f}, lr {lr:.4e}{aux}; L1 {d1} / L2 {d2} launches, "
-            f"sm90 {s1} / {s2}"
+            f"sm90 {s1} / {s2}, L4 {d4}, L5 {d5}"
             + (" (under the profiler)" if i == TRAIN_STEPS - 1 else ""))
         if (d1 != 2 * n_attn * TRAIN_MICRO or d2 != n_attn * TRAIN_MICRO):
             raise AssertionError(f"step {i + 1}: L1 {d1} and L2 {d2} "
@@ -3398,6 +3646,10 @@ def phase_llm_train(dev, arch=LLM_ARCH, n_layers=TRAIN_LAYERS,
             raise AssertionError(f"step {i + 1}: {d1 - s1} L1 and {d2 - s2} "
                                  "L2 launches of the bf16 step missed the "
                                  "sm90 kernels")
+        if d4 or d5:
+            raise AssertionError(f"step {i + 1}: L4 {d4} / L5 {d5} launches; "
+                                 "a scan under autograd takes the training "
+                                 "scan")
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     steady = step_s[1:-1]
@@ -3407,7 +3659,8 @@ def phase_llm_train(dev, arch=LLM_ARCH, n_layers=TRAIN_LAYERS,
         f"{TRAIN_STEPS - 1} {mean_s:.3f} s/step, "
         f"{tokens_per_step / mean_s:.4g} tokens/s; model FLOPs "
         f"{flops / 1e12:.2f} TFLOP/step (6 per active matmul parameter and "
-        f"token or frame, 12 hd per attended pair and head, no recompute) = "
+        f"token or frame, 12 hd per attended pair and head, 12 P N per scan "
+        f"step and head, no recompute) = "
         f"{100 * flops / mean_s / _roof().PEAK_FLOPS['bf16']:.2f}% of the "
         f"989 TFLOP/s bf16 "
         f"peak; peak device memory {peak / 1e9:.2f} GB; launches {counts}")
@@ -3521,6 +3774,7 @@ def main():
     for name, cases in phase_hd112_parity(dev).items():
         llm_parity[name] += cases
     llm_parity.update(phase_scan_parity(dev))
+    phase_scan_train_parity(dev)
     hybrid_counts = phase_serve(dev, HYBRID_ARCH, "zamba2")
     ssm_counts = phase_serve(dev, SSM_ARCH, "rwkv6")
     launches["ssd_chunk"] = hybrid_counts["ssd_chunk"]
@@ -3547,6 +3801,11 @@ def main():
     train["train_whisper"] = phase_llm_train(
         dev, WHISPER_ARCH, get_config(WHISPER_ARCH).n_layers, "whisper-train")
     stamp("whisper parity, serve and train")
+    train["train_zamba2"] = phase_llm_train(
+        dev, HYBRID_ARCH, HYBRID_TRAIN_LAYERS, "hybrid-train")
+    train["train_rwkv6"] = phase_llm_train(dev, SSM_ARCH, SSM_TRAIN_LAYERS,
+                                           "ssm-train")
+    stamp("hybrid and ssm train")
     phase_examples()
     stamp("examples")
     by_path = {name: {path: c[name] for path, c in
@@ -3557,6 +3816,11 @@ def main():
                                  "flash_attention_bwd_sm90")})
     by_path["decode_attention"] = {path: c["decode_attention"]
                                    for path, c in serve_counts.items()}
+    # the recurrent scans: L4 / L5 per prefill layer on the serve paths,
+    # none on the train paths (the training scans)
+    for name, arch in (("ssd_chunk", "zamba2"), ("wkv6", "rwkv6")):
+        by_path[name] = {f"serve_{arch}": launches[name],
+                         f"train_{arch}": train[f"train_{arch}"][name]}
 
     meta = {
         "bmf_precision": dict(

@@ -6,10 +6,10 @@ full-width runs use.
   PYTHONPATH=src python examples/torch_llm_smoke_train.py
       [--arch mixtral_8x7b] [--device cuda|cpu]
 
-Every architecture whose family the port trains (dense, moe, vlm, audio)
-runs at its smoke variant (2 layers, d <= 256, <= 4 experts; whisper 2 +
-2 layers over 16 stub frames). ``--steps`` shrinks the run (default 60).
-The loss must fall.
+Every architecture of the zoo runs at its smoke variant (2 layers,
+d <= 256, <= 4 experts; whisper 2 + 2 layers over 16 stub frames; zamba2
+and rwkv6 through their chunked training scans). ``--steps`` shrinks the
+run (default 60). The loss must fall.
 """
 import argparse
 import time
@@ -18,15 +18,14 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import (ARCH_IDS, ATTENTION_FAMILIES,
-                                      NOT_PORTED, TrainConfig, get_config)
+from repro_torch.configs.base import (ARCH_IDS, NOT_PORTED, TrainConfig,
+                                      get_config)
 from repro_torch.data.tokens import synthetic_token_batches
 from repro_torch.models import model as MODEL
 from repro_torch.models import steps as STEPS
 from repro_torch.optim import adamw
 
-TRAINABLE = [a for a in ARCH_IDS if a not in NOT_PORTED
-             and get_config(a).family in ATTENTION_FAMILIES]
+TRAINABLE = [a for a in ARCH_IDS if a not in NOT_PORTED]
 
 
 def main(argv=None):

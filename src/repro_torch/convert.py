@@ -147,14 +147,12 @@ def llm_params_from_numpy(tree: Mapping[str, Any], cfg: ArchConfig,
     as numpy (``jax.tree.map(np.asarray, params)``) of a config of a ported
     family, whose ``blocks`` (and ``enc_blocks``) hold stacked (L, …)
     arrays. ``train`` picks the storage as ``model.init_params`` does: f32
-    with gradient (dense, moe, vlm, audio), or the serving cast without:
-    the reference's
-    ``_cast_tree`` rule (``model.serve_dtype``), an f32 array with
+    with gradient (every family), or the serving cast without: the
+    reference's ``_cast_tree`` rule (``model.serve_dtype``), an f32 array with
     ndim >= 2 and more than ``CAST_MIN_SIZE`` elements goes to
     ``cfg.dtype``, applied to the stacked arrays, as the reference applies
     it, before they are split per layer."""
     dev = resolve_device(device)
-    LM.check_trainable(cfg, train)
 
     def param(name, shape):
         path, layer = _tree_path(name)

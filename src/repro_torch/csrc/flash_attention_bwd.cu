@@ -1,4 +1,4 @@
-// L2: flash attention, backward pass (training).
+// L2 (f32): flash attention, backward pass (training), on the CUDA cores.
 //
 // Replaces the Pallas TPU kernels
 //   src/repro/kernels/flash_attention/kernel_bwd.py: flash_bwd_padded
@@ -10,18 +10,20 @@
 //   p  = exp(q k^T scale - lse)   masked as in L1 (causal / window / edges)
 //   dv = sum p^T do,  dp = do v^T,  ds = p * (dp - D)
 //   dq = ds k scale,  dk = ds^T q scale
-// dk and dv are summed over each GQA group. Everything is computed in f32;
-// dq, dk and dv are written once, in the input dtype.
+// dk and dv are summed over each GQA group. This file serves f32 inputs;
+// bf16 ones go to flash_attention_bwd_sm90.cu (wgmma fed by TMA). Every
+// product is an f32 FMA on the CUDA cores, since the tensor cores have no
+// f32 product that keeps the f32 results to 1e-5; dq, dk and dv are
+// written once.
 //
 // Bound on Hopper: operations. A fused backward needs five products per
 // unmasked (query, key) pair and q-head, 10 hd flops. At the train path's
 // shape (B = 2, S = 4096, H = 32, Hkv = 8, hd = 128, causal) that is
-// 0.69 TFLOP for 338 MB of bf16 operands and results (0.10 ms at
-// 3.35 TB/s against 0.69 ms at 989 TFLOP/s). This design runs two passes,
-// as the reference does, and so forms s and dp twice (14 hd flops per
-// pair): the dq pass forms s, dp and ds k; the dk/dv pass forms s, dp,
-// p^T do and ds^T q. Products are f32 FMAs on the CUDA cores, like L1's; tensor
-// cores (wgmma, TMA) are ROADMAP A.19.
+// 0.69 TFLOP for 676 MB of f32 operands and results (0.20 ms at
+// 3.35 TB/s against 10.2 ms at 67 TFLOP/s f32). This design runs two
+// passes, as the reference does, and so forms s and dp twice (14 hd flops
+// per pair): the dq pass forms s, dp and ds k; the dk/dv pass forms s, dp,
+// p^T do and ds^T q.
 // Design:
 //   - dq pass: one 256-thread block per (b, q-head, 64 query rows) loops
 //     over 64-key tiles, with dq in registers. It reads K/V of the head's
@@ -42,7 +44,6 @@
 //     a 64 x 64 score tile and its columns tx + 8 j (j < 8), and columns
 //     tx + 8 j (j < hd / 8) of the same rows of its accumulators. Shared
 //     rows are padded by 4 floats so that float4 reads hit distinct banks.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -56,45 +57,10 @@ constexpr int kLDP = kBK + 4;  // the 64 x 64 tile of p or ds in shared
 constexpr unsigned kFull = 0xffffffffu;
 static_assert(kBQ == kBK, "stage_rows and the tile products take 64 rows");
 
-template <typename T>
-__device__ __forceinline__ float4 load4(const T* p);
-
-template <>
-__device__ __forceinline__ float4 load4<float>(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-template <>
-__device__ __forceinline__ float4
-load4<__nv_bfloat16>(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 // Stage rows [r0, r0 + 64) of a (rows, stride) matrix into shared memory
-// as f32 (leading dimension LD), times `scale`; rows >= n_rows are zeros.
-template <int HD, int LD, typename T>
-__device__ __forceinline__ void stage_rows(float* dst, const T* src,
+// (leading dimension LD), times `scale`; rows >= n_rows are zeros.
+template <int HD, int LD>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
                                            int64_t stride, int r0, int n_rows,
                                            float scale) {
   constexpr int V = HD / 4;
@@ -103,7 +69,8 @@ __device__ __forceinline__ void stage_rows(float* dst, const T* src,
     const int c = (i % V) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (r0 + r < n_rows) {
-      x = load4<T>(src + (int64_t)(r0 + r) * stride + c);
+      x = *reinterpret_cast<const float4*>(
+          src + (int64_t)(r0 + r) * stride + c);
       x.x *= scale; x.y *= scale; x.z *= scale; x.w *= scale;
     }
     *reinterpret_cast<float4*>(dst + r * LD + c) = x;
@@ -179,13 +146,13 @@ constexpr int smem_bytes() {
 
 // dq pass, and D = rowsum(do * o). Grid (H, query tiles, B); query tiles
 // run longest first (causal rows near the end see the most keys).
-template <int HD, typename T>
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ o,
-                    const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ o,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse, float* __restrict__ Dg,
-                    T* __restrict__ dq, int Sq, int Skv, int H, int Hkv,
+                    float* __restrict__ dq, int Sq, int Skv, int H, int Hkv,
                     int causal, int window, float scale) {
   constexpr int LD = HD + 4;
   constexpr int NJ = HD / 8;
@@ -209,20 +176,20 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t q_stride = (int64_t)H * HD;
   const int64_t kv_stride = (int64_t)Hkv * HD;
   const int64_t qoff = ((int64_t)b * Sq * H + h) * HD;
-  const T* kb = k + ((int64_t)b * Skv * Hkv + hk) * HD;
-  const T* vb = v + ((int64_t)b * Skv * Hkv + hk) * HD;
+  const float* kb = k + ((int64_t)b * Skv * Hkv + hk) * HD;
+  const float* vb = v + ((int64_t)b * Skv * Hkv + hk) * HD;
 
-  stage_rows<HD, LD, T>(qs, q + qoff, q_stride, q0, Sq, scale);
-  stage_rows<HD, LD, T>(dos, dout + qoff, q_stride, q0, Sq, 1.f);
+  stage_rows<HD, LD>(qs, q + qoff, q_stride, q0, Sq, scale);
+  stage_rows<HD, LD>(dos, dout + qoff, q_stride, q0, Sq, 1.f);
   __syncthreads();
   // D for this tile's rows: warp w takes rows w, w + 8, ...
   for (int r = threadIdx.x >> 5; r < kBQ; r += kThreads / 32) {
     const int qp = q0 + r;
     float acc = 0.f;
     if (qp < Sq) {
-      const T* orow = o + qoff + (int64_t)qp * q_stride;
+      const float* orow = o + qoff + (int64_t)qp * q_stride;
       for (int d = lane; d < HD; d += 32)
-        acc = fmaf(dos[r * LD + d], to_f32(orow[d]), acc);
+        acc = fmaf(dos[r * LD + d], orow[d], acc);
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
@@ -247,8 +214,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = (kv_lo / kBK) * kBK; k0 < kv_hi; k0 += kBK) {
     __syncthreads();  // the previous tile's reads of ks and ps are done
-    stage_rows<HD, LD, T>(ks, kb, kv_stride, k0, Skv, 1.f);
-    stage_rows<HD, LD, T>(vs, vb, kv_stride, k0, Skv, 1.f);
+    stage_rows<HD, LD>(ks, kb, kv_stride, k0, Skv, 1.f);
+    stage_rows<HD, LD>(vs, vb, kv_stride, k0, Skv, 1.f);
     __syncthreads();
 
     float s[2][8], dp[2][8];
@@ -280,22 +247,22 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 2; ++i) {
     const int qp = q0 + ty + 32 * i;
     if (qp >= Sq) continue;
-    T* row = dq + qoff + (int64_t)qp * q_stride;
+    float* row = dq + qoff + (int64_t)qp * q_stride;
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
-      row[tx + 8 * j] = from_f32<T>(acc[i][j] * scale);
+      row[tx + 8 * j] = acc[i][j] * scale;
   }
 }
 
 // dk/dv pass. Grid (Hkv, key tiles, B); key tiles run first to last,
 // which is longest first under a causal mask.
-template <int HD, typename T>
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ Dg, T* __restrict__ dk,
-                     T* __restrict__ dv, int Sq, int Skv, int H, int Hkv,
+                     const float* __restrict__ Dg, float* __restrict__ dk,
+                     float* __restrict__ dv, int Sq, int Skv, int H, int Hkv,
                      int causal, int window, float scale) {
   constexpr int LD = HD + 4;
   constexpr int NJ = HD / 8;
@@ -318,8 +285,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t q_stride = (int64_t)H * HD;
   const int64_t kv_stride = (int64_t)Hkv * HD;
   const int64_t kvoff = ((int64_t)b * Skv * Hkv + hk) * HD;
-  stage_rows<HD, LD, T>(ks, k + kvoff, kv_stride, k0, Skv, 1.f);
-  stage_rows<HD, LD, T>(vs, v + kvoff, kv_stride, k0, Skv, 1.f);
+  stage_rows<HD, LD>(ks, k + kvoff, kv_stride, k0, Skv, 1.f);
+  stage_rows<HD, LD>(vs, v + kvoff, kv_stride, k0, Skv, 1.f);
 
   // queries that see this tile's keys: causal => i >= k0;
   // window => i < j + window <= k0 + kBK - 1 + window
@@ -337,8 +304,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t qoff = ((int64_t)b * Sq * H + h) * HD;
     for (int q0 = (q_lo / kBQ) * kBQ; q0 < q_hi; q0 += kBQ) {
       __syncthreads();  // the previous tile's reads of qs, dos, ps are done
-      stage_rows<HD, LD, T>(qs, q + qoff, q_stride, q0, Sq, scale);
-      stage_rows<HD, LD, T>(dos, dout + qoff, q_stride, q0, Sq, 1.f);
+      stage_rows<HD, LD>(qs, q + qoff, q_stride, q0, Sq, scale);
+      stage_rows<HD, LD>(dos, dout + qoff, q_stride, q0, Sq, 1.f);
       for (int r = threadIdx.x; r < kBQ; r += kThreads) {
         const int qp = q0 + r;
         const int64_t row = ((int64_t)b * Sq + qp) * H + h;
@@ -391,20 +358,21 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t off = kvoff + (int64_t)kp * kv_stride;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      dk[off + tx + 8 * j] = from_f32<T>(gk[i][j]);
-      dv[off + tx + 8 * j] = from_f32<T>(gv[i][j]);
+      dk[off + tx + 8 * j] = gk[i][j];
+      dv[off + tx + 8 * j] = gv[i][j];
     }
   }
 }
 
-template <int HD, typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
-                   const void* dout, const float* lse, float* D, void* dq,
-                   void* dk, void* dv, int B, int Sq, int Skv, int H, int Hkv,
-                   int causal, int window, cudaStream_t st) {
+template <int HD>
+cudaError_t launch(const float* q, const float* k, const float* v,
+                   const float* o, const float* dout, const float* lse,
+                   float* D, float* dq, float* dk, float* dv, int B, int Sq,
+                   int Skv, int H, int Hkv, int causal, int window,
+                   cudaStream_t st) {
   constexpr int bytes = smem_bytes<HD>();
-  auto dq_kern = flash_bwd_dq_kernel<HD, T>;
-  auto dkv_kern = flash_bwd_dkv_kernel<HD, T>;
+  auto dq_kern = flash_bwd_dq_kernel<HD>;
+  auto dkv_kern = flash_bwd_dkv_kernel<HD>;
   cudaError_t err = cudaFuncSetAttribute(
       dq_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
@@ -412,69 +380,49 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
       dkv_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const float scale = 1.0f / sqrtf((float)HD);
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* dot = static_cast<const T*>(dout);
   if (Sq > 0) {  // with Skv == 0 it writes dq = 0
     dq_kern<<<dim3(H, (Sq + kBQ - 1) / kBQ, B), kThreads, bytes, st>>>(
-        qt, kt, vt, static_cast<const T*>(o), dot, lse, D,
-        static_cast<T*>(dq), Sq, Skv, H, Hkv, causal, window, scale);
+        q, k, v, o, dout, lse, D, dq, Sq, Skv, H, Hkv, causal, window, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   if (Skv == 0) return cudaSuccess;  // with Sq == 0 it writes dk = dv = 0
   // same stream: the dk/dv pass reads the D that the dq pass wrote
   dkv_kern<<<dim3(Hkv, (Skv + kBK - 1) / kBK, B), kThreads, bytes, st>>>(
-      qt, kt, vt, dot, lse, D, static_cast<T*>(dk), static_cast<T*>(dv), Sq,
-      Skv, H, Hkv, causal, window, scale);
+      q, k, v, dout, lse, D, dk, dv, Sq, Skv, H, Hkv, causal, window, scale);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch(int hd, const void* q, const void* k, const void* v,
-                     const void* o, const void* dout, const float* lse,
-                     float* D, void* dq, void* dk, void* dv, int B, int Sq,
-                     int Skv, int H, int Hkv, int causal, int window,
-                     cudaStream_t st) {
-  switch (hd) {
-    case 32:
-      return launch<32, T>(q, k, v, o, dout, lse, D, dq, dk, dv, B, Sq, Skv,
-                           H, Hkv, causal, window, st);
-    case 64:
-      return launch<64, T>(q, k, v, o, dout, lse, D, dq, dk, dv, B, Sq, Skv,
-                           H, Hkv, causal, window, st);
-    case 128:
-      return launch<128, T>(q, k, v, o, dout, lse, D, dq, dk, dv, B, Sq, Skv,
-                            H, Hkv, causal, window, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
-// q, o, dout, dq: (B, Sq, H, hd); k, v, dk, dv: (B, Skv, Hkv, hd), all of
-// one dtype (bf16 when is_bf16, else f32), contiguous; lse: f32 (B, Sq, H)
-// from the forward; D: f32 (B, Sq, H) scratch that the dq pass fills.
-// Returns a cudaError_t.
+// q, o, dout, dq: (B, Sq, H, hd); k, v, dk, dv: (B, Skv, Hkv, hd), all f32,
+// contiguous; hd in {32, 64, 112, 128}; lse: f32 (B, Sq, H) from the
+// forward; D: f32 (B, Sq, H) scratch that the dq pass fills. Returns a
+// cudaError_t.
 extern "C" int flash_attention_bwd_launch(
-    const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const void* lse, void* D, void* dq, void* dk, void* dv,
-    int is_bf16, int B, int Sq, int Skv, int H, int Hkv, int hd, int causal,
+    const float* q, const float* k, const float* v, const float* o,
+    const float* dout, const float* lse, float* D, float* dq, float* dk,
+    float* dv, int B, int Sq, int Skv, int H, int Hkv, int hd, int causal,
     int window, void* stream) {
   if (B < 0 || Sq < 0 || Skv < 0 || H < 1 || Hkv < 1 || H % Hkv != 0 ||
       window < 0 || Sq > 65535 * kBQ || Skv > 65535 * kBK || B > 65535)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* l = static_cast<const float*>(lse);
-  float* d = static_cast<float*>(D);
-  cudaError_t err =
-      is_bf16 ? dispatch<__nv_bfloat16>(hd, q, k, v, o, dout, l, d, dq, dk,
-                                        dv, B, Sq, Skv, H, Hkv, causal,
-                                        window, st)
-              : dispatch<float>(hd, q, k, v, o, dout, l, d, dq, dk, dv, B, Sq,
-                                Skv, H, Hkv, causal, window, st);
-  return (int)err;
+  switch (hd) {
+    case 32:
+      return (int)launch<32>(q, k, v, o, dout, lse, D, dq, dk, dv, B, Sq,
+                             Skv, H, Hkv, causal, window, st);
+    case 64:
+      return (int)launch<64>(q, k, v, o, dout, lse, D, dq, dk, dv, B, Sq,
+                             Skv, H, Hkv, causal, window, st);
+    case 112:  // zamba2's shared attention block: 14 columns per thread
+      return (int)launch<112>(q, k, v, o, dout, lse, D, dq, dk, dv, B, Sq,
+                              Skv, H, Hkv, causal, window, st);
+    case 128:
+      return (int)launch<128>(q, k, v, o, dout, lse, D, dq, dk, dv, B, Sq,
+                              Skv, H, Hkv, causal, window, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -52,6 +52,10 @@
 //     none of whose pairs it sees, and masks element by element only on
 //     tiles that straddle the diagonal, the window edge or a ragged edge.
 //     TMA zero-fills rows past Sq or Skv; nothing is padded or copied.
+//   - hd 32 and 112 run as 64 and 128, as in L1: the tensor maps' bound
+//     zero-fills the extra columns of Q, K, V and dO, which add nothing to
+//     S or dP; D sums hd columns (two threads of a row take hd / 2 each),
+//     and the extra columns of dQ, dK and dV are not stored.
 #include "attention_sm90.cuh"
 
 namespace {
@@ -524,7 +528,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 }  // namespace
 
 // q, o, dout, dq: (B, Sq, H, hd); k, v, dk, dv: (B, Skv, Hkv, hd), all
-// bf16, contiguous, 16-byte aligned; hd in {32, 64, 128}; lse: f32
+// bf16, contiguous, 16-byte aligned; hd in {32, 64, 112, 128}; lse: f32
 // (B, Sq, H) from the forward; D: f32 (B, Sq, H) scratch that the dq pass
 // fills. Returns a cudaError_t, or 10000 and above for a tensor map that
 // cuTensorMapEncodeTiled refused (attention_sm90.cuh).
@@ -545,6 +549,7 @@ extern "C" int flash_attention_bwd_sm90_launch(
     case 64:
       return launch<64>(q, k, v, o, dout, l, d, dq, dk, dv, B, Sq, Skv, H,
                         Hkv, hd, causal, window, st);
+    case 112:  // zamba2's shared attention block
     case 128:
       return launch<128>(q, k, v, o, dout, l, d, dq, dk, dv, B, Sq, Skv, H,
                          Hkv, hd, causal, window, st);

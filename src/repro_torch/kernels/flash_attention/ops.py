@@ -36,7 +36,7 @@ from repro_torch.kernels.flash_attention.ref import (flash_attention_ref,
                                                      flash_bwd_ref)
 
 HEAD_DIMS = (32, 64, 112, 128)       # L1; 112 is zamba2's shared block
-BWD_HEAD_DIMS = (32, 64, 128)         # L2
+BWD_HEAD_DIMS = HEAD_DIMS             # L2
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_TILES = 65535            # the kernels' grid y axis: 64 rows per tile
 
@@ -54,7 +54,7 @@ def _lib_bwd():
     fn = BUILD.load("flash_attention_bwd").flash_attention_bwd_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 10 + [i] * 9 + [p]
+        fn.argtypes = [p] * 10 + [i] * 8 + [p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -202,7 +202,7 @@ def _launch_bwd(q, k, v, o, do, lse, causal, window):
                     "flash_attention_bwd_sm90_launch")
         flash_bwd.sm90_launches += 1
     else:
-        BUILD.check(_lib_bwd()(*ptrs, 0, *dims, stream),
+        BUILD.check(_lib_bwd()(*ptrs, *dims, stream),
                     "flash_attention_bwd_launch")
     flash_bwd.launches += 1
     return dq, dk, dv

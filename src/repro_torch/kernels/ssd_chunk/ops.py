@@ -11,8 +11,9 @@ so a layer is one launch. Bound on the H100: bytes (see the source).
 On a CUDA tensor ``ssd_scan`` launches the kernel or raises; on a CPU
 tensor it runs the plain chunked version (``ref.ssd_chunked``). The
 reference kernel has no VJP, and neither has this one: on a CUDA tensor
-that needs a gradient it raises (training the hybrid family is ROADMAP
-A.20).
+that needs a gradient it raises. Training takes the reference's route
+instead, the chunked scan under autograd (``models.mamba2.ssd_scan_train``),
+which the mixer picks when a gradient is recorded.
 """
 from __future__ import annotations
 
@@ -68,7 +69,8 @@ def _launch(xdt, a, B_, C_, state0):
                                        for t in tensors.values()):
         raise NotImplementedError(
             "ssd_scan's CUDA kernel is forward-only, as the reference's; "
-            "training the hybrid family is ROADMAP A.20")
+            "a scan that needs a gradient takes the training scan, "
+            "models.mamba2.ssd_scan_train")
     if (P, N) not in SHAPES:
         raise ValueError(f"ssd_scan kernel takes (P, N) in {SHAPES}, got "
                          f"{(P, N)}")

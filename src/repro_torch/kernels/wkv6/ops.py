@@ -12,7 +12,9 @@ flight while this one multiplies; see the source).
 On a CUDA tensor ``wkv6`` launches the kernel or raises; on a CPU tensor
 it runs the plain chunked version (``ref.wkv_chunked``). The reference
 kernel has no VJP, and neither has this one: on a CUDA tensor that needs
-a gradient it raises (training the ssm family is ROADMAP A.20).
+a gradient it raises. Training takes the reference's route instead, the
+chunked scan under autograd (``models.rwkv6.wkv_scan_train``), which the
+time-mix picks when a gradient is recorded.
 """
 from __future__ import annotations
 
@@ -67,7 +69,8 @@ def _launch(r, k, v, logw, u, state0):
                                        for t in tensors.values()):
         raise NotImplementedError(
             "wkv6's CUDA kernel is forward-only, as the reference's; "
-            "training the ssm family is ROADMAP A.20")
+            "a scan that needs a gradient takes the training scan, "
+            "models.rwkv6.wkv_scan_train")
     if N not in HEAD_SIZES:
         raise ValueError(f"wkv6 kernel takes N in {HEAD_SIZES}, got {N}")
     check_cuda_operands(tensors, {n: (torch.float32,) for n in tensors})

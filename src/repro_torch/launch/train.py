@@ -5,11 +5,11 @@ Usage (smoke scale; ``--device cpu`` runs the plain PyTorch versions):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_4b \\
       --smoke --steps 20 --batch 2 --seq 128 [--device cuda|cpu]
 
-The port trains the dense (qwen3_4b, llama3_8b, minitron_8b,
-chatglm3_6b), moe (granite_moe_1b_a400m, mixtral_8x7b), vlm
-(internvl2_1b) and audio (whisper_medium: the batch carries its stub
-frame embeddings) families; the hybrid and ssm architectures raise
-``NotImplementedError``.
+The port trains every architecture: dense (qwen3_4b, llama3_8b,
+minitron_8b, chatglm3_6b), moe (granite_moe_1b_a400m, mixtral_8x7b), vlm
+(internvl2_1b), audio (whisper_medium: the batch carries its stub frame
+embeddings), hybrid (zamba2_7b) and ssm (rwkv6_7b: both through the
+reference's chunked training scans).
 ``--ckpt PATH`` saves the trained parameters (``checkpoint.ckpt.save``:
 PATH.npz and its PATH.json manifest), which ``ckpt.restore`` reads back.
 """

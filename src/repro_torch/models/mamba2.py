@@ -9,10 +9,13 @@ Per head h (P = ssm_head_dim channels, N = ssm_state):
 The projections stay separate matrices (w_z, w_x, w_B, w_C, w_dt), as in
 the reference. A prompt (S > 1) is padded to a multiple of 128 with
 identity steps (dt = 0 gives a = 0 and xdt = 0) and goes through
-``ssd_scan`` (kernel L4 on the card, its plain chunked version on the CPU);
-one token goes through ``ssd_step``. The depthwise causal convolution is a
-sum of ``W`` shifted products in the activation dtype, as the reference
-writes it, not a ``conv1d``.
+``ssd_scan`` (kernel L4 on the card, its plain chunked version on the CPU),
+or, when autograd records a gradient of the scan's inputs, through
+``ssd_scan_train``, the reference's training route (its ``ssd_chunked``
+under ``jax.grad``, each chunk checkpointed; L4 has no backward, as the
+reference's Pallas kernel has none); one token goes through ``ssd_step``.
+The depthwise causal convolution is a sum of ``W`` shifted products in
+the activation dtype, as the reference writes it, not a ``conv1d``.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ssd_chunk.ops import ssd_scan
-from repro_torch.kernels.ssd_chunk.ref import CHUNK
+from repro_torch.kernels.ssd_chunk.ref import CHUNK, ssd_chunked
 from repro_torch.models.layers import RMSNorm
 
 # the mixer's parameters in the reference's order (``mamba2_init``)
@@ -52,6 +55,18 @@ def causal_conv(x, w, b, conv_state):
         y = y + xp[:, i:i + S] * w[i].to(x.dtype)
     y = y + b.to(x.dtype)
     return F.silu(y.float()).to(x.dtype), xp[:, S:]
+
+
+def ssd_scan_train(x, dt, A_log, B_, C_, state0):
+    """The training scan, port of the reference's ``ssd_chunked(x, dt,
+    A_log, B, C, state0)``: a = −exp(A_log)·dt and xdt = x·dt, then the
+    chunked scan with each 128-step chunk under a non-reentrant
+    checkpoint (``jax.checkpoint(chunk_step)``), so autograd keeps only
+    the carried (B, H, P, N) state per chunk. x: (B, S, H, P); dt: (B, S,
+    H); B_/C_: (B, S, N); state0: (B, H, P, N); S % 128 == 0. Returns y
+    (B, S, H, P) and the final state, f32."""
+    a = -torch.exp(A_log.float())[None, None, :] * dt
+    return ssd_chunked(x * dt[..., None], a, B_, C_, state0, remat=True)
 
 
 def ssd_step(x, dt, A_log, B_, C_, state):
@@ -108,10 +123,17 @@ class Mamba2Mixer(nn.Module):
             xp, dtp, Bp, Cp = (
                 F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) if pad else t
                 for t in (xh, dt, Bf, Cf))
-            a = -torch.exp(self.A_log.float())[None, None, :] * dtp
-            y, ssm = ssd_scan((xp * dtp[..., None]).contiguous(),
-                              a.contiguous(), Bp.contiguous(),
-                              Cp.contiguous(), state["ssm"].contiguous())
+            train = torch.is_grad_enabled() and any(
+                t.requires_grad for t in (xp, dtp, self.A_log, Bp, Cp,
+                                          state["ssm"]))
+            if train:
+                y, ssm = ssd_scan_train(xp, dtp, self.A_log, Bp, Cp,
+                                        state["ssm"])
+            else:
+                a = -torch.exp(self.A_log.float())[None, None, :] * dtp
+                y, ssm = ssd_scan((xp * dtp[..., None]).contiguous(),
+                                  a.contiguous(), Bp.contiguous(),
+                                  Cp.contiguous(), state["ssm"].contiguous())
             y = y[:, :S]
         y = y + self.D.float()[None, None, :, None] * xh
         y = self.norm(y.reshape(Bb, S, d_in).to(x.dtype))

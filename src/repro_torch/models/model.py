@@ -53,10 +53,15 @@ reference's ``jax.checkpoint`` around the scanned block, so its
 activations are recomputed in the backward pass; ``remat_policy="dots"``
 keeps the matrix products' outputs (``dots_saveable``) through selective
 checkpointing (the audio encoder always recomputes its whole block, as
-the reference's does). The hybrid and ssm scans (kernels L4, L5) are
-forward-only, so those families do not train yet (ROADMAP A.20);
-``init_params(..., train=True)`` takes the dense, moe, vlm and audio
-families. ``prefill`` and ``decode_step`` run without gradient.
+the reference's does). Every family trains. The hybrid and ssm scans'
+kernels (L4, L5) are forward-only, as the reference's Pallas kernels are,
+so under autograd the mixers take the reference's training route instead:
+the chunked scan with each chunk checkpointed (``mamba2.ssd_scan_train``,
+``rwkv6.wkv_scan_train``), nested inside the block's checkpoint. The
+hybrid family's shared block is checkpointed with ``remat`` like every
+other block, where the reference calls it outside its remat: the same
+values, for less memory and one more forward of the block per
+application. ``prefill`` and ``decode_step`` run without gradient.
 
 An int8 cache (``kvcache.serve_cache_init(..., kv_quant=True)``, dense,
 moe and vlm) is filled by ``decode_step`` only, one token at a time from
@@ -376,13 +381,6 @@ def build(cfg: ArchConfig, param) -> CausalLM:
                     enc, enc_norm)
 
 
-def check_trainable(cfg: ArchConfig, train: bool):
-    if train and cfg.family not in ATTENTION_FAMILIES:
-        raise NotImplementedError(
-            f"training the {cfg.family} family is not ported: its scan "
-            "kernel has no backward (ROADMAP A.20)")
-
-
 def init_params(cfg: ArchConfig, generator: torch.Generator,
                 device=None, *, train: bool = False) -> CausalLM:
     """Seeded random weights, made per tensor on ``device`` (the GPU unless
@@ -395,12 +393,12 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     ``train=False`` (serving) stores every parameter without gradient in
     the dtype the reference computes with after ``_cast_tree``
     (``serve_dtype``), and no f32 copy of the whole model exists at any
-    time (a stack of experts is one tensor). ``train=True`` (the dense,
-    moe, vlm and audio families) keeps every parameter in f32 with a
-    gradient: the reference's own master layout, which ``forward`` casts
-    at use."""
+    time (a stack of experts is one tensor). ``train=True`` (every
+    family) keeps every parameter in f32 with a gradient: the reference's
+    own master layout, which ``forward`` casts at use (the mixers'
+    convolutions, ``A_log``, ``D``, ``dt_bias``, ``mix_base``, ``decay_*``
+    and ``bonus_u`` too)."""
     _check_family(cfg)
-    check_trainable(cfg, train)
     dev = resolve_device(device)
 
     def param(name, shape):
@@ -507,10 +505,12 @@ def forward(params: CausalLM, cfg: ArchConfig,
     means of ``moe_aux`` and ``moe_dropped``, else is empty. The audio
     family's logits are the text's. The recurrent families start from
     zero states and the hybrid shared block attends with
-    ``cfg.sliding_window``, as in the reference. Differentiable; with
-    ``remat`` (and autograd recording) each block is checkpointed as
-    ``remat_policy`` says, the audio encoder's as "full" (the
-    reference's ``_encode_audio`` passes no policy)."""
+    ``cfg.sliding_window``, as in the reference. Differentiable, for
+    every family (the recurrent ones through their training scans); with
+    ``remat`` (and autograd recording) each block, the hybrid shared
+    block's applications included, is checkpointed as ``remat_policy``
+    says, the audio encoder's as "full" (the reference's
+    ``_encode_audio`` passes no policy)."""
     _check_family(cfg)
     dtype = compute_dtype(cfg)
     x = _embed_inputs(params, cfg, batch, dtype)

@@ -9,8 +9,11 @@ Recurrence (per head, key size = value size = wkv_head_dim N):
 with the data-dependent decay w_t = exp(-exp(w0 + tanh(x A) B)) from a
 small LoRA. A prompt (S > 1) is padded to a multiple of 128 with identity
 steps (log w = 0 and k = 0 leave the state as it is) and goes through
-``wkv6`` (kernel L5 on the card, its plain chunked version on the CPU);
-one token goes through ``wkv_step``.
+``wkv6`` (kernel L5 on the card, its plain chunked version on the CPU),
+or, when autograd records a gradient of the scan's inputs, through
+``wkv_scan_train``, the reference's training route (its ``wkv_chunked``
+under ``jax.grad``, each chunk checkpointed; L5 has no backward, as the
+reference's Pallas kernel has none); one token goes through ``wkv_step``.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.wkv6.ops import wkv6
-from repro_torch.kernels.wkv6.ref import CHUNK
+from repro_torch.kernels.wkv6.ref import CHUNK, wkv_chunked
 from repro_torch.models.layers import RMSNorm
 
 LORA_R = 64
@@ -37,6 +40,16 @@ def token_shift(x, x_prev):
     """x: (B, S, d); x_prev: (B, d), the last token of the previous
     segment. Returns x shifted one step right."""
     return torch.cat([x_prev[:, None, :].to(x.dtype), x[:, :-1]], dim=1)
+
+
+def wkv_scan_train(r, k, v, logw, u, state0):
+    """The training scan, port of the reference's ``wkv_chunked``: the
+    chunked recurrence with each 128-step chunk under a non-reentrant
+    checkpoint (``jax.checkpoint(chunk_step)``), so autograd keeps only the
+    carried (B, H, N, N) state per chunk. r, k, v, logw: (B, S, H, N) with
+    S % 128 == 0; u: (H, N); state0: (B, H, N, N). Returns y (B, S, H, N)
+    and the final state, f32."""
+    return wkv_chunked(r, k, v, logw, u, state0, remat=True)
 
 
 def wkv_step(r, k, v, logw, u, state):
@@ -85,7 +98,10 @@ class TimeMix(nn.Module):
             if pad:
                 rf, kf, vf, wf = (F.pad(t, (0, 0, 0, 0, 0, pad))
                                   for t in (rf, kf, vf, wf))
-            y, state = wkv6(rf.contiguous(), kf.contiguous(), vf.contiguous(),
+            train = torch.is_grad_enabled() and any(
+                t.requires_grad for t in (rf, kf, vf, wf, u, state))
+            scan = wkv_scan_train if train else wkv6
+            y, state = scan(rf.contiguous(), kf.contiguous(), vf.contiguous(),
                             wf.contiguous(), u.contiguous(),
                             state.contiguous())
             y = y[:, :S]

@@ -442,12 +442,12 @@ BWD_SHAPES = [(300, 300, 4, 4, True, 0), (1000, 1000, 8, 4, True, 128),
 BWD_RTOL = {"f32": 1e-4, "bf16": 4e-3}
 
 
-def _bwd_inputs(shape, dt, device, seed=5):
+def _bwd_inputs(shape, dt, device, seed=5, hd=128):
     Sq, Skv, H, Hkv, causal, window = shape
     g = torch.Generator(device=device).manual_seed(seed)
-    q, do = (torch.randn((2, Sq, H, 128), generator=g, device=device)
+    q, do = (torch.randn((2, Sq, H, hd), generator=g, device=device)
              .to(TORCH_DT[dt]) for _ in range(2))
-    k, v = (torch.randn((2, Skv, Hkv, 128), generator=g, device=device)
+    k, v = (torch.randn((2, Skv, Hkv, hd), generator=g, device=device)
             .to(TORCH_DT[dt]) for _ in range(2))
     o, lse = FA.flash_attention_ref(q, k, v, causal=causal, window=window,
                                     return_lse=True)
@@ -468,6 +468,27 @@ def test_cuda_flash_bwd_kernel_matches_plain(shape, dt, cuda_device):
                             window=window)
     for a, b, name in zip(got, want, ("dq", "dk", "dv")):
         assert a.dtype == q.dtype, name
+        assert_rel_close(a.float().cpu().numpy(),
+                         b.to(q.dtype).float().cpu().numpy(), BWD_RTOL[dt])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", BWD_SHAPES[:4], ids=str)
+def test_cuda_flash_bwd_hd112_matches_plain(shape, dt, cuda_device):
+    """L2 at zamba2's head size, 112: the f32 kernel's own instantiation
+    (14 accumulator columns per thread) and the sm90 kernel's 128-column
+    tiles with 16 columns zero-filled."""
+    causal, window = shape[4], shape[5]
+    q, k, v, o, do, lse = _bwd_inputs(shape, dt, cuda_device, hd=112)
+    n0 = FA.flash_bwd.launches
+    got = FA.flash_bwd(q, k, v, o, do, lse, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert FA.flash_bwd.launches == n0 + 1
+    want = FA.flash_bwd_ref(q, k, v, o, do, lse, causal=causal,
+                            window=window)
+    for a, b in zip(got, want):
+        assert a.dtype == q.dtype and a.shape == b.shape
         assert_rel_close(a.float().cpu().numpy(),
                          b.to(q.dtype).float().cpu().numpy(), BWD_RTOL[dt])
 
@@ -543,12 +564,14 @@ SM90_FWD_SHAPES = [(300, 300, 4, 4, 32, True, 0),
                    (300, 700, 4, 1, 112, False, 0),
                    (700, 300, 8, 2, 128, False, 50),
                    (300, 300, 4, 1, 112, True, 37)]
-# the head sizes L2 takes (no path trains at hd 112)
+# every head size L2 takes, 112 (zamba2's MHA shared block) among them
 SM90_BWD_SHAPES = [(300, 300, 4, 4, 32, True, 0),
                    (700, 700, 8, 4, 64, True, 100),
                    (4033, 4033, 8, 2, 128, True, 0),
                    (700, 300, 8, 2, 128, False, 50),
-                   (300, 700, 4, 1, 64, True, 200)]
+                   (300, 700, 4, 1, 64, True, 200),
+                   (4033, 4033, 4, 4, 112, True, 0),
+                   (300, 700, 4, 2, 112, False, 50)]
 
 
 def _sm90_inputs(shape, device, n_q=1, seed=8):

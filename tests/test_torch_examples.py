@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 
 from repro_torch.checkpoint import ckpt
+from repro_torch.configs import base as TCB
 from torch_helpers import one_torch_thread  # noqa: F401 (fixture)
 
 EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
@@ -65,12 +66,20 @@ def test_distributed_block(capsys, one_torch_thread):
     assert np.isfinite(rmse)
 
 
+LLM_STEPS = {"rwkv6_7b": 24}
+
+
 @pytest.mark.parametrize("arch", ["granite_moe_1b_a400m", "mixtral_8x7b",
-                                  "internvl2_1b", "whisper_medium"])
+                                  "internvl2_1b", "whisper_medium",
+                                  "zamba2_7b", "rwkv6_7b"])
 def test_llm_smoke_train(arch, capsys, one_torch_thread):
     mod = _example("torch_llm_smoke_train")
     assert {"llama3_8b", "qwen3_4b", arch} <= set(mod.TRAINABLE)
-    assert not {"zamba2_7b", "rwkv6_7b"} & set(mod.TRAINABLE)
-    losses = mod.main(["--arch", arch, "--steps", "12", "--device", "cpu"])
+    assert set(mod.TRAINABLE) == set(TCB.ARCH_IDS)
+    # rwkv6's smoke losses spread by up to 0.5 between batches at 12 steps
+    # (seed 0: 6.118 at step 5, 6.784 at step 12), more than the trend moves
+    # them, so its first and last 5 are compared over 24 steps
+    n = LLM_STEPS.get(arch, 12)
+    losses = mod.main(["--arch", arch, "--steps", str(n), "--device", "cpu"])
     _ok(capsys)
-    assert len(losses) == 12 and all(np.isfinite(losses))
+    assert len(losses) == n and all(np.isfinite(losses))

@@ -106,12 +106,21 @@ def emulate_fwd(q, k, v, causal, window, split=_split):
     return o, _unheads(lse)[..., 0]
 
 
-def emulate_bwd(q, k, v, o, do, lse, causal, window):
+def _pad_cols(x, n):
+    """x with zero columns appended up to ``n``: a head as a kernel's tile
+    holds it when hd is below the tile's width."""
+    return torch.nn.functional.pad(x, (0, n - x.shape[-1]))
+
+
+def emulate_bwd(q, k, v, o, do, lse, causal, window, hd=None):
     """L2's sm90 arithmetic: D = rowsum(do * o) from the bf16 o; the dq pass
     over 64-key tiles (dS = hi + lo into dS K), the dk/dv pass over 64-query
     tiles (P^T and dS^T = hi + lo into P^T dO and dS^T Q), the GQA sum
-    inside. Returns dq, dk, dv in bf16, as written."""
-    B, Sq, H, hd = q.shape
+    inside. ``hd``, the head size the scale is taken from, defaults to the
+    inputs' width (the kernel passes the true hd where its tiles are
+    wider). Returns dq, dk, dv in bf16, as written."""
+    B, Sq, H, width = q.shape
+    hd = hd or width
     Skv, Hkv = k.shape[1], k.shape[2]
     scale = 1.0 / math.sqrt(hd)
     qh, doh, oh = (_heads(x, Hkv) for x in (q, do, o))
@@ -133,7 +142,7 @@ def emulate_bwd(q, k, v, o, do, lse, causal, window):
         ks = slice(k0, k0 + BWD_TILE)
         hi, lo = _split(p_ds(every, ks)[1])
         dq += hi @ kh[..., ks, :] + lo @ kh[..., ks, :]
-    dk = torch.zeros((B, Hkv, 1, Skv, hd))
+    dk = torch.zeros((B, Hkv, 1, Skv, width))
     dv = torch.zeros_like(dk)
     for q0 in range(0, Sq, BWD_TILE):
         qs = slice(q0, q0 + BWD_TILE)
@@ -257,6 +266,9 @@ BWD_CASES = [
      False, 40),
     ("ragged-causal-300-window64-gqa2-hd32", 1, 300, 300, 4, 2, 32, True,
      64),
+    # zamba2's shared block: MHA at hd 112, which the sm90 kernel runs in
+    # its 128-column tiles with columns 112-127 zero (``_pad_cols``)
+    ("causal-512-mha-hd112", 1, 512, 512, 4, 4, 112, True, 0),
 ]
 
 
@@ -269,6 +281,16 @@ def test_split_backward_matches_reference(case):
     q, k, v, do = _inputs(B, Sq, Skv, H, Hkv, hd, seed=7 * hd + Sq, n_q=2)
     o, lse = emulate_fwd(q, k, v, causal, window)
     got = emulate_bwd(q, k, v, o, do, lse, causal, window)
+    if hd == 112:
+        # the kernel's tiles: 128 columns, the last 16 zero-filled by the
+        # tensor maps; only the first 112 columns of dq, dk, dv are stored
+        wide = emulate_bwd(*(_pad_cols(t, 128) for t in (q, k, v, o, do)),
+                           lse, causal, window, hd=hd)
+        for a, b in zip(got, wide):
+            assert torch.equal(b[..., hd:], torch.zeros_like(b[..., hd:]))
+            assert_rel_close(b[..., :hd].float().numpy(), a.float().numpy(),
+                             1e-6)
+        got = [t[..., :hd] for t in wide]
     jq, jk, jv, jdo = (_jnp(t) for t in (q, k, v, do))
     if Sq % 256 == 0 and Skv % 512 == 0:
         # the reference's two Pallas backward kernels on the same o and lse
@@ -356,8 +378,8 @@ def test_backward_dispatch_by_dtype(stub_libs, dtype, hd):
     sm90, simt = stub_libs["_lib_bwd_sm90"].calls, stub_libs["_lib_bwd"].calls
     assert (len(sm90), len(simt)) == ((1, 0) if bf16 else (0, 1))
     args = (sm90 or simt)[0]
-    assert args[10:] == ((2, 40, 40, 4, 1, hd, 0, 16, 0) if bf16
-                         else (0, 2, 40, 40, 4, 1, hd, 0, 16, 0))
+    # both: 10 pointers, then B, Sq, Skv, H, Hkv, hd, causal, window
+    assert args[10:] == (2, 40, 40, 4, 1, hd, 0, 16, 0)
     assert FA.flash_bwd.launches == 1
     assert FA.flash_bwd.sm90_launches == int(bf16)
 
@@ -365,9 +387,12 @@ def test_backward_dispatch_by_dtype(stub_libs, dtype, hd):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
 def test_backward_rejects_hd112(stub_libs, dtype):
-    """L2 takes hd 32, 64 and 128 in both variants (no path trains the
-    hybrid family's hd-112 block): hd 112 raises before any launch."""
-    q, k, v = (torch.zeros((1, 40, 2, 112), dtype=dtype) for _ in range(3))
+    """L2 took hd 32, 64 and 128 until the hybrid family trained; it now
+    takes L1's head sizes, 112 (zamba2's shared block) among them, in both
+    variants, and a head size neither variant was built for (96) raises
+    before any launch."""
+    assert FA.BWD_HEAD_DIMS == FA.HEAD_DIMS and 112 in FA.BWD_HEAD_DIMS
+    q, k, v = (torch.zeros((1, 40, 2, 96), dtype=dtype) for _ in range(3))
     with pytest.raises(ValueError, match="hd in"):
         FA._launch_bwd(q, k, v, q, q, torch.zeros((1, 40, 2)), True, 0)
     assert not any(lib.calls for lib in stub_libs.values())

@@ -270,9 +270,11 @@ def test_other_families_still_raise():
         TM.init_params(cfg, torch.Generator(), "cpu")
     with pytest.raises(NotImplementedError):
         TKV.serve_cache_init(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.20"):
-        TM.init_params(TCB.get_config("zamba2_7b").smoke_variant(),
-                       torch.Generator(), "cpu", train=True)
+    # the recurrent families train: f32 master parameters with gradient
+    params = TM.init_params(TCB.get_config("zamba2_7b").smoke_variant(),
+                            torch.Generator(), "cpu", train=True)
+    assert all(p.dtype == torch.float32 and p.requires_grad
+               for p in params.parameters())
 
 
 @pytest.mark.parametrize("variant", ["zamba2-remainder", "rwkv6"])
