@@ -170,7 +170,20 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      ``make_train_step`` steps on batches of 4 x 4,096 synthetic tokens in
      2 microbatches with remat: losses and grad norms finite, L1 launched
      32 and L2 16 times per step, every launch on the sm90 kernels; the
-     last step under ``torch.profiler``;
+     last step under ``torch.profiler``; then ``[sharded-llm]``: Qwen3-4B's
+     steps as SPMD programs (``models.sharded``) on ``make_debug_mesh(2,
+     2)``, its 4 slots streams on the card. Serve at full depth: phase 6's
+     8 x 4,000-token prompts and 32 decode steps against the unsharded
+     serve on the card (LOGIT_TOL worst step, LOGIT_MEDIAN_TOL median),
+     L1 144 per prefill and L3 144 per step; train at 8 layers with this
+     phase's batches: the first batch's sharded gradients against the
+     unsharded ones (TRAIN_* limits), then 3 steps each (loss and grad
+     norm per step within TRAIN_LOSS_TOL / TRAIN_NORM_TOL), L1 128 and L2
+     64 per step; s/step, tokens/s, busy share, peak memory and the
+     collective bytes by kind per slot; then the LLM dry run
+     (``launch.dryrun.lower_one``) of train_4k and decode_32k on the
+     16 x 16 mesh, and the debug mesh's plans of the three runs, whose
+     launches per slot must be the counted ones over 4;
   9. L1/L3 parity at zamba2's shared attention block (MHA, H = Hkv = 32,
      hd = 112), bf16 and fp32: causal prefill at 4,000 tokens and decode
      over a full 4,096-slot ring, timed as in phase 5; and L2 at its train
@@ -265,8 +278,9 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      for mixtral-8x7b, granite-moe-1b-a400m and whisper-medium); each
      must exit 0 with ``OK``;
  21. summary: one JSON line ``{"kernels": [...]}`` (L1 and L2 with each
-     variant's launches and times, launches by path; L4 and L5 by serve
-     and train path) and, last, the
+     variant's launches and times, launches by path, the sharded paths'
+     under ``serve_sharded`` / ``train_sharded``; L4 and L5 by serve and
+     train path) and, last, the
      ``{"ok": true, "device": {...}}`` line. ``[time]`` lines give the
      run's seconds after each group of phases. Every profiled window
      traces the device's activity only (``device_profile``).
@@ -467,6 +481,13 @@ TRAIN_LOSS_TOL, TRAIN_COS_TOL, TRAIN_NORM_TOL = 2e-3, 2e-4, 5e-4
 # of 4 x 4,096 tokens in 2 microbatches (each f32 logits tensor 4.98 GB)
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 8, 4, 4096, 2
 TRAIN_STEPS = 6
+# [sharded-llm]: Qwen3-4B's dense steps as SPMD programs on a 2 x 2
+# ('data', 'model') debug mesh, its 4 slots streams on the one card: the
+# serve phase's prompt batch at full depth, then 32 decode steps, and the
+# train phase's traffic at TRAIN_LAYERS for 3 steps, each held against the
+# unsharded step on the card
+SHARDED_MESH = (2, 2)
+SHARDED_DECODE_STEPS, SHARDED_TRAIN_STEPS = 32, 3
 # the recurrent families' train paths at full width, with phase 8's
 # traffic: zamba2-7b with 15 of its 81 Mamba2 layers (two full groups of 6,
 # each followed by the shared block, then a remainder of 3: both branches
@@ -3696,6 +3717,283 @@ def profile_train_step(step_fn, params, opt, batch, tag="llm-train"):
     return out
 
 
+def _group0_bytes(calls):
+    """Collective bytes per slot by kind (the calls slot 0 takes part in,
+    as the dry run records one slot's), without the zero kinds."""
+    from repro_torch.roofline import analysis as ROOF
+    out = ROOF.collective_bytes([c for c in calls if c.group == 0])
+    return {k: v for k, v in out.items() if v}
+
+
+def phase_sharded_llm(dev):
+    """``[sharded-llm]``: Qwen3-4B at full width on ``make_debug_mesh(2,
+    2)``, every slot a stream on the card. Serve at full depth: a prefill
+    of the serve phase's 8 x 4,000-token prompts and 32 decode steps,
+    held against the unsharded serve on the card (LOGIT_TOL on the worst
+    step, LOGIT_MEDIAN_TOL on the median decode step), with L1 144 per
+    prefill and L3 144 per step (36 layers x 4 slots). Train at
+    TRAIN_LAYERS with the train phase's batches: the sharded gradients
+    of the first batch against the unsharded ones (TRAIN_* limits), then
+    3 steps each, loss and gradient norm per step within TRAIN_LOSS_TOL
+    and TRAIN_NORM_TOL, with L1 128 and L2 64 per step (4 slots x the
+    unsharded 32 / 16). Then the dry run: ``lower_one`` for train_4k and
+    decode_32k on the 16 x 16 mesh, and the debug mesh's plans of the
+    three runs above, whose launches per slot must be the counted ones
+    over 4. Returns the launch counts by path."""
+    import torch
+    from repro_torch.configs.base import InputShape, TrainConfig, get_config
+    from repro_torch.core.topology import record_collectives
+    from repro_torch.data.tokens import synthetic_token_batches
+    from repro_torch.launch import dryrun as DRY
+    from repro_torch.launch.mesh import Mesh, make_debug_mesh
+    from repro_torch.models import model as LM
+    from repro_torch.models import sharded as SH
+    from repro_torch.models import steps as ST
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import partitioning as PART
+    tag = "sharded-llm"
+    t_phase = time.time()
+    mesh = make_debug_mesh(*SHARDED_MESH)
+    n = mesh.size
+    cfg = get_config(LLM_ARCH)
+    V = cfg.vocab_size
+    N = SHARDED_DECODE_STEPS
+    shape = InputShape("serve_4k", LLM_CONTEXT, LLM_BATCH, "prefill")
+    tokens = next(synthetic_token_batches(cfg, LLM_BATCH, LLM_PROMPT + N + 3,
+                                          seed=0, device=dev))["tokens"]
+    params = LM.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    # the unsharded serve on the card: the reference for the sharded one
+    prefill, serve = ST.make_prefill_step(cfg, shape), ST.make_serve_step(cfg)
+    logits, cache = prefill(params, {"tokens": tokens[:, :LLM_PROMPT]})
+    want = [logits]
+    for t in range(LLM_PROMPT, LLM_PROMPT + N):
+        logits, cache = serve(params, cache, tokens[:, t:t + 1])
+        want.append(logits)
+    del cache
+    specs = PART.param_specs(params, cfg, mesh)
+    placed = PART.place(params, specs, mesh)
+    del params
+    torch.cuda.empty_cache()
+    sprefill = ST.make_sharded_prefill_step(cfg, shape, mesh)
+    sserve = ST.make_sharded_serve_step(cfg, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.time()
+    with record_collectives() as pre_calls:
+        logits, cache = sprefill(placed, {"tokens": tokens[:, :LLM_PROMPT]})
+    torch.cuda.synchronize()
+    prefill_s = time.time() - t0
+    pre_counts = read_counts()
+    got = [logits]
+    reset_counts()
+    t0 = time.time()
+    for t in range(LLM_PROMPT, LLM_PROMPT + N):
+        if t == LLM_PROMPT:
+            with record_collectives() as step_calls:
+                logits, cache = sserve(placed, cache, tokens[:, t:t + 1])
+        else:
+            logits, cache = sserve(placed, cache, tokens[:, t:t + 1])
+        got.append(logits)
+    torch.cuda.synchronize()
+    decode_s = time.time() - t0
+    dec_counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.synchronize()
+    with device_profile() as prof:
+        t0 = time.time()
+        for t in range(LLM_PROMPT + N, LLM_PROMPT + N + 3):
+            sserve(placed, cache, tokens[:, t:t + 1])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    _, busy = device_time(prof)
+    busy_txt = (f"{100 * busy / (1e3 * wall):.1f}% of the wall"
+                if busy else "not measured (no device time recorded)")
+    ratio, per_step, agree, rms = _logit_gap(
+        torch.stack(got, 1)[:, :, 0], torch.stack(want, 1)[:, :, 0], V)
+    median = float(per_step[1:].median())
+    n_tok = LLM_BATCH * N
+    log(f"[{tag}-serve] {LLM_ARCH} at full width and depth on {mesh}: "
+        f"prefill {LLM_BATCH} x {LLM_PROMPT}: {prefill_s:.3f}s, "
+        f"{LLM_BATCH * LLM_PROMPT / prefill_s:.4g} tokens/s; decode {N} "
+        f"steps: {1e3 * decode_s / N:.3f} ms/step, {n_tok / decode_s:.4g} "
+        f"tokens/s; 3 profiled steps {1e3 * wall / 3:.3f} ms/step, device "
+        f"busy {busy_txt}; peak device memory {peak / 1e9:.2f} GB; "
+        f"launches prefill {pre_counts}, decode {dec_counts}; collective "
+        f"bytes per slot: prefill {_group0_bytes(pre_calls)}, one decode "
+        f"step {_group0_bytes(step_calls)}")
+    log(f"[{tag}-serve] vs the unsharded serve on the card: max |d logit| "
+        f"/ rms(logits) {ratio:.4g} (limit {LOGIT_TOL[LLM_ARCH]}; rms "
+        f"{rms:.4g}), prefill step {float(per_step[0]):.4g}, decode steps "
+        f"median {median:.4g} (limit {LOGIT_MEDIAN_TOL[LLM_ARCH]}); argmax "
+        f"agreement {agree:.4f}")
+    _check_launches(f"{tag}-prefill", pre_counts, {
+        "flash_attention": cfg.n_layers * n,
+        "flash_attention_sm90": cfg.n_layers * n})
+    _check_launches(f"{tag}-decode", dec_counts, {
+        "decode_attention": cfg.n_layers * n * N})
+    assert ratio <= LOGIT_TOL[LLM_ARCH], "sharded serve vs unsharded"
+    assert median <= LOGIT_MEDIAN_TOL[LLM_ARCH], \
+        "sharded decode steps vs unsharded"
+    assert peak < 80e9
+    serve_counts = {n_: pre_counts[n_] + dec_counts[n_] for n_ in pre_counts}
+    del placed, cache, got, want, logits
+    torch.cuda.empty_cache()
+    stamp(f"[{tag}] serve")
+
+    # -- train
+    tcfg_cfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=2,
+                       total_steps=TRAIN_STEPS, remat=True,
+                       microbatches=TRAIN_MICRO)
+    gen = synthetic_token_batches(tcfg_cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0,
+                                  device=dev)
+    batches = [next(gen) for _ in range(SHARDED_TRAIN_STEPS)]
+
+    def fresh():
+        return LM.init_params(tcfg_cfg, torch.Generator(
+            device=dev).manual_seed(0), dev, train=True)
+
+    params = fresh()
+    names = [n_ for n_, _ in params.named_parameters()]
+    b0 = batches[0]
+    rows = TRAIN_BATCH // TRAIN_MICRO
+    for i in range(TRAIN_MICRO):
+        loss, _ = ST.loss_fn(params, tcfg_cfg, {
+            k: v[i * rows:(i + 1) * rows] for k, v in b0.items()})
+        loss.backward()
+    u_grads = {n_: p.grad.div_(TRAIN_MICRO)
+               for n_, p in params.named_parameters()}
+    for p in params.parameters():
+        p.grad = None
+    opt = adamw.init(dict(params.named_parameters()))
+    step = ST.make_train_step(tcfg_cfg, tcfg)
+    u_metrics, u_s = [], []
+    for b in batches:
+        t0 = time.time()
+        params, opt, m = step(params, opt, b)
+        u_metrics.append({k: float(v) for k, v in m.items()})
+        u_s.append(time.time() - t0)
+    del params, opt, step
+    params = fresh()
+    pspecs = PART.param_specs(params, tcfg_cfg, mesh)
+    opt = adamw.init(dict(params.named_parameters()))
+    ospecs = PART.opt_specs(opt, params, tcfg_cfg, mesh)
+    placed = PART.place(params, pspecs, mesh)
+    popt = PART.place(opt, ospecs, mesh)
+    del params, opt
+    torch.cuda.empty_cache()
+    loss, s_grads, gnorm = SH.make_sharded_grads(tcfg_cfg, tcfg, mesh)(
+        placed, b0)
+    cos, norm_gap = _grad_stats([s_grads[n_] for n_ in names],
+                                [u_grads[n_] for n_ in names])
+    del s_grads, u_grads
+    torch.cuda.empty_cache()
+    d_loss0 = float(loss) - u_metrics[0]["loss"]
+    log(f"[{tag}-train] {tcfg_cfg.n_layers} of {cfg.n_layers} layers, "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens in {TRAIN_MICRO} microbatches "
+        f"a step; first batch's gradients vs the unsharded step's: d loss "
+        f"{d_loss0:.3e}, grad cosine {cos:.6f}, |g| ratio - 1 "
+        f"{norm_gap:.3e} (limits {TRAIN_LOSS_TOL}, 1 - cosine "
+        f"{TRAIN_COS_TOL}, {TRAIN_NORM_TOL})")
+    assert abs(d_loss0) <= TRAIN_LOSS_TOL, "sharded train loss"
+    assert 1.0 - cos <= TRAIN_COS_TOL, "sharded gradients"
+    assert abs(norm_gap) <= TRAIN_NORM_TOL, "sharded gradient norm"
+    sstep = ST.make_sharded_train_step(tcfg_cfg, tcfg, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    train_counts = None
+    s_s, train_busy = [], None
+    for i, b in enumerate(batches):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        if i == 0:
+            with record_collectives() as train_calls:
+                placed, popt, m = sstep(placed, popt, b)
+        elif i == len(batches) - 1:
+            with device_profile() as prof:
+                placed, popt, m = sstep(placed, popt, b)
+                torch.cuda.synchronize()
+        else:
+            placed, popt, m = sstep(placed, popt, b)
+        torch.cuda.synchronize()
+        s_s.append(time.time() - t0)
+        if i == len(batches) - 1:
+            _, busy = device_time(prof)
+            train_busy = (f"{100 * busy / (1e3 * s_s[-1]):.1f}% of the wall"
+                          if busy else "not measured")
+        counts = read_counts()
+        _check_launches(f"{tag}-train step {i + 1}", counts, {
+            "flash_attention": 2 * TRAIN_LAYERS * TRAIN_MICRO * n,
+            "flash_attention_sm90": 2 * TRAIN_LAYERS * TRAIN_MICRO * n,
+            "flash_attention_bwd": TRAIN_LAYERS * TRAIN_MICRO * n,
+            "flash_attention_bwd_sm90": TRAIN_LAYERS * TRAIN_MICRO * n})
+        train_counts = counts
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        w = u_metrics[i]
+        log(f"[{tag}-train] step {i + 1}: sharded {s_s[-1]:.3f}s, loss "
+            f"{loss:.6f}, grad norm {gn:.6f}; unsharded {u_s[i]:.3f}s, "
+            f"loss {w['loss']:.6f}, grad norm {w['grad_norm']:.6f}"
+            + (" (sharded under the profiler)" if i == len(batches) - 1
+               else ""))
+        assert abs(loss - w["loss"]) <= TRAIN_LOSS_TOL, "sharded train loss"
+        assert abs(gn / w["grad_norm"] - 1) <= TRAIN_NORM_TOL, \
+            "sharded grad norm"
+    peak = torch.cuda.max_memory_allocated()
+    tok = TRAIN_BATCH * TRAIN_SEQ
+    log(f"[{tag}-train] {SHARDED_TRAIN_STEPS} steps: sharded "
+        f"{s_s[1]:.3f} s/step (step 2), {tok / s_s[1]:.4g} tokens/s, busy "
+        f"{train_busy} (step 3, profiled), peak device memory "
+        f"{peak / 1e9:.2f} GB; unsharded {u_s[1]:.3f} s/step; collective "
+        f"bytes per slot in step 1 {_group0_bytes(train_calls)}; launches "
+        f"a step {train_counts}")
+    del placed, popt
+    torch.cuda.empty_cache()
+    stamp(f"[{tag}] train")
+
+    # -- the dry run
+    for shape_name in ("train_4k", "decode_32k"):
+        rec = DRY.lower_one(LLM_ARCH, shape_name, False, verbose=False)
+        rf = rec["roofline"]
+        log(f"[{tag}-dryrun] {LLM_ARCH} {shape_name} on 16 x 16 slots "
+            f"(one slot planned on meta in {rec['plan_s']}s): launches "
+            f"per slot {rec['kernel_launches']}; roofline per slot "
+            f"compute {rf['compute_s']:.4g}s, memory {rf['memory_s']:.4g}s, "
+            f"collective {rf['collective_s']:.4g}s ({rf['dominant']}); "
+            f"planned peak {rec['memory']['peak_bytes'] / 1e9:.2f} GB "
+            f"(fits 80 GB: {rec['memory']['fits_80gb']}); collectives "
+            f"{ {k: v for k, v in rec['collectives'].items() if v} }; "
+            f"useful flops ratio {rec['useful_flops_ratio']:.4g}")
+        assert rec["status"] == "ok"
+    dmesh = Mesh(SHARDED_MESH, ("data", "model"))
+    plans = {
+        "prefill": (DRY.plan(cfg, shape, dmesh, "prefill"), pre_counts),
+        "decode": (DRY.plan(cfg, InputShape("serve_4k", LLM_CONTEXT,
+                                            LLM_BATCH, "decode"), dmesh,
+                            "decode"),
+                   {k: v // N for k, v in dec_counts.items()}),
+        "train": (DRY.plan(tcfg_cfg, InputShape("train", TRAIN_SEQ,
+                                                TRAIN_BATCH, "train"),
+                           dmesh, "train", tcfg), train_counts)}
+    names_of = {"repro_torch::flash_attention": "flash_attention",
+                "repro_torch::flash_attention_bwd": "flash_attention_bwd",
+                "repro_torch::decode_attention": "decode_attention"}
+    for what, (p, counted) in plans.items():
+        planned = {names_of[k]: v * n for k, v in
+                   p["kernel_launches"].items()}
+        want_c = {k: v for k, v in counted.items()
+                  if k in names_of.values() and v}
+        log(f"[{tag}-dryrun] debug mesh {SHARDED_MESH} {what}: planned "
+            f"launches per slot {p['kernel_launches']} (x {n} slots "
+            f"{planned}), counted {want_c}; planned peak per slot "
+            f"{p['memory']['peak_bytes'] / 1e9:.2f} GB")
+        assert planned == want_c, f"[{tag}] {what}: planned {planned}"
+    stamp(f"[{tag}] dry run ({time.time() - t_phase:.1f}s for the phase)")
+    return {"sharded_serve": serve_counts, "sharded_train": train_counts}
+
+
 def main():
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke.py needs the repository's src/repro_torch beside "
@@ -3771,6 +4069,7 @@ def main():
     launches["flash_attention_bwd"] = train_counts["flash_attention_bwd"]
     launches["flash_attention_bwd_sm90"] = train_counts[
         "flash_attention_bwd_sm90"]
+    sharded = phase_sharded_llm(dev)
     for name, cases in phase_hd112_parity(dev).items():
         llm_parity[name] += cases
     llm_parity.update(phase_scan_parity(dev))
@@ -3789,9 +4088,11 @@ def main():
                                                  past=RING_WRAP_STEPS),
                     "serve_internvl2": phase_serve(dev, VLM_ARCH,
                                                    "internvl2"),
+                    "serve_sharded": sharded["sharded_serve"],
                     **shape_counts}
     stamp("moe and vlm serve")
     train = {"train": train_counts,
+             "train_sharded": sharded["sharded_train"],
              "train_granite": phase_llm_train(
                  dev, MOE_ARCH, get_config(MOE_ARCH).n_layers, "moe-train")}
     stamp("moe train")

@@ -161,11 +161,13 @@ class Topology:
 class CollectiveCall(NamedTuple):
     """One collective a ``Group`` was asked for: the public method, the
     group's index and slot devices, and the shapes of the parts. ``op``
-    is one of broadcast, all_gather, psum, psum_scatter."""
+    is one of broadcast, all_gather, psum, psum_scatter; ``dtypes`` the
+    parts' dtypes (``"float32"``, …)."""
     op: str
     group: int
     devices: Tuple[str, ...]
     shapes: Tuple[Tuple[int, ...], ...]
+    dtypes: Tuple[str, ...] = ()
 
 
 # lists recording collective calls now (``record_collectives``)
@@ -253,7 +255,9 @@ class Group:
         if _RECORDERS:
             call = CollectiveCall(op, self.index,
                                   tuple(str(d) for d in self.devices),
-                                  tuple(tuple(p.shape) for p in parts))
+                                  tuple(tuple(p.shape) for p in parts),
+                                  tuple(str(p.dtype).replace("torch.", "")
+                                        for p in parts))
             for calls in _RECORDERS:
                 calls.append(call)
 

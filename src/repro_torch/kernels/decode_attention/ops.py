@@ -10,8 +10,10 @@ partials. Bound on the H100: bytes (see the source for the design).
 ``split_plan`` picks how many blocks share one (batch, kv head)'s
 slots.
 
-On a CUDA tensor ``decode_attention`` launches the kernel or raises; on a
-CPU tensor it runs the plain version (``ref.decode_attention_ref``). The
+On a CUDA tensor ``decode_attention`` launches the kernel or raises (and
+reports the launch to a recording op trace); on a CPU tensor it runs the
+plain version (``ref.decode_attention_ref``); on ``meta`` tensors it
+plans the launch (the output's shape and the record, no count). The
 result is in q's dtype.
 """
 from __future__ import annotations
@@ -20,6 +22,7 @@ import ctypes
 
 import torch
 
+from repro_torch.analysis import optrace as OPT
 from repro_torch.kernels import build as BUILD
 from repro_torch.kernels.bmf_precision.ops import check_cuda_operands
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
@@ -84,7 +87,18 @@ def decode_attention(q, k, v, kv_pos, q_pos: int, window: int = 0):
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, kv_pos, q_pos,
                                     window).to(q.dtype)
+    if q.device.type == "meta":
+        # a dry run's plan: the output's shape and a record of the launch,
+        # nothing computed and no launch counted
+        o = torch.empty_like(q)
+        _note(q, k, v, kv_pos, o)
+        return o
     return _launch(q, k, v, kv_pos, q_pos, window)
+
+
+def _note(q, k, v, kv_pos, o):
+    OPT.note_kernel("repro_torch::decode_attention",
+                    dict(q=q, k=k, v=v, kv_pos=kv_pos), dict(o=o))
 
 
 decode_attention.launches = 0
@@ -126,4 +140,5 @@ def _launch(q, k, v, kv_pos, q_pos, window):
                  torch.cuda.current_stream(dev).cuda_stream)
     BUILD.check(err, "decode_attention_launch")
     decode_attention.launches += 1
+    _note(q, k, v, kv_pos, o)
     return o

@@ -21,8 +21,11 @@ inside its dk/dv pass. Both are bound by operations on the H100 (see the
 sources for the designs).
 
 On a CUDA tensor ``flash_attention`` and ``flash_bwd`` launch their kernel
-or raise; on a CPU tensor they run the plain versions (``ref.py``). Either
-way the results are in the input dtype (lse in f32).
+or raise, and report the launch to a recording op trace
+(``analysis.optrace.note_kernel``); on a CPU tensor they run the plain
+versions (``ref.py``); on ``meta`` tensors (a dry run's plan) they make
+outputs of the kernel's shapes and record the launch, computing nothing
+and counting nothing. The results are in the input dtype (lse in f32).
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ import ctypes
 
 import torch
 
+from repro_torch.analysis import optrace as OPT
 from repro_torch.kernels import build as BUILD
 from repro_torch.kernels.bmf_precision.ops import check_cuda_operands
 from repro_torch.kernels.flash_attention.ref import (flash_attention_ref,
@@ -129,7 +133,30 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
         if return_lse:
             return out[0].to(q.dtype), out[1]
         return out.to(q.dtype)
+    if q.device.type == "meta":
+        return _plan(q, k, v, return_lse)
     return _launch(q, k, v, causal, window, return_lse)
+
+
+def _outputs(q, return_lse):
+    o = torch.empty_like(q)
+    lse = (torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    return o, lse
+
+
+def _note(q, k, v, o, lse):
+    OPT.note_kernel("repro_torch::flash_attention", dict(q=q, k=k, v=v),
+                    dict(o=o) if lse is None else dict(o=o, lse=lse))
+
+
+def _plan(q, k, v, return_lse):
+    """The launch on ``meta`` operands (a dry run's plan): outputs of its
+    shapes and a ``note_kernel`` record, nothing computed and no launch
+    counted (``roofline.op_cost`` costs the record)."""
+    o, lse = _outputs(q, return_lse)
+    _note(q, k, v, o, lse)
+    return (o, lse) if return_lse else o
 
 
 flash_attention.launches = 0
@@ -141,9 +168,7 @@ def _launch(q, k, v, causal, window, return_lse):
     Skv, Hkv = k.shape[1], k.shape[2]
     _check_cuda(dict(q=q, k=k, v=v), dict(q=DTYPES, k=DTYPES, v=DTYPES),
                 HEAD_DIMS)
-    o = torch.empty_like(q)
-    lse = (torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
-           if return_lse else None)
+    o, lse = _outputs(q, return_lse)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             None if lse is None else lse.data_ptr())
     dims = (B, Sq, Skv, H, Hkv, hd, int(bool(causal)), int(window))
@@ -156,6 +181,7 @@ def _launch(q, k, v, causal, window, return_lse):
         BUILD.check(_lib()(*ptrs, 0, *dims, stream),
                     "flash_attention_launch")
     flash_attention.launches += 1
+    _note(q, k, v, o, lse)
     return (o, lse) if return_lse else o
 
 
@@ -179,7 +205,17 @@ def flash_bwd(q, k, v, o, do, lse, causal: bool = True, window: int = 0):
         dq, dk, dv = flash_bwd_ref(q, k, v, o, do, lse, causal=causal,
                                    window=window)
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    if q.device.type == "meta":      # a dry run's plan, as ``_plan``
+        grads = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        _note_bwd(q, k, v, o, do, lse, *grads)
+        return grads
     return _launch_bwd(q, k, v, o, do, lse, causal, window)
+
+
+def _note_bwd(q, k, v, o, do, lse, dq, dk, dv):
+    OPT.note_kernel("repro_torch::flash_attention_bwd",
+                    dict(q=q, k=k, v=v, o=o, do=do, lse=lse),
+                    dict(dq=dq, dk=dk, dv=dv))
 
 
 flash_bwd.launches = 0
@@ -205,6 +241,7 @@ def _launch_bwd(q, k, v, o, do, lse, causal, window):
         BUILD.check(_lib_bwd()(*ptrs, *dims, stream),
                     "flash_attention_bwd_launch")
     flash_bwd.launches += 1
+    _note_bwd(q, k, v, o, do, lse, dq, dk, dv)
     return dq, dk, dv
 
 

@@ -154,11 +154,14 @@ class SwiGLU(nn.Module):
         self.w_gate, self.w_up, self.w_down = (
             nn.Parameter(w_gate), nn.Parameter(w_up), nn.Parameter(w_down))
 
-    def forward(self, x):
+    def hidden(self, x):
+        """silu(x @ w_gate) * (x @ w_up): what ``w_down`` takes."""
         g = x @ self.w_gate.to(x.dtype)
         u = x @ self.w_up.to(x.dtype)
-        h = F.silu(g.float()).to(x.dtype) * u
-        return h @ self.w_down.to(x.dtype)
+        return F.silu(g.float()).to(x.dtype) * u
+
+    def forward(self, x):
+        return self.hidden(x) @ self.w_down.to(x.dtype)
 
 
 class GeluMLP(nn.Module):
@@ -181,12 +184,13 @@ def embed(table, tokens, dtype):
     return F.embedding(tokens, table).to(dtype)
 
 
-def unembed(w, x, cfg: ArchConfig):
-    """x: (B, S, d) @ w (d, Vp) -> f32 logits; the padded vocabulary rows
-    are set to -1e9."""
+def unembed(w, x, cfg: ArchConfig, first: int = 0):
+    """x: (B, S, d) @ w (d, n) -> f32 logits of the vocabulary columns
+    first … first + n − 1 (all Vp of them, or one shard's); the padded
+    vocabulary columns are set to -1e9."""
     logits = (x @ w.to(x.dtype)).float()
-    if cfg.padded_vocab_size != cfg.vocab_size:
-        logits[..., cfg.vocab_size:] = -1e9
+    if first + w.shape[-1] > cfg.vocab_size:
+        logits[..., max(cfg.vocab_size - first, 0):] = -1e9
     return logits
 
 
@@ -286,9 +290,17 @@ class Attention(nn.Module):
         cfg = self.cfg
         B, S, _ = x.shape
         hd = cfg.resolved_head_dim
-        q = (x @ self.wq.to(x.dtype)).reshape(B, S, cfg.n_heads, hd)
-        k = (x @ self.wk.to(x.dtype)).reshape(B, S, cfg.n_kv_heads, hd)
-        v = (x @ self.wv.to(x.dtype)).reshape(B, S, cfg.n_kv_heads, hd)
+        q, k, v = (t.reshape(B, S, n, hd) for t, n in zip(
+            self.columns(x), (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads)))
+        return self.norm_rope(q, k, v, rope, rot_dim)
+
+    def columns(self, x):
+        """x @ wq, x @ wk, x @ wv: (B, S, columns) each."""
+        return tuple(x @ w.to(x.dtype) for w in (self.wq, self.wk, self.wv))
+
+    def norm_rope(self, q, k, v, rope, rot_dim: int):
+        """q, k, v (B, S, heads, hd) after the q/k norms and the rotation,
+        contiguous."""
         if self.q_norm is not None:
             q = self.q_norm(q)
             k = self.k_norm(k)

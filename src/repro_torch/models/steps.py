@@ -1,6 +1,8 @@
 """Step functions (port of ``repro/models/steps.py``): the loss and the
-train step of the dense, moe, vlm and audio families, and the serving
-steps of every family.
+train step of every family, and the serving steps of every family; and,
+for the dense family, the same steps as SPMD programs over a ('data',
+'model') mesh (``make_sharded_*``, ``models.sharded``: the counterparts
+of the reference's steps jitted with its shardings).
 
 The factories close over the configs, as the reference's do, so a caller
 holds only params, optimizer state, batch and cache. ``make_train_step``'s
@@ -25,6 +27,9 @@ import torch
 from repro_torch.configs.base import ArchConfig, InputShape, TrainConfig
 from repro_torch.models import model as MODEL
 from repro_torch.models.kvcache import serve_cache_init
+from repro_torch.models.sharded import (  # noqa: F401  (the SPMD steps)
+    make_sharded_grads, make_sharded_prefill_step, make_sharded_serve_step,
+    make_sharded_train_step)
 from repro_torch.optim import adamw, schedules
 
 # ---------------------------------------------------------------------------
@@ -38,10 +43,11 @@ def cross_entropy(logits, labels, mask):
 
     The reference takes the gold logit with a one-hot contraction: under
     GSPMD a gather along the vocabulary-sharded axis would all-gather the
-    whole (B, S, V) tensor, while the contraction stays sharded. The port
-    shards nothing, and ``torch.gather`` picks the same number (the other
-    terms of the contraction are exact zeros) without a third (B, S, V)
-    f32 tensor."""
+    whole (B, S, V) tensor, while the contraction stays sharded. Here the
+    logits are whole, and ``torch.gather`` picks the same number (the
+    other terms of the contraction are exact zeros) without a third (B, S,
+    V) f32 tensor; the sharded steps (``models.sharded``) take each
+    shard's logsumexp and the gold logit from the shard that owns it."""
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.long().unsqueeze(-1)).squeeze(-1)
     nll = (logz - gold) * mask

@@ -82,9 +82,10 @@ def call_bytes(call) -> int:
     """Bytes one call delivers to each slot of its group, as the
     reference counts an HLO collective by its per-device result:
     ``all_gather`` the concatenated parts, ``psum`` one part,
-    ``psum_scatter`` one tile of the sum, ``broadcast`` the tensor. The
-    recorder keeps shapes only; the chains' collectives are all f32."""
-    elt = dtype_bytes("float32")
+    ``psum_scatter`` one tile of the sum, ``broadcast`` the tensor, at
+    the parts' dtype (f32 where the call carries none)."""
+    elt = dtype_bytes(call.dtypes[0] if getattr(call, "dtypes", ())
+                      else "float32")
     parts = [_numel(s) for s in call.shapes]
     if call.op == "all_gather":
         return elt * sum(parts)

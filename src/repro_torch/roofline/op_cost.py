@@ -18,8 +18,9 @@ record. The rules are ``jaxpr_cost``'s:
     ``flops``), its operands and outputs in ``bytes`` (not
     ``bytes_min``: fused away in the ideal).
 
-A hand-written kernel's launch (a ``note_kernel`` record of B1 or B2) is
-the counterpart of the reference's ``pallas_call`` branch:
+A hand-written kernel's launch (a ``note_kernel`` record of B1, B2, or of
+the attention kernels L1, L2 and L3, ``attention_kernel_cost``) is the
+counterpart of the reference's ``pallas_call`` branch:
 
   - its flops are those of the kernel's PLAIN version at the same shapes
     (``ref.precision_accum_plain``, ``ref.sweep_ref_padded``), counted by
@@ -215,13 +216,68 @@ def _plain_cost(rec: OPT.OpRecord, m: int) -> Dict[str, float]:
     return c
 
 
+def _plain_l1(t):
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    flash_attention_ref(t["q"], t["k"], t["v"], return_lse="lse" in t)
+
+
+def _plain_l2(t):
+    from repro_torch.kernels.flash_attention.ref import flash_bwd_ref
+    flash_bwd_ref(t["q"], t["k"], t["v"], t["o"], t["do"], t["lse"])
+
+
+def _plain_l3(t):
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    decode_attention_ref(t["q"], t["k"], t["v"], t["kv_pos"], 0)
+
+
+# the attention kernels (L1, L2, L3): kernel record name -> plain version
+# on named meta tensors; their cost depends on the shapes only
+ATTENTION_KERNELS = {
+    "repro_torch::flash_attention": _plain_l1,
+    "repro_torch::flash_attention_bwd": _plain_l2,
+    "repro_torch::decode_attention": _plain_l3,
+}
+
+
+def attention_kernel_cost(rec: OPT.OpRecord) -> Dict[str, float]:
+    """Cost of one L1/L2/L3 launch record: the flops of the kernel's plain
+    version at the record's shapes (traced on ``meta``, cached), the
+    matrix products at the bf16 tensor-core rate when q is bf16 (the sm90
+    kernels; L3 reads a bf16 cache with f32 products on the CUDA cores),
+    and its operands read once and its outputs written once."""
+    key = (rec.op, tuple((t.name, t.dtype, t.shape) for t in rec.operands),
+           tuple((t.name, t.dtype, t.shape) for t in rec.outputs))
+    if key not in _PLAIN_CACHE:
+        t = {x.name: torch.empty(x.shape, dtype=getattr(torch, x.dtype),
+                                 device="meta")
+             for x in rec.operands + rec.outputs}
+        with OPT.record() as tr:
+            ATTENTION_KERNELS[rec.op](t)
+        c = op_cost(tr.ops)
+        io = sum(_nbytes(x) for x in rec.operands + rec.outputs)
+        c["bytes"] = c["bytes_min"] = float(io)
+        q = next(x for x in rec.operands if x.name == "q")
+        c["tf32_flops"] = c["bf16_flops"] = 0.0
+        if q.dtype == "bfloat16" and rec.op != "repro_torch::decode_attention":
+            c["fp32_flops"] = c["flops"] - c["dot_flops"]
+            c["bf16_flops"] = c["dot_flops"]
+        else:
+            c["fp32_flops"] = c["flops"]
+        _PLAIN_CACHE[key] = c
+    return dict(_PLAIN_CACHE[key])
+
+
 def kernel_cost(rec: OPT.OpRecord,
                 live_slots: Optional[float] = None) -> Dict[str, float]:
-    """Cost of one B1/B2 launch record (module docstring). ``live_slots``:
+    """Cost of one B1/B2 launch record (module docstring); an attention
+    kernel's record goes to ``attention_kernel_cost``. ``live_slots``:
     the live CSR slots the launch reads (data-dependent; a caller holding
     the planes counts them, ``int(live.sum())``), default every slot. The
     plain version's flops are taken at the mean live row length,
     interpolated between the two whole lengths around it."""
+    if rec.op in ATTENTION_KERNELS:
+        return attention_kernel_cost(rec)
     if rec.op not in KERNELS:
         raise KeyError(f"no cost rule for kernel {rec.op!r} "
                        f"(known: {sorted(KERNELS)})")
