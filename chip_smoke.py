@@ -182,8 +182,24 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      64 per step; s/step, tokens/s, busy share, peak memory and the
      collective bytes by kind per slot; then the LLM dry run
      (``launch.dryrun.lower_one``) of train_4k and decode_32k on the
-     16 x 16 mesh, and the debug mesh's plans of the three runs, whose
-     launches per slot must be the counted ones over 4;
+     16 x 16 mesh, mixtral-8x7b's prefill_32k (the moe FSDP branch: its
+     expert weights all-gathered over 'data' in every layer) and
+     whisper-medium's decode_32k (the cross cache), and the debug mesh's
+     plans of the three runs, whose launches per slot must be the counted
+     ones over 4; then ``[sharded-vlm]``, ``[sharded-moe]`` and
+     ``[sharded-audio]``: internvl2-1b, granite-moe-1b-a400m and
+     whisper-medium at full width and depth on the same mesh, each
+     serving phase 6's prompt batch (internvl2: 256 stub image positions,
+     then text; whisper: its text over 8 x 1,500 stub frames) and 8
+     decode steps against the unsharded serve on the card under its own
+     LOGIT_TOL / LOGIT_MEDIAN_TOL (granite over the (sequence, step)
+     pairs at which an untimed replay kept the unsharded run's experts at
+     every layer; the flips are printed), then the first train batch's
+     sharded gradients against the unsharded ones (TRAIN_* limits) and 2
+     train steps of each (loss and grad norm within TRAIN_LOSS_TOL /
+     TRAIN_NORM_TOL), with L1 / L3 / L2 at 4 x the unsharded counts, all
+     sm90, and the debug mesh's plans of each run (planned x 4 =
+     counted);
   9. L1/L3 parity at zamba2's shared attention block (MHA, H = Hkv = 32,
      hd = 112), bf16 and fp32: causal prefill at 4,000 tokens and decode
      over a full 4,096-slot ring, timed as in phase 5; and L2 at its train
@@ -279,7 +295,8 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      must exit 0 with ``OK``;
  21. summary: one JSON line ``{"kernels": [...]}`` (L1 and L2 with each
      variant's launches and times, launches by path, the sharded paths'
-     under ``serve_sharded`` / ``train_sharded``; L4 and L5 by serve and
+     under ``serve_sharded`` / ``train_sharded`` and ``serve_sharded_vlm``
+     / ``_moe`` / ``_audio`` (and ``train_``); L4 and L5 by serve and
      train path) and, last, the
      ``{"ok": true, "device": {...}}`` line. ``[time]`` lines give the
      run's seconds after each group of phases. Every profiled window
@@ -488,6 +505,15 @@ TRAIN_STEPS = 6
 # unsharded step on the card
 SHARDED_MESH = (2, 2)
 SHARDED_DECODE_STEPS, SHARDED_TRAIN_STEPS = 32, 3
+# [sharded-vlm], [sharded-moe], [sharded-audio]: internvl2-1b,
+# granite-moe-1b-a400m and whisper-medium at full width and depth on the
+# same mesh: the serve phase's prompt batch and 8 decode steps, then 2
+# train steps of the train phase's traffic, each held against the
+# unsharded step on the card under the model's own limits
+SHARDED_FAMILY_RUNS = (("sharded-vlm", "internvl2_1b"),
+                       ("sharded-moe", "granite_moe_1b_a400m"),
+                       ("sharded-audio", "whisper_medium"))
+SHARDED_FAMILY_DECODE_STEPS, SHARDED_FAMILY_TRAIN_STEPS = 8, 2
 # the recurrent families' train paths at full width, with phase 8's
 # traffic: zamba2-7b with 15 of its 81 Mamba2 layers (two full groups of 6,
 # each followed by the shared block, then a remainder of 3: both branches
@@ -3239,21 +3265,24 @@ def device_time(prof):
     """({kernel name: (device us, count)}, busy ms) of a ``torch.profiler``
     run: busy is the union of the device activities' intervals, so that
     work on overlapping streams is counted once and the busy share of the
-    wall cannot pass 100%."""
+    wall cannot pass 100%. Read from the profiler's raw kineto events:
+    ``prof.events()`` builds a Python event tree first, which cost the
+    sharded train steps' profiled windows (~40,000-150,000 kernels) tens
+    of seconds of host time on the H100's machine."""
     import torch
     kernels, spans = {}, []
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != torch.autograd.DeviceType.CUDA:
             continue
-        us, n = kernels.get(ev.name, (0.0, 0))
-        kernels[ev.name] = (us + ev.time_range.elapsed_us(), n + 1)
-        spans.append((ev.time_range.start, ev.time_range.end))
-    busy, end = 0.0, float("-inf")
+        us, n = kernels.get(ev.name(), (0.0, 0))
+        kernels[ev.name()] = (us + ev.duration_ns() / 1e3, n + 1)
+        spans.append((ev.start_ns(), ev.end_ns()))
+    busy, end = 0, float("-inf")
     for lo, hi in sorted(spans):
         if hi > end:
             busy += hi - max(lo, end)
             end = hi
-    return kernels, busy / 1e3
+    return kernels, busy / 1e6
 
 
 def profile_decode(serve_step, params, cache, tokens, tag, end, n=3,
@@ -3725,7 +3754,89 @@ def _group0_bytes(calls):
     return {k: v for k, v in out.items() if v}
 
 
-def phase_sharded_llm(dev):
+# the 16 x 16 records of [sharded-llm-dryrun]: mixtral's prefill takes the
+# moe FSDP branch (8 experts on 16 model slots), whisper's decode reads its
+# cross cache
+LOWERED = ((LLM_ARCH, "train_4k"), (LLM_ARCH, "decode_32k"),
+           (MIXTRAL_ARCH, "prefill_32k"), (WHISPER_ARCH, "decode_32k"))
+
+
+def _planner_init(src):
+    sys.path.insert(0, src)
+    import torch
+    torch.set_num_threads(1)
+
+
+def _lower_one(arch, shape_name):
+    """A planner job: ``launch.dryrun.lower_one`` on the 16 x 16 mesh."""
+    from repro_torch.launch import dryrun as DRY
+    return DRY.lower_one(arch, shape_name, False, verbose=False)
+
+
+def _debug_plan(arch, n_layers, kind, seq, batch):
+    """A planner job: ``launch.dryrun.plan`` of one run on the debug mesh
+    (``arch`` at ``n_layers``, ``batch`` x ``seq``): its launches per
+    slot, planned peak bytes and seconds."""
+    from repro_torch.configs.base import InputShape, TrainConfig, get_config
+    from repro_torch.launch import dryrun as DRY
+    from repro_torch.launch.mesh import Mesh
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    p = DRY.plan(cfg, InputShape(kind, seq, batch, kind),
+                 Mesh(SHARDED_MESH, ("data", "model")), kind,
+                 TrainConfig(microbatches=TRAIN_MICRO, remat=True))
+    return {"kernel_launches": p["kernel_launches"],
+            "peak_bytes": p["memory"]["peak_bytes"], "plan_s": p["plan_s"]}
+
+
+def start_plans():
+    """The sharded phases' plans on ``meta`` (LOWERED, and the debug mesh's
+    plans of [sharded-llm]'s and each family's runs) in one spawned
+    process, so that their CPU time (~60 s on the H100's host) overlaps
+    the card's phases: (the pool, which the caller shuts down, and {key:
+    future}); a debug plan's key is (arch, kind)."""
+    import concurrent.futures
+    import multiprocessing
+    pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_planner_init, initargs=(str(SRC),))
+    jobs = {("lower", a, sh): pool.submit(_lower_one, a, sh)
+            for a, sh in LOWERED}
+    from repro_torch.configs.base import get_config
+    runs = [(LLM_ARCH, TRAIN_LAYERS)] + [(a, None)
+                                        for _, a in SHARDED_FAMILY_RUNS]
+    for arch, train_layers in runs:
+        full = get_config(arch).n_layers
+        for kind, n_layers, seq, batch in (
+                ("prefill", full, LLM_CONTEXT, LLM_BATCH),
+                ("decode", full, LLM_CONTEXT, LLM_BATCH),
+                ("train", train_layers or full, TRAIN_SEQ, TRAIN_BATCH)):
+            jobs[(arch, kind)] = pool.submit(_debug_plan, arch, n_layers,
+                                             kind, seq, batch)
+    return pool, jobs
+
+
+def check_plans(tag, jobs, arch, counted):
+    """The debug mesh's plans of ``arch``'s runs against ``counted``
+    ({kind: launches of the run}): planned launches per slot x the slots
+    must be the counted ones."""
+    n = SHARDED_MESH[0] * SHARDED_MESH[1]
+    names_of = {"repro_torch::flash_attention": "flash_attention",
+                "repro_torch::flash_attention_bwd": "flash_attention_bwd",
+                "repro_torch::decode_attention": "decode_attention"}
+    for what, counts in counted.items():
+        p = jobs[(arch, what)].result()
+        planned = {names_of[k]: v * n for k, v in
+                   p["kernel_launches"].items()}
+        want = {k: v for k, v in counts.items()
+                if k in names_of.values() and v}
+        log(f"[{tag}-dryrun] debug mesh {SHARDED_MESH} {what}: planned "
+            f"launches per slot {p['kernel_launches']} (x {n} slots "
+            f"{planned}), counted {want}; planned peak per slot "
+            f"{p['peak_bytes'] / 1e9:.2f} GB, plan {p['plan_s']:.1f}s")
+        assert planned == want, f"[{tag}] {what}: planned {planned}"
+
+
+def phase_sharded_llm(dev, plans):
     """``[sharded-llm]``: Qwen3-4B at full width on ``make_debug_mesh(2,
     2)``, every slot a stream on the card. Serve at full depth: a prefill
     of the serve phase's 8 x 4,000-token prompts and 32 decode steps,
@@ -3736,16 +3847,18 @@ def phase_sharded_llm(dev):
     of the first batch against the unsharded ones (TRAIN_* limits), then
     3 steps each, loss and gradient norm per step within TRAIN_LOSS_TOL
     and TRAIN_NORM_TOL, with L1 128 and L2 64 per step (4 slots x the
-    unsharded 32 / 16). Then the dry run: ``lower_one`` for train_4k and
-    decode_32k on the 16 x 16 mesh, and the debug mesh's plans of the
-    three runs above, whose launches per slot must be the counted ones
-    over 4. Returns the launch counts by path."""
+    unsharded 32 / 16). Then the dry run (``plans``, from
+    ``start_plans``): ``lower_one`` for train_4k and decode_32k on the 16
+    x 16 mesh, mixtral-8x7b's prefill_32k (the moe FSDP branch: its
+    expert weights all-gathered over 'data' in every layer) and
+    whisper-medium's decode_32k (the cross cache), and the debug mesh's
+    plans of the three runs above, whose launches per slot must be the
+    counted ones over 4. Returns the launch counts by path."""
     import torch
     from repro_torch.configs.base import InputShape, TrainConfig, get_config
     from repro_torch.core.topology import record_collectives
     from repro_torch.data.tokens import synthetic_token_batches
-    from repro_torch.launch import dryrun as DRY
-    from repro_torch.launch.mesh import Mesh, make_debug_mesh
+    from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.models import model as LM
     from repro_torch.models import sharded as SH
     from repro_torch.models import steps as ST
@@ -3876,6 +3989,10 @@ def phase_sharded_llm(dev):
         u_metrics.append({k: float(v) for k, v in m.items()})
         u_s.append(time.time() - t0)
     del params, opt, step
+    # on the host while the sharded step runs: beside the sharded
+    # parameters, moments and gradients on the card they left the
+    # allocator 0.4 GB short of a logits shard (H100, 80 GB)
+    u_grads = {n_: g.cpu() for n_, g in u_grads.items()}
     params = fresh()
     pspecs = PART.param_specs(params, tcfg_cfg, mesh)
     opt = adamw.init(dict(params.named_parameters()))
@@ -3887,7 +4004,7 @@ def phase_sharded_llm(dev):
     loss, s_grads, gnorm = SH.make_sharded_grads(tcfg_cfg, tcfg, mesh)(
         placed, b0)
     cos, norm_gap = _grad_stats([s_grads[n_] for n_ in names],
-                                [u_grads[n_] for n_ in names])
+                                [u_grads[n_].to(dev) for n_ in names])
     del s_grads, u_grads
     torch.cuda.empty_cache()
     d_loss0 = float(loss) - u_metrics[0]["loss"]
@@ -3953,11 +4070,11 @@ def phase_sharded_llm(dev):
     torch.cuda.empty_cache()
     stamp(f"[{tag}] train")
 
-    # -- the dry run
-    for shape_name in ("train_4k", "decode_32k"):
-        rec = DRY.lower_one(LLM_ARCH, shape_name, False, verbose=False)
+    # -- the dry run, planned beside the card's work (``start_plans``)
+    for arch, shape_name in LOWERED:
+        rec = plans[("lower", arch, shape_name)].result()
         rf = rec["roofline"]
-        log(f"[{tag}-dryrun] {LLM_ARCH} {shape_name} on 16 x 16 slots "
+        log(f"[{tag}-dryrun] {arch} {shape_name} on 16 x 16 slots "
             f"(one slot planned on meta in {rec['plan_s']}s): launches "
             f"per slot {rec['kernel_launches']}; roofline per slot "
             f"compute {rf['compute_s']:.4g}s, memory {rf['memory_s']:.4g}s, "
@@ -3967,31 +4084,354 @@ def phase_sharded_llm(dev):
             f"{ {k: v for k, v in rec['collectives'].items() if v} }; "
             f"useful flops ratio {rec['useful_flops_ratio']:.4g}")
         assert rec["status"] == "ok"
-    dmesh = Mesh(SHARDED_MESH, ("data", "model"))
-    plans = {
-        "prefill": (DRY.plan(cfg, shape, dmesh, "prefill"), pre_counts),
-        "decode": (DRY.plan(cfg, InputShape("serve_4k", LLM_CONTEXT,
-                                            LLM_BATCH, "decode"), dmesh,
-                            "decode"),
-                   {k: v // N for k, v in dec_counts.items()}),
-        "train": (DRY.plan(tcfg_cfg, InputShape("train", TRAIN_SEQ,
-                                                TRAIN_BATCH, "train"),
-                           dmesh, "train", tcfg), train_counts)}
-    names_of = {"repro_torch::flash_attention": "flash_attention",
-                "repro_torch::flash_attention_bwd": "flash_attention_bwd",
-                "repro_torch::decode_attention": "decode_attention"}
-    for what, (p, counted) in plans.items():
-        planned = {names_of[k]: v * n for k, v in
-                   p["kernel_launches"].items()}
-        want_c = {k: v for k, v in counted.items()
-                  if k in names_of.values() and v}
-        log(f"[{tag}-dryrun] debug mesh {SHARDED_MESH} {what}: planned "
-            f"launches per slot {p['kernel_launches']} (x {n} slots "
-            f"{planned}), counted {want_c}; planned peak per slot "
-            f"{p['memory']['peak_bytes'] / 1e9:.2f} GB")
-        assert planned == want_c, f"[{tag}] {what}: planned {planned}"
+        if arch == MIXTRAL_ARCH:
+            # w_gate, w_up and w_down all-gathered over 'data' per layer
+            assert rec["collectives"]["n_all-gather"] >= \
+                3 * get_config(arch).n_layers, rec["collectives"]
+    check_plans(tag, plans, LLM_ARCH, {
+        "prefill": pre_counts,
+        "decode": {k: v // N for k, v in dec_counts.items()},
+        "train": train_counts})
     stamp(f"[{tag}] dry run ({time.time() - t_phase:.1f}s for the phase)")
     return {"sharded_serve": serve_counts, "sharded_train": train_counts}
+
+
+def _dispatch_keeps(dispatch, calls):
+    """``moe.dispatch`` that also appends each call's kept (token, expert)
+    pairs at its last position, (rows, E), to ``calls``."""
+    def recorded(router, cfg, x, experts=None):
+        e_in, disp = dispatch(router, cfg, x, experts)
+        B, S0 = x.shape[:2]
+        calls.append(disp.keep.reshape(B, S0, -1)[:, -1].clone())
+        return e_in, disp
+    return recorded
+
+
+def _keeps_of(calls, n_layers, n_steps, per_layer=1, pick=(0,)):
+    """(n_layers, rows, n_steps, E) from ``_dispatch_keeps``'s calls, made
+    step by step, layer by layer, ``per_layer`` calls a layer (one per
+    slot of a mesh): the rows of the calls at ``pick`` (the model axis's
+    first slot of each data row), in order."""
+    import torch
+    assert len(calls) == n_steps * n_layers * per_layer, len(calls)
+    return torch.stack([torch.stack([torch.cat(
+        [calls[(t * n_layers + li) * per_layer + j] for j in pick])
+        for t in range(n_steps)], dim=1) for li in range(n_layers)])
+
+
+def _sharded_family_serve(dev, arch, tag, mesh):
+    """``[sharded-*-serve]``: ``arch`` at full width and depth, the serve
+    phase's prompt batch (a vlm prompt: its image positions, then text;
+    an audio prompt: its text over 8 x 1,500 stub frames) and
+    SHARDED_FAMILY_DECODE_STEPS decode steps through the sharded prefill
+    and serve steps, held against the unsharded serve on the card (the
+    moe family over the (sequence, step) pairs at which an untimed replay
+    kept the unsharded run's experts at every layer). Returns (prefill
+    launch counts, decode launch counts, the plans' inputs)."""
+    import torch
+    from unittest import mock
+    from repro_torch.configs.base import InputShape, get_config
+    from repro_torch.core.topology import record_collectives
+    from repro_torch.data.tokens import synthetic_token_batches
+    from repro_torch.models import model as LM
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import steps as ST
+    from repro_torch.sharding import partitioning as PART
+    n = mesh.size
+    cfg = get_config(arch)
+    V, N = cfg.vocab_size, SHARDED_FAMILY_DECODE_STEPS
+    n_img = cfg.n_image_tokens if cfg.family == "vlm" else 0
+    prompt = LLM_PROMPT - n_img
+    batch = next(synthetic_token_batches(cfg, LLM_BATCH, prompt + N + 3,
+                                         seed=0, device=dev))
+    tokens = batch.pop("tokens")
+    shape = InputShape("serve_4k", LLM_CONTEXT, LLM_BATCH, "prefill")
+    params = LM.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    n_attn, n_enc = _attention_calls(cfg)
+    log(f"[{tag}] {_describe(cfg)} on {mesh}; prompt {LLM_BATCH} x "
+        f"{LLM_PROMPT} positions"
+        + "".join(f", {k} {tuple(v.shape)}" for k, v in batch.items()))
+    # the unsharded serve on the card: the reference for the sharded one
+    u_calls, s_calls = [], []
+    prefill, serve = ST.make_prefill_step(cfg, shape), ST.make_serve_step(cfg)
+    with mock.patch.object(MOE, "dispatch",
+                           _dispatch_keeps(MOE.dispatch, u_calls)):
+        logits, cache = prefill(params, {"tokens": tokens[:, :prompt],
+                                         **batch})
+        want = [logits]
+        for t in range(prompt, prompt + N):
+            logits, cache = serve(params, cache, tokens[:, t:t + 1])
+            want.append(logits)
+    del cache
+    stamp(f"[{tag}] the unsharded serve")
+    placed = PART.place(params, PART.param_specs(params, cfg, mesh), mesh)
+    del params
+    torch.cuda.empty_cache()
+    sprefill = ST.make_sharded_prefill_step(cfg, shape, mesh)
+    sserve = ST.make_sharded_serve_step(cfg, mesh)
+
+    def run():
+        """The sharded prefill and N decode steps: (logits, cache,
+        prefill s, decode s, prefill launches, decode launches, the
+        prefill's and first decode step's collectives)."""
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.time()
+        with record_collectives() as pre_calls:
+            lg, c = sprefill(placed, {"tokens": tokens[:, :prompt], **batch})
+        out = [lg]
+        torch.cuda.synchronize()
+        pre_s, pre_n = time.time() - t0, read_counts()
+        reset_counts()
+        t0 = time.time()
+        for t in range(prompt, prompt + N):
+            with record_collectives() as calls:
+                lg, c = sserve(placed, c, tokens[:, t:t + 1])
+            if t == prompt:
+                step_calls = calls
+            out.append(lg)
+        torch.cuda.synchronize()
+        return (out, c, pre_s, time.time() - t0, pre_n, read_counts(),
+                pre_calls, step_calls)
+
+    torch.cuda.reset_peak_memory_stats()
+    got, cache, pre_s, dec_s, pre_n, dec_n, pre_calls, step_calls = run()
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.synchronize()
+    with device_profile() as prof:
+        t0 = time.time()
+        for t in range(prompt + N, prompt + N + 3):
+            sserve(placed, cache, tokens[:, t:t + 1])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    _, busy = device_time(prof)
+    busy_txt = (f"{100 * busy / (1e3 * wall):.1f}% of the wall"
+                if busy else "not measured (no device time recorded)")
+    del cache
+    stamp(f"[{tag}] the sharded serve")
+    got_t, want_t = torch.stack(got, 1)[:, :, 0], torch.stack(want, 1)[:, :, 0]
+    ratio, per_step, agree, rms = _logit_gap(got_t, want_t, V)
+    median = float(per_step[1:].median())
+    log(f"[{tag}-serve] prefill {LLM_BATCH} x {LLM_PROMPT}: {pre_s:.3f}s, "
+        f"{LLM_BATCH * LLM_PROMPT / pre_s:.4g} tokens/s; decode {N} steps: "
+        f"{1e3 * dec_s / N:.3f} ms/step, {LLM_BATCH * N / dec_s:.4g} "
+        f"tokens/s; 3 profiled steps {1e3 * wall / 3:.3f} ms/step, device "
+        f"busy {busy_txt}; peak device memory {peak / 1e9:.2f} GB; "
+        f"launches prefill {pre_n}, decode {dec_n}; collective bytes per "
+        f"slot: prefill {_group0_bytes(pre_calls)}, one decode step "
+        f"{_group0_bytes(step_calls)}")
+    if cfg.is_moe:
+        # an untimed replay that records each slot's kept experts: a
+        # (sequence, step) whose experts differ from the unsharded run's
+        # at any layer moves by that routing flip alone
+        with mock.patch.object(MOE, "dispatch",
+                               _dispatch_keeps(MOE.dispatch, s_calls)):
+            r_logits = run()[0]
+        pick = [i for i, s in enumerate(mesh.slots)
+                if mesh.coord(s, "model") == 0]
+        u_keep = _keeps_of(u_calls, cfg.n_layers, 1 + N)
+        s_keep = _keeps_of(s_calls, cfg.n_layers, 1 + N, n, pick)
+        flip = (u_keep != s_keep).any(dim=3).any(dim=0)     # (B, 1 + N)
+        r_t = torch.stack(r_logits, 1)[:, :, 0]
+        gap = (r_t[..., :V] - want_t[..., :V]).abs().amax(dim=2) / rms
+        gap = gap.masked_fill(flip, 0.0)
+        steady = float(gap.max())
+        kept_steps = (~flip[:, 1:]).any(dim=0)
+        median = (float(gap[:, 1:].amax(0)[kept_steps].median())
+                  if kept_steps.any() else 0.0)
+        flipped = ((r_t - want_t)[..., :V].abs().amax(2) / rms)[flip]
+        log(f"[{tag}-serve] routing flips against the unsharded serve at "
+            f"{int(flip.sum())} of {flip.numel()} (sequence, step) pairs; "
+            f"the untimed replay vs the unsharded serve over the pairs "
+            f"without one: max |d logit| / rms {steady:.4g}, median decode "
+            f"step {median:.4g}; with one "
+            f"{float(flipped.max()) if flip.any() else 0.0:.4g}; replay vs "
+            f"the timed run "
+            f"{float((r_t - got_t)[..., :V].abs().max()) / rms:.4g}")
+        ratio = steady
+    log(f"[{tag}-serve] vs the unsharded serve on the card: max |d logit| "
+        f"/ rms(logits) {ratio:.4g} (limit {LOGIT_TOL[arch]}; rms "
+        f"{rms:.4g}), prefill step {float(per_step[0]):.4g}, decode steps "
+        f"median {median:.4g} (limit {LOGIT_MEDIAN_TOL[arch]}); argmax "
+        f"agreement {agree:.4f}")
+    _check_launches(f"{tag}-prefill", pre_n, {
+        "flash_attention": (n_attn + n_enc) * n,
+        "flash_attention_sm90": (n_attn + n_enc) * n})
+    _check_launches(f"{tag}-decode", dec_n, {
+        "decode_attention": n_attn * n * N})
+    assert ratio <= LOGIT_TOL[arch], f"[{tag}] sharded serve vs unsharded"
+    assert median <= LOGIT_MEDIAN_TOL[arch], \
+        f"[{tag}] sharded decode steps vs unsharded"
+    assert peak < 80e9
+    del placed, got, want
+    torch.cuda.empty_cache()
+    return pre_n, dec_n
+
+
+def _sharded_family_train(dev, arch, tag, mesh):
+    """``[sharded-*-train]``: ``arch`` at full width and depth with the
+    train phase's traffic (4 x 4,096 tokens in 2 microbatches, remat):
+    the first batch's sharded gradients against the unsharded ones
+    (TRAIN_* limits), then SHARDED_FAMILY_TRAIN_STEPS steps of each, loss
+    and grad norm per step within TRAIN_LOSS_TOL / TRAIN_NORM_TOL, with L1
+    and L2 at 4 x the unsharded counts. Returns the launches of a
+    step."""
+    import torch
+    from repro_torch.configs.base import TrainConfig, get_config
+    from repro_torch.core.topology import record_collectives
+    from repro_torch.data.tokens import synthetic_token_batches
+    from repro_torch.models import model as LM
+    from repro_torch.models import sharded as SH
+    from repro_torch.models import steps as ST
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import partitioning as PART
+    n = mesh.size
+    cfg = get_config(arch)
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=2,
+                       total_steps=TRAIN_STEPS, remat=True,
+                       microbatches=TRAIN_MICRO)
+    gen = synthetic_token_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0,
+                                  device=dev)
+    batches = [next(gen) for _ in range(SHARDED_FAMILY_TRAIN_STEPS)]
+    n_attn = sum(_attention_calls(cfg))
+
+    def fresh():
+        return LM.init_params(cfg, torch.Generator(
+            device=dev).manual_seed(0), dev, train=True)
+
+    params = fresh()
+    names = [n_ for n_, _ in params.named_parameters()]
+    b0 = batches[0]
+    rows = TRAIN_BATCH // TRAIN_MICRO
+    for i in range(TRAIN_MICRO):
+        loss, _ = ST.loss_fn(params, cfg, {
+            k: v[i * rows:(i + 1) * rows] for k, v in b0.items()})
+        loss.backward()
+    u_grads = {n_: p.grad.div_(TRAIN_MICRO)
+               for n_, p in params.named_parameters()}
+    for p in params.parameters():
+        p.grad = None
+    opt = adamw.init(dict(params.named_parameters()))
+    step = ST.make_train_step(cfg, tcfg)
+    u_metrics, u_s = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        params, opt, m = step(params, opt, b)
+        u_metrics.append({k: float(v) for k, v in m.items()})
+        u_s.append(time.time() - t0)
+    del params, opt, step
+    stamp(f"[{tag}] the unsharded train")
+    params = fresh()
+    pspecs = PART.param_specs(params, cfg, mesh)
+    opt = adamw.init(dict(params.named_parameters()))
+    ospecs = PART.opt_specs(opt, params, cfg, mesh)
+    placed = PART.place(params, pspecs, mesh)
+    popt = PART.place(opt, ospecs, mesh)
+    del params, opt
+    torch.cuda.empty_cache()
+    stamp(f"[{tag}] placed")
+    loss, s_grads, _ = SH.make_sharded_grads(cfg, tcfg, mesh)(placed, b0)
+    cos, norm_gap = _grad_stats([s_grads[n_] for n_ in names],
+                                [u_grads[n_] for n_ in names])
+    del s_grads, u_grads
+    torch.cuda.empty_cache()
+    d_loss0 = float(loss) - u_metrics[0]["loss"]
+    stamp(f"[{tag}] the sharded gradients")
+    log(f"[{tag}-train] {cfg.n_layers} layers, {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"tokens in {TRAIN_MICRO} microbatches a step; first batch's "
+        f"gradients vs the unsharded step's: d loss {d_loss0:.3e}, grad "
+        f"cosine {cos:.6f}, |g| ratio - 1 {norm_gap:.3e} (limits "
+        f"{TRAIN_LOSS_TOL}, 1 - cosine {TRAIN_COS_TOL}, {TRAIN_NORM_TOL})")
+    sstep = ST.make_sharded_train_step(cfg, tcfg, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    s_s, busy_txt, counts, gaps = [], "not measured", None, []
+    for i, b in enumerate(batches):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        last = i == len(batches) - 1
+        if last:
+            with device_profile() as prof:
+                placed, popt, m = sstep(placed, popt, b)
+                torch.cuda.synchronize()
+        else:
+            with record_collectives() as train_calls:
+                placed, popt, m = sstep(placed, popt, b)
+        torch.cuda.synchronize()
+        s_s.append(time.time() - t0)
+        if last:
+            _, busy = device_time(prof)
+            if busy:
+                busy_txt = f"{100 * busy / (1e3 * s_s[-1]):.1f}% of the wall"
+        counts = read_counts()
+        _check_launches(f"{tag}-train step {i + 1}", counts, {
+            "flash_attention": 2 * n_attn * TRAIN_MICRO * n,
+            "flash_attention_sm90": 2 * n_attn * TRAIN_MICRO * n,
+            "flash_attention_bwd": n_attn * TRAIN_MICRO * n,
+            "flash_attention_bwd_sm90": n_attn * TRAIN_MICRO * n})
+        w = u_metrics[i]
+        got = {k: float(v) for k, v in m.items()}
+        gaps.append((got["loss"] - w["loss"],
+                     got["grad_norm"] / w["grad_norm"] - 1))
+        aux = "".join(f", {k} {got[k]:.6f} (unsharded {w[k]:.6f})"
+                      for k in ("moe_aux", "moe_dropped") if k in got)
+        log(f"[{tag}-train] step {i + 1}: sharded {s_s[-1]:.3f}s, loss "
+            f"{got['loss']:.6f}, grad norm {got['grad_norm']:.6f}{aux}; "
+            f"unsharded {u_s[i]:.3f}s, loss {w['loss']:.6f}, grad norm "
+            f"{w['grad_norm']:.6f}"
+            + (" (sharded under the profiler)" if last else ""))
+    peak = torch.cuda.max_memory_allocated()
+    tok = TRAIN_BATCH * TRAIN_SEQ
+    log(f"[{tag}-train] {len(batches)} steps: sharded {s_s[0]:.3f} / "
+        f"{s_s[-1]:.3f} s (step 1 / step {len(batches)}, profiled), "
+        f"{tok / s_s[0]:.4g} tokens/s at step 1, busy {busy_txt}, peak "
+        f"device memory {peak / 1e9:.2f} GB; unsharded "
+        f"{' / '.join(f'{x:.3f}' for x in u_s)} s; collective bytes per "
+        f"slot in step 1 {_group0_bytes(train_calls)}; launches a step "
+        f"{counts}")
+    assert abs(d_loss0) <= TRAIN_LOSS_TOL, f"[{tag}] sharded train loss"
+    assert 1.0 - cos <= TRAIN_COS_TOL, f"[{tag}] sharded gradients"
+    assert abs(norm_gap) <= TRAIN_NORM_TOL, f"[{tag}] sharded gradient norm"
+    for i, (dl, dn) in enumerate(gaps):
+        assert abs(dl) <= TRAIN_LOSS_TOL, f"[{tag}] step {i + 1}: loss"
+        assert abs(dn) <= TRAIN_NORM_TOL, f"[{tag}] step {i + 1}: grad norm"
+    assert peak < 80e9
+    del placed, popt
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_sharded_families(dev, plans):
+    """``[sharded-vlm]``, ``[sharded-moe]``, ``[sharded-audio]``:
+    internvl2-1b, granite-moe-1b-a400m and whisper-medium at full width
+    and depth as SPMD programs on ``make_debug_mesh(2, 2)`` (4 slots, each
+    a stream on the card): the serve (``_sharded_family_serve``) and
+    train (``_sharded_family_train``) checks, then the debug mesh's plans
+    of the three runs (``plans``, from ``start_plans``), whose launches
+    per slot must be the counted ones over 4. Returns the launch counts
+    by path."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    mesh = make_debug_mesh(*SHARDED_MESH)
+    N = SHARDED_FAMILY_DECODE_STEPS
+    out = {}
+    t_all = time.time()
+    for tag, arch in SHARDED_FAMILY_RUNS:
+        t_phase = time.time()
+        pre_n, dec_n = _sharded_family_serve(dev, arch, tag, mesh)
+        stamp(f"[{tag}] serve")
+        train_n = _sharded_family_train(dev, arch, tag, mesh)
+        stamp(f"[{tag}] train")
+        check_plans(tag, plans, arch, {
+            "prefill": pre_n, "decode": {k: v // N for k, v in dec_n.items()},
+            "train": train_n})
+        out[tag] = {"serve": {k: pre_n[k] + dec_n[k] for k in pre_n},
+                    "train": train_n}
+        stamp(f"[{tag}] ({time.time() - t_phase:.1f}s for the phase)")
+    log(f"[sharded-families] the three phases {time.time() - t_all:.1f}s")
+    return out
 
 
 def main():
@@ -4069,7 +4509,13 @@ def main():
     launches["flash_attention_bwd"] = train_counts["flash_attention_bwd"]
     launches["flash_attention_bwd_sm90"] = train_counts[
         "flash_attention_bwd_sm90"]
-    sharded = phase_sharded_llm(dev)
+    pool, plans = start_plans()
+    try:
+        sharded = phase_sharded_llm(dev, plans)
+        families = phase_sharded_families(dev, plans)
+    finally:
+        pool.shutdown(cancel_futures=True)
+    stamp("sharded vlm, moe and audio")
     for name, cases in phase_hd112_parity(dev).items():
         llm_parity[name] += cases
     llm_parity.update(phase_scan_parity(dev))
@@ -4089,10 +4535,14 @@ def main():
                     "serve_internvl2": phase_serve(dev, VLM_ARCH,
                                                    "internvl2"),
                     "serve_sharded": sharded["sharded_serve"],
+                    **{"serve_" + t.replace("-", "_"): c["serve"]
+                       for t, c in families.items()},
                     **shape_counts}
     stamp("moe and vlm serve")
     train = {"train": train_counts,
              "train_sharded": sharded["sharded_train"],
+             **{"train_" + t.replace("-", "_"): c["train"]
+                for t, c in families.items()},
              "train_granite": phase_llm_train(
                  dev, MOE_ARCH, get_config(MOE_ARCH).n_layers, "moe-train")}
     stamp("moe train")

@@ -22,9 +22,11 @@ program is every slot's. The plan records
 
 Serving plans take the serving layout of the weights (``model.serve_dtype``,
 what the card serves), training plans the f32 master weights and AdamW
-state. A family with no sharded step yet (every family but dense: ROADMAP
-A.21) gets ``status: "not_ported"``; ``shape_supported``'s skips are
-recorded as in the reference.
+state. The dense, vlm, moe and audio families are planned; the hybrid
+and ssm families, which have no sharded step yet, and a ``--kv-quant``
+decode (the int8 cache's sharded decode) get ``status: "not_ported"``
+(ROADMAP A.21.2); ``shape_supported``'s skips are recorded as in the
+reference.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3_4b --shape train_4k \\
@@ -206,7 +208,8 @@ def lower_one(arch_id: str, shape_name: str, multi_pod: bool,
         what = ("the int8 cache" if cfg.family in SHARDED.SHARDED_FAMILIES
                 else f"the {cfg.family} family")
         rec = {**head, "status": "not_ported",
-               "note": f"no sharded step for {what} yet (ROADMAP A.21)"}
+               "note": f"no sharded step for {what} yet (ROADMAP "
+                       f"A.21.2)"}
         if extra_tags:
             rec.update(extra_tags)
         return rec

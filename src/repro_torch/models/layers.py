@@ -174,10 +174,14 @@ class GeluMLP(nn.Module):
             nn.Parameter(w_in), nn.Parameter(b_in), nn.Parameter(w_out),
             nn.Parameter(b_out))
 
-    def forward(self, x):
+    def hidden(self, x):
+        """gelu(x @ w_in + b_in): what ``w_out`` takes."""
         h = x @ self.w_in.to(x.dtype) + self.b_in.to(x.dtype)
-        h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-        return h @ self.w_out.to(x.dtype) + self.b_out.to(x.dtype)
+        return F.gelu(h.float(), approximate="tanh").to(x.dtype)
+
+    def forward(self, x):
+        return (self.hidden(x) @ self.w_out.to(x.dtype)
+                + self.b_out.to(x.dtype))
 
 
 def embed(table, tokens, dtype):

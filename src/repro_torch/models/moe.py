@@ -36,7 +36,7 @@ einsums to XLA: there is no Pallas kernel in this layer.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -90,27 +90,41 @@ def capacity_keep(mask, C: int):
     return pos, mask & (pos < C)
 
 
-def moe_apply(params: Mapping[str, torch.Tensor], cfg: ArchConfig, x
-              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x: (B, S0, d) -> (y (B, S0, d), {"moe_aux", "moe_dropped"}).
-    ``params``: ``router`` (d, E), ``w_gate``/``w_up`` (E, d, f),
-    ``w_down`` (E, f, d). Differentiable."""
+class Dispatch(NamedTuple):
+    """What ``dispatch`` routed, for ``combine`` and ``load_balance``."""
+    token: torch.Tensor     # (n_slots,) each slot's token row (T: empty)
+    pair: torch.Tensor      # (n_slots,) its (token, expert) pair (T·E: empty)
+    probs: torch.Tensor     # (G, S, E) f32 router probabilities
+    mask: torch.Tensor      # (G, S, E) routed (top-K, ties kept)
+    keep: torch.Tensor      # (G, S, E) routed and within capacity
+    weights: torch.Tensor   # (G, S, E) f32 combine weights
+
+
+def dispatch(router, cfg: ArchConfig, x, experts=None
+             ) -> Tuple[torch.Tensor, Dispatch]:
+    """x (B, S0, d) -> (expert_in (n_e, G·C, d), Dispatch): every token
+    routed over all E experts with the capacity of its group, then the rows
+    of the kept pairs of the experts ``experts`` = (first, end), all of
+    them by default (an expert-parallel slot takes only its own)."""
     B, S0, d = x.shape
     E, K = cfg.n_experts, cfg.experts_per_token
     G, S, C = groups_and_capacity(cfg, B, S0)
-    dev, dtype = x.device, x.dtype
-    xg = x.reshape(G, S, d)
-    probs, mask, weights = route(params["router"], xg, K)   # (G, S, E)
-
+    dev = x.device
+    probs, mask, weights = route(router, x.reshape(G, S, d), K)  # (G, S, E)
     pos, keep = capacity_keep(mask, C)
+    e0, e1 = experts if experts is not None else (0, E)
+    own = keep
+    if (e0, e1) != (0, E):
+        e = torch.arange(E, device=dev)
+        own = keep & (e >= e0) & (e < e1)
 
-    # the (token, expert) pair in each of the E·G·C slots; pairs not kept
-    # go to one extra slot that nothing reads, empty slots keep T·E, which
-    # stands for a zero token row and a zero weight
-    T, n_slots = G * S, E * G * C
-    slot = (torch.arange(E, device=dev) * (G * C)
+    # the (token, expert) pair in each of the n_e·G·C slots; pairs not
+    # taken go to one extra slot that nothing reads, empty slots keep T·E,
+    # which stands for a zero token row and a zero weight
+    T, n_slots = G * S, (e1 - e0) * G * C
+    slot = (torch.arange(-e0, E - e0, device=dev) * (G * C)
             + torch.arange(G, device=dev)[:, None, None] * C + pos)
-    slot = torch.where(keep, slot, n_slots)
+    slot = torch.where(own, slot, n_slots)
     pair = torch.full((n_slots + 1,), T * E, dtype=torch.long, device=dev)
     pair.scatter_(0, slot.reshape(-1),
                   torch.arange(T * E, device=dev))
@@ -118,25 +132,58 @@ def moe_apply(params: Mapping[str, torch.Tensor], cfg: ArchConfig, x
     token = pair // E                                        # T = empty
 
     rows = torch.cat([x.reshape(T, d), x.new_zeros((1, d))])
-    expert_in = _GatherRows.apply(rows, token).view(E, G * C, d)
-    h_g = torch.bmm(expert_in, params["w_gate"].to(dtype))
-    h_u = torch.bmm(expert_in, params["w_up"].to(dtype))
-    h = F.silu(h_g.float()).to(dtype) * h_u
+    expert_in = _GatherRows.apply(rows, token).view(e1 - e0, G * C, d)
+    return expert_in, Dispatch(token, pair, probs, mask, keep, weights)
+
+
+def expert_hidden(expert_in, w_gate, w_up):
+    """silu(expert_in @ w_gate) * (expert_in @ w_up) per expert, SiLU in
+    f32: what ``w_down`` takes."""
+    h_g = torch.bmm(expert_in, w_gate)
+    h_u = torch.bmm(expert_in, w_up)
+    return F.silu(h_g.float()).to(expert_in.dtype) * h_u
+
+
+def combine(expert_out, disp: Dispatch):
+    """The experts' outputs (n_e, G·C, d) back to their tokens, each
+    weighted by its combine weight: (T, d) f32, not rounded (the caller
+    casts once)."""
+    dtype, d = expert_out.dtype, expert_out.shape[-1]
+    T = disp.probs.shape[0] * disp.probs.shape[1]
+    w = disp.weights
+    w_slot = torch.cat([w.to(dtype).reshape(-1), w.new_zeros(1, dtype=dtype)]
+                       ).index_select(0, disp.pair)
+    contrib = (expert_out.reshape(-1, d).float()
+               * w_slot.float()[:, None])
+    return torch.zeros((T + 1, d), dtype=torch.float32,
+                       device=expert_out.device).index_add(
+                           0, disp.token, contrib)[:T]
+
+
+def load_balance(disp: Dispatch, K: int):
+    """(frac_tokens (E,), frac_probs (E,), dropped ()): the means over the
+    routed tokens that the Switch-style aux loss E · Σ frac_tokens ·
+    frac_probs and the dropped share are made of."""
+    return (disp.mask.float().mean(dim=(0, 1)),
+            disp.probs.mean(dim=(0, 1)),
+            1.0 - (disp.keep.sum(-1) / K).mean())
+
+
+def moe_apply(params: Mapping[str, torch.Tensor], cfg: ArchConfig, x
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: (B, S0, d) -> (y (B, S0, d), {"moe_aux", "moe_dropped"}).
+    ``params``: ``router`` (d, E), ``w_gate``/``w_up`` (E, d, f),
+    ``w_down`` (E, f, d). Differentiable."""
+    dtype = x.dtype
+    expert_in, disp = dispatch(params["router"], cfg, x)
+    h = expert_hidden(expert_in, params["w_gate"].to(dtype),
+                      params["w_up"].to(dtype))
     expert_out = torch.bmm(h, params["w_down"].to(dtype))  # (E, G·C, d)
-
-    w_slot = torch.cat([weights.to(dtype).reshape(-1),
-                        weights.new_zeros(1, dtype=dtype)]).index_select(
-                            0, pair)
-    contrib = expert_out.reshape(n_slots, d).float() * w_slot.float()[:, None]
-    y = torch.zeros((T + 1, d), dtype=torch.float32, device=dev).index_add(
-        0, token, contrib)[:T].to(dtype)
-
-    # Switch-style load-balance aux loss
-    frac_tokens = mask.float().mean(dim=(0, 1))
-    frac_probs = probs.mean(dim=(0, 1))
-    aux = E * (frac_tokens * frac_probs).sum()
-    dropped = 1.0 - (keep.sum(-1) / K).mean()
-    return y.reshape(B, S0, d), {"moe_aux": aux, "moe_dropped": dropped}
+    y = combine(expert_out, disp).to(dtype)
+    frac_tokens, frac_probs, dropped = load_balance(
+        disp, cfg.experts_per_token)
+    aux = cfg.n_experts * (frac_tokens * frac_probs).sum()
+    return y.reshape(x.shape), {"moe_aux": aux, "moe_dropped": dropped}
 
 
 class _GatherRows(torch.autograd.Function):

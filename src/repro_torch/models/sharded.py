@@ -1,8 +1,8 @@
-"""The dense family's train, prefill and decode steps as SPMD programs over
-a ('data', 'model') mesh (the counterpart of the reference's sharded
-steps: ``jax.jit(step, in_shardings=..., out_shardings=...)`` under the
-dry-run mesh, the program GSPMD derives from ``sharding.partitioning``'s
-specs).
+"""The train, prefill and decode steps of the dense, vlm, moe and audio
+families as SPMD programs over a ('data', 'model') mesh (the counterpart
+of the reference's sharded steps: ``jax.jit(step, in_shardings=...,
+out_shardings=...)`` under the dry-run mesh, the program GSPMD derives
+from ``sharding.partitioning``'s specs).
 
 The port is single-controller: one process drives every slot of a
 ``launch.mesh.Mesh`` in lockstep, each slot's work on its own CUDA stream
@@ -10,17 +10,20 @@ The port is single-controller: one process drives every slot of a
 axes. Each slot holds its shards (``partitioning.place``) as a
 ``CausalLM`` of the shards, and runs the model's own modules on them:
 the norms, the projections (``Attention.columns``, ``norm_rope``,
-``SwiGLU.hidden``, ``layers.unembed``), and the kernels L1 (prompt and
-training forward), L2 (training backward) and L3 (decode) on its heads.
-Only the block's order (norm, attention, residual, norm, MLP, residual)
-is spelt out again here, since collectives fall between its pieces. The
+``SwiGLU.hidden``, ``GeluMLP.hidden``, ``layers.unembed``), the MoE's
+stages (``moe.dispatch``, ``expert_hidden``, ``combine``), and the
+kernels L1 (prompt and training forward), L2 (training backward) and L3
+(decode) on its heads. Only the block's order (norm, attention,
+residual, [norm, cross-attention, residual,] norm, MLP, residual) is
+spelt out again here, since collectives fall between its pieces. The
 batch stays where ``batch_specs`` puts it, which is where the
 reference's carry constraint keeps it (``ShardedLM.batch_spec`` checks
 it), so a block boundary moves nothing. Where the placement demands it:
 
-  - row-parallel outputs: ``wo`` and ``mlp/w_down`` give f32 partial
-    products, summed over 'model' (``psum``) in f32 and cast once, as the
-    unsharded product rounds once;
+  - row-parallel outputs: ``wo``, ``mlp/w_down`` and ``mlp/w_out`` give
+    f32 partial products, summed over 'model' (``psum``) in f32 and cast
+    once, as the unsharded product rounds once; a row-parallel bias
+    (whisper's ``mlp/b_out``, replicated) is added once, after the sum;
   - vocab-parallel embedding: ``table`` is split over 'model' by rows, so
     a slot looks up the tokens in its rows (zeros elsewhere) and the
     partials are summed; tied embeddings unembed by the shard's
@@ -36,17 +39,43 @@ it), so a block boundary moves nothing. Where the placement demands it:
     (``constraints.constrain`` on a ``Sharded`` value). A decode cache
     follows ``cache_specs``: by heads, else by head dim, in which case a
     layer's K/V are gathered over 'model' to whole heads before L3;
-  - data parallelism and ZeRO-1: each data slot runs the microbatch loop
-    on its rows; the f32 gradients are summed over 'model' where a
-    parameter is replicated over it, then reduce-scattered over 'data'
-    onto ``opt_specs``'s moment shards (all-reduced where a moment is not
-    split); AdamW runs on the shard and the updated tiles are
-    all-gathered over 'data'. The global gradient norm counts each
-    distinct shard once.
+  - vlm: each slot puts its rows' ``image_embeds`` before their token
+    embeddings; positions count the image prefix, the loss the text;
+  - audio: every slot runs the encoder over its rows' ``audio_embeds``
+    (non-causal L1 on its heads); cross-attention splits by heads like
+    self-attention, its K/V projected from the slot's encoder output; the
+    prefill fills each slot's ``cross_k`` / ``cross_v`` shard, decode runs
+    L3 over it (``cross_pos`` replicated);
+  - moe, expert-parallel where E divides 'model' (``w_*`` over 'model'
+    by experts): the model slots of a data row hold the same tokens, so
+    each slot routes all of them over all E experts (the capacity ranks
+    are per expert, so its experts' are the unsharded ones), runs only
+    the pairs of its E / M experts, and the f32 combine partials are
+    summed over 'model' and cast once, as the unsharded f32 ``index_add``
+    rounds once. Where E does not divide 'model' (the FSDP branch:
+    ``w_gate`` / ``w_up`` (E, 'data', 'model'), ``w_down`` (E, 'model',
+    'data')) each layer's expert weights are all-gathered over 'data'
+    (their gradient comes back reduce-scattered by the gather's autograd
+    transpose), every slot runs all experts on its d_ff columns, and
+    ``w_down``'s f32 partials are summed over 'model' and cast once
+    before the combine, as unsharded. The load-balance loss E · Σ
+    frac_tokens · frac_probs is not linear in the tokens: its data slots'
+    fractions are averaged over the data axes before the product, and it
+    enters the loss once (through the first model slot of each data row,
+    as the cross entropy does), so the router's gradient, summed over
+    'model' with the other replicated parameters', counts it once;
+  - data parallelism and ZeRO-1: microbatch i is the unsharded step's
+    (rows i·B/M … (i + 1)·B/M − 1 of the batch), placed over the data
+    slots; the f32 gradients are summed over 'model' where a parameter is
+    replicated over it, then reduce-scattered over 'data' onto
+    ``opt_specs``'s moment shards (all-reduced where a moment is not
+    split; an FSDP weight's gradient is already its shard's sum); AdamW
+    runs on the shard and the updated tiles are all-gathered over 'data'.
+    The global gradient norm counts each distinct shard once.
 
 Collectives add in slot order (``core.topology.Group``), so a rerun is
-bitwise the same. The families other than dense raise
-``NotImplementedError`` (ROADMAP A.21), with no fall-back to the
+bitwise the same. The hybrid and ssm families raise
+``NotImplementedError`` (ROADMAP A.21.2), with no fall-back to the
 unsharded step.
 """
 from __future__ import annotations
@@ -59,12 +88,13 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig, InputShape, TrainConfig
 from repro_torch.models import layers as L
 from repro_torch.models import model as MODEL
+from repro_torch.models import moe as MOE
 from repro_torch.models.kvcache import attn_cache_update, serve_cache_init
 from repro_torch.optim import adamw, schedules
 from repro_torch.sharding import partitioning as PART
 from repro_torch.sharding.constraints import batch_axes, constrain, use_mesh
 
-SHARDED_FAMILIES = ("dense",)
+SHARDED_FAMILIES = ("dense", "vlm", "moe", "audio")
 META = torch.device("meta")
 
 
@@ -72,30 +102,38 @@ def check_family(cfg: ArchConfig):
     if cfg.family not in SHARDED_FAMILIES:
         raise NotImplementedError(
             f"the sharded steps cover the {', '.join(SHARDED_FAMILIES)} "
-            f"family; {cfg.name} ({cfg.family}) is queued in ROADMAP A.21")
+            f"families; {cfg.name} ({cfg.family}) is queued in ROADMAP "
+            f"A.21.2")
 
 
 # ---------------------------------------------------------------------------
 # f32 partial products
 # ---------------------------------------------------------------------------
 
-def _mm_f32_fwd(a2, w):
-    if a2.device.type == "cpu":
-        return a2.float() @ w.float()
-    return torch.mm(a2, w, out_dtype=torch.float32)
+def _mm_f32_fwd(a, w):
+    """a (n, k) @ w (k, n'), or per expert a (e, n, k) @ w (e, k, n'), with
+    an f32 result."""
+    if a.device.type == "cpu":
+        return a.float() @ w.float()
+    if a.dim() == 3:
+        return torch.bmm(a, w, out_dtype=torch.float32)
+    return torch.mm(a, w, out_dtype=torch.float32)
 
 
 class _MatmulF32(torch.autograd.Function):
-    """a (…, k) @ w (k, n) in a's dtype with an f32 result: each product
-    and the sum in f32, no rounding to a's dtype (on the card cuBLAS's
-    bf16 GEMM with an f32 output, ``torch.mm(..., out_dtype=float32)``;
-    on the CPU the f32 product of the exact f32 copies). The backward
-    pass is the half-precision one of ``a @ w``, which the unsharded model
+    """a (…, k) @ w (k, n), or per expert a (e, n, k) @ w (e, k, n'), in
+    a's dtype with an f32 result: each product and the sum in f32, no
+    rounding to a's dtype (on the card cuBLAS's bf16 GEMM with an f32
+    output, ``torch.mm`` / ``torch.bmm(..., out_dtype=float32)``; on the
+    CPU the f32 product of the exact f32 copies). The backward pass is
+    the half-precision one of ``a @ w``, which the unsharded model
     runs."""
 
     @staticmethod
     def forward(ctx, a, w):
         ctx.save_for_backward(a, w)
+        if w.dim() == 3:
+            return _mm_f32_fwd(a, w)
         out = _mm_f32_fwd(a.reshape(-1, a.shape[-1]), w)
         return out.reshape(*a.shape[:-1], w.shape[-1])
 
@@ -105,14 +143,16 @@ class _MatmulF32(torch.autograd.Function):
         g = g.to(a.dtype)
         ga = gw = None
         if ctx.needs_input_grad[0]:
-            ga = g @ w.T
+            ga = g @ w.transpose(-1, -2)
         if ctx.needs_input_grad[1]:
-            gw = a.reshape(-1, a.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+            gw = (a.transpose(1, 2) @ g if w.dim() == 3 else
+                  a.reshape(-1, a.shape[-1]).T @ g.reshape(-1, g.shape[-1]))
         return ga, gw
 
 
 def mm_f32(a, w):
-    """a @ w with an f32 result (a row-parallel partial product)."""
+    """a @ w (or per expert, ``torch.bmm(a, w)``) with an f32 result (a
+    row-parallel partial product)."""
     if a.dtype == torch.float32:
         return a @ w.float()
     return _MatmulF32.apply(a, w)
@@ -128,9 +168,21 @@ def _range(i: int, n: int, parts: int):
     return i * size, (i + 1) * size
 
 
+def _self_attn(block):
+    """A block's self-attention (``DenseBlock.attn``, the audio decoder's
+    ``DecoderBlock.self_attn``)."""
+    return block.self_attn if isinstance(block, MODEL.DecoderBlock) \
+        else block.attn
+
+
+_EXPERT_WEIGHTS = ("mlp.w_gate", "mlp.w_up", "mlp.w_down")
+
+
 class ShardedLM:
     """The specs of ``cfg`` on ``mesh`` and where each slot's shards lie
-    (the same in every layer), and the SPMD pieces of the dense model."""
+    (the same in every layer, the audio encoder's and the cross-attention
+    included), and the SPMD pieces of the model. A layer is given as
+    ``get(slot)`` -> that slot's block module."""
 
     def __init__(self, cfg: ArchConfig, mesh):
         check_family(cfg)
@@ -138,19 +190,32 @@ class ShardedLM:
         self.cfg, self.mesh = cfg, mesh
         self.meta_params = STEPS.params_specs(cfg)
         self.pspecs = PART.param_specs(self.meta_params, cfg, mesh)
-        if any("data" in PART._axes_of(e) for sp in self.pspecs.values()
-               for e in sp):
-            raise NotImplementedError("dense parameters shard no dim over "
-                                      "'data'")
+        # parameters with a dim over 'data': the moe FSDP branch's experts
+        self.fsdp = {n for n, sp in self.pspecs.items()
+                     if any("data" in PART._axes_of(e) for e in sp)}
+        if any(not (cfg.is_moe and n.endswith(_EXPERT_WEIGHTS))
+               for n in self.fsdp):
+            raise NotImplementedError("only the moe family's expert weights "
+                                      "shard a dim over 'data'")
         self.M = mesh.axis_size("model")
         self.hd = cfg.resolved_head_dim
         self.data = tuple(a for a in ("pod", "data") if a in mesh.shape)
         self.n_data = mesh.axis_size(self.data)
         sp = self.pspecs
-        self.q_cols = sp["blocks.0.attn.wq"][1] == "model"
-        self.kv_cols = sp["blocks.0.attn.wk"][1] == "model"
-        self.wo_rows = sp["blocks.0.attn.wo"][0] == "model"
-        self.mlp_split = sp["blocks.0.mlp.w_down"][0] == "model"
+        attn = "blocks.0.self_attn." if cfg.is_encdec else "blocks.0.attn."
+        self.q_cols = sp[attn + "wq"][1] == "model"
+        self.kv_cols = sp[attn + "wk"][1] == "model"
+        self.wo_rows = sp[attn + "wo"][0] == "model"
+        self.expert_split = self.expert_fsdp = False
+        if cfg.is_moe:
+            wg = sp["blocks.0.mlp.w_gate"]
+            self.expert_split = wg[0] == "model"     # expert-parallel
+            self.expert_fsdp = wg[1] == "data"
+            self.mlp_split = wg[2] == "model"        # d_ff over 'model'
+        elif cfg.is_encdec:
+            self.mlp_split = sp["blocks.0.mlp.w_out"][0] == "model"
+        else:
+            self.mlp_split = sp["blocks.0.mlp.w_down"][0] == "model"
         self.table_split = sp["table"][0] == "model"
         self.unembed_split = (self.table_split if cfg.tie_embeddings
                               else sp["unembed"][1] == "model")
@@ -216,6 +281,40 @@ class ShardedLM:
         x = mesh.psum(x, "model")
         return mesh.map(lambda s, t: t.to(dtype), x)
 
+    def embed_inputs(self, params, parts, dtype):
+        """Each slot's input rows (``model._embed_inputs``): the token
+        embeddings, a vlm batch's ``image_embeds`` before them, an audio
+        batch's text with its sinusoidal positions."""
+        cfg, mesh = self.cfg, self.mesh
+        x = self.embed(params, _placed_tokens(parts), dtype)
+        first = parts[mesh.slots[0]]
+        if cfg.family == "vlm" and "image_embeds" in first:
+            x = mesh.map(lambda s, xs, p: torch.cat(
+                [p["image_embeds"].to(dtype), xs], dim=1), x, parts)
+        if cfg.is_encdec:
+            x = mesh.map(lambda s, xs: MODEL._with_positions(xs), x)
+        return x
+
+    def encode(self, params, parts, ba, dtype, run=None):
+        """The audio encoder on every slot over its rows' ``audio_embeds``
+        (``model._encode``): positions, the non-causal encoder blocks on
+        the slot's heads, ``enc_final_norm``. ``run(layer, ins, policy)``
+        runs each block (``_forward``'s, for remat)."""
+        mesh = self.mesh
+        x = mesh.map(lambda s, p: MODEL._with_positions(
+            p["audio_embeds"].to(dtype)), parts)
+        attend = self.prompt_attention(0, causal=False)
+        for li in range(self.cfg.n_encoder_layers):
+
+            def layer(xd, li=li):
+                out = self.block(lambda s: params[s].enc_blocks[li], xd, ba,
+                                 (None, None), 0, attend)
+                return (out[0],)
+
+            x = (run(layer, [x], "full") if run is not None
+                 else layer(x))[0]
+        return mesh.map(lambda s, xs: params[s].enc_final_norm(xs), x)
+
     def _to_heads(self, parts, n_heads, cols_split, ba, S):
         """A projection's (b, S, n) columns per slot as (b, S, heads, hd),
         placed as the reference's constraint names: heads over 'model'
@@ -234,21 +333,64 @@ class ShardedLM:
                          (self.B_of(ba, b), S, n_heads, hd), parts)
         return constrain(x, batch_axes(), None, "model", None).parts
 
-    def project(self, params, li, h, ba, S, rope, rot_dim):
-        """Each slot's q, k, v (b, S, heads, hd) for layer ``li``, normed
-        and rotated as ``Attention.project``."""
+    def project(self, attn_of, h, ba, S, rope, rot_dim):
+        """Each slot's q, k, v (b, S, heads, hd) of the attention
+        ``attn_of(slot)``, normed and rotated as ``Attention.project``."""
         mesh, cfg = self.mesh, self.cfg
 
-        qkv = mesh.map(lambda s, hs: params[s].blocks[li].attn.columns(hs), h)
+        qkv = mesh.map(lambda s, hs: attn_of(s).columns(hs), h)
         q, k, v = (self._to_heads({s: t[i] for s, t in qkv.items()}, n,
                                   cols, ba, S)
                    for i, n, cols in ((0, cfg.n_heads, self.q_cols),
                                       (1, cfg.n_kv_heads, self.kv_cols),
                                       (2, cfg.n_kv_heads, self.kv_cols)))
 
-        out = mesh.map(lambda s, qs, ks, vs: params[s].blocks[li].attn
-                       .norm_rope(qs, ks, vs, rope, rot_dim), q, k, v)
+        out = mesh.map(lambda s, qs, ks, vs: attn_of(s).norm_rope(
+            qs, ks, vs, rope, rot_dim), q, k, v)
         return tuple({s: t[i] for s, t in out.items()} for i in range(3))
+
+    def cross_q(self, attn_of, h, ba):
+        """Each slot's cross-attention queries (b, S, q heads, hd)
+        (``Attention.cross``: no positions, the q norm if any)."""
+        mesh, dtype = self.mesh, next(iter(h.values())).dtype
+        S = next(iter(h.values())).shape[1]
+        q = self._to_heads(mesh.map(lambda s, hs: hs @ attn_of(s).wq.to(
+            dtype), h), self.cfg.n_heads, self.q_cols, ba, S)
+
+        def norm(s, qs):
+            qn = attn_of(s).q_norm
+            return (qs if qn is None else qn(qs)).contiguous()
+
+        return mesh.map(norm, q)
+
+    def cross_kv(self, attn_of, enc, ba):
+        """Each slot's cross K and V (b, F, heads, hd) from its encoder
+        output (``Attention.cross_kv``), split as self-attention's."""
+        mesh, cfg = self.mesh, self.cfg
+        dtype, F_ = next(iter(enc.values())).dtype, cfg.n_audio_frames
+        kv = mesh.map(lambda s, es: (es @ attn_of(s).wk.to(dtype),
+                                     es @ attn_of(s).wv.to(dtype)), enc)
+        return tuple(self._to_heads({s: t[i] for s, t in kv.items()},
+                                    cfg.n_kv_heads, self.kv_cols, ba, F_)
+                     for i in range(2))
+
+    def cross_prompt(self, enc, ba, fill=None):
+        """``cross(attn_of, h)`` for a prompt or training: each slot's q
+        heads through L1 (non-causal, Sq = S, Skv = F) over the K/V it
+        projects from its encoder output; ``fill(k, v)`` takes the
+        slots' cross K/V (the prefill's cache)."""
+        def cross(attn_of, h):
+            q = self.cross_q(attn_of, h, ba)
+            k, v = self.cross_kv(attn_of, enc, ba)
+            if fill is not None:
+                fill(k, v)
+
+            def local(s, qs, ks, vs):
+                ks, vs = self.kv_for_q(s, ks, vs, self.kv_heads(s))
+                return L._prompt_attention(qs, ks, vs, causal=False)
+
+            return self.mesh.map(local, q, k, v)
+        return cross
 
     def kv_for_q(self, s, k, v, held):
         """The K/V heads the slot's q heads attend to, out of the heads
@@ -266,15 +408,15 @@ class ShardedLM:
         idx = torch.arange(qa, qb, device=k.device) // G - held[0]
         return k.index_select(2, idx), v.index_select(2, idx)
 
-    def out_proj(self, params, li, o, dtype):
+    def out_proj(self, attn_of, o, dtype):
         """Each slot's attention output (b, S, heads·hd, its q heads'
-        columns) through ``wo``: row-parallel partials summed over
-        'model' in f32, or the whole product where ``wo`` is
+        columns) through ``attn_of(slot).wo``: row-parallel partials
+        summed over 'model' in f32, or the whole product where ``wo`` is
         replicated."""
         mesh, hd = self.mesh, self.hd
 
         def local(s, os_):
-            wo = params[s].blocks[li].attn.wo.to(dtype)
+            wo = attn_of(s).wo.to(dtype)
             ra, rb = self.wo_rows_of(s)
             qa = self.q_heads(s)[0] * hd
             if (ra - qa, rb - qa) != (0, os_.shape[-1]):
@@ -289,42 +431,128 @@ class ShardedLM:
         parts = self.mesh.psum(parts, "model")
         return self.mesh.map(lambda s, t: t.to(dtype), parts)
 
-    def mlp(self, params, li, h, dtype):
+    def mlp(self, get, h, dtype, aux=False):
+        """Each slot's MLP output (SwiGLU, GELU or MoE) and, for the moe
+        family with ``aux``, its (moe_aux, moe_dropped) (``moe``)."""
+        if self.cfg.is_moe:
+            return self.moe(get, h, dtype, aux)
+
         def local(s, hs):
-            m = params[s].blocks[li].mlp
+            m = get(s).mlp
             if not self.mlp_split:
                 return m(hs)
-            return mm_f32(m.hidden(hs), m.w_down.to(dtype))
+            w = m.w_out if isinstance(m, L.GeluMLP) else m.w_down
+            return mm_f32(m.hidden(hs), w.to(dtype))
 
-        return self._reduce(self.mesh.map(local, h), self.mlp_split, dtype)
+        y = self._reduce(self.mesh.map(local, h), self.mlp_split, dtype)
+        if self.cfg.is_encdec and self.mlp_split:
+            # the replicated b_out of a row-parallel product: once, after
+            # the sum
+            y = self.mesh.map(lambda s, t: t + get(s).mlp.b_out.to(dtype), y)
+        return y, None
 
-    def prompt_attention(self, window: int):
+    def moe(self, get, h, dtype, aux):
+        """The moe family's MLP on every slot (module docstring): each
+        slot's y (b, S0, d), and with ``aux`` its (moe_aux, moe_dropped)
+        as a (2,) f32 tensor, the same on every slot."""
+        mesh, cfg = self.mesh, self.cfg
+        E = cfg.n_experts
+        if self.expert_split or not (self.mlp_split or self.expert_fsdp):
+
+            def local(s, hs):
+                m = get(s).mlp
+                experts = (_range(self.m(s), E, self.M)
+                           if self.expert_split else None)
+                e_in, disp = MOE.dispatch(m.router, cfg, hs, experts)
+                e_out = torch.bmm(MOE.expert_hidden(
+                    e_in, m.w_gate.to(dtype), m.w_up.to(dtype)),
+                    m.w_down.to(dtype))
+                y = MOE.combine(e_out, disp)
+                return (y if self.expert_split else y.to(dtype)), disp
+
+            out = mesh.map(local, h)
+            y = self._reduce({s: o[0] for s, o in out.items()},
+                             self.expert_split, dtype)
+        else:
+            # the FSDP branch: the layer's experts gathered over 'data',
+            # tensor-parallel over d_ff
+            w = {n: mesh.map(lambda s: getattr(get(s).mlp, n).to(dtype))
+                 for n in ("w_gate", "w_up", "w_down")}
+            if self.expert_fsdp:
+                w = {n: mesh.all_gather(t, "data", dim=2 if n == "w_down"
+                                        else 1) for n, t in w.items()}
+
+            def local(s, hs, wg, wu, wd):
+                e_in, disp = MOE.dispatch(get(s).mlp.router, cfg, hs)
+                hid = MOE.expert_hidden(e_in, wg, wu)
+                return (mm_f32(hid, wd) if self.mlp_split
+                        else torch.bmm(hid, wd)), disp
+
+            out = mesh.map(local, h, w["w_gate"], w["w_up"], w["w_down"])
+            e_out = self._reduce({s: o[0] for s, o in out.items()},
+                                 self.mlp_split, dtype)
+            y = mesh.map(lambda s, e: MOE.combine(e, out[s][1]).to(dtype),
+                         e_out)
+        y = mesh.map(lambda s, t, hs: t.reshape(hs.shape), y, h)
+        if not aux:
+            return y, None
+        K = cfg.experts_per_token
+        stats = mesh.map(lambda s, o: torch.cat(
+            [t.reshape(-1) for t in MOE.load_balance(o[1], K)]), out)
+        if self.data:
+            stats = mesh.psum(stats, self.data)
+        n = self.n_data
+
+        def terms(s, t):
+            t = t / n
+            return torch.stack([E * (t[:E] * t[E:2 * E]).sum(), t[2 * E]])
+
+        return y, mesh.map(terms, stats)
+
+    def prompt_attention(self, window: int, causal: bool = True):
         """``attend`` for a prompt: each slot's q heads through L1 (or its
         autograd Function) over their K/V heads."""
         def attend(q, k, v):
             def local(s, qs, ks, vs):
                 ks, vs = self.kv_for_q(s, ks, vs, self.kv_heads(s))
-                return L._prompt_attention(qs, ks, vs, True, window)
+                return L._prompt_attention(qs, ks, vs, causal, window)
             return self.mesh.map(local, q, k, v)
         return attend
 
-    def block(self, params, li, x, ba, rope, rot_dim, attend):
-        """Layer ``li`` on every slot: pre-norm attention and SwiGLU, each
-        with a residual. ``attend(q, k, v)`` maps each slot's q, k, v (b,
-        S, heads, hd) to its attention output (b, S, q heads, hd). Returns
-        (x, k, v) per slot."""
+    def block(self, get, x, ba, rope, rot_dim, attend, *, cross=None,
+              aux=False):
+        """The layer ``get(slot)`` on every slot: pre-norm attention, the
+        decoder's cross-attention (``cross(attn_of, h)`` maps each slot's
+        normed x to its attention output (b, S, q heads, hd)), and the
+        MLP, each with a residual. ``attend(q, k, v)`` maps each slot's
+        q, k, v (b, S, heads, hd) to its attention output. Returns (x, k,
+        v, the moe layer's (moe_aux, moe_dropped) with ``aux``, else None)
+        per slot."""
         mesh = self.mesh
         dtype = next(iter(x.values())).dtype
         S = next(iter(x.values())).shape[1]
-        h = mesh.map(lambda s, xs: params[s].blocks[li].ln1(xs), x)
-        q, k, v = self.project(params, li, h, ba, S, rope, rot_dim)
-        o = {s: t.reshape(t.shape[0], S, -1)
-             for s, t in attend(q, k, v).items()}
-        a = self.out_proj(params, li, o, dtype)
-        x = mesh.map(lambda s, xs, as_: xs + as_, x, a)
-        h = mesh.map(lambda s, xs: params[s].blocks[li].ln2(xs), x)
-        m = self.mlp(params, li, h, dtype)
-        return mesh.map(lambda s, xs, ms: xs + ms, x, m), k, v
+
+        def attn_of(s):
+            return _self_attn(get(s))
+
+        def add(a, b):
+            return mesh.map(lambda s, t, u: t + u, a, b)
+
+        def flat(o):
+            return {s: t.reshape(t.shape[0], S, -1) for s, t in o.items()}
+
+        h = mesh.map(lambda s, xs: get(s).ln1(xs), x)
+        q, k, v = self.project(attn_of, h, ba, S, rope, rot_dim)
+        x = add(x, self.out_proj(attn_of, flat(attend(q, k, v)), dtype))
+        if cross is not None:
+            def cross_of(s):
+                return get(s).cross_attn
+            h = mesh.map(lambda s, xs: get(s).ln_x(xs), x)
+            x = add(x, self.out_proj(cross_of, flat(cross(cross_of, h)),
+                                     dtype))
+        h = mesh.map(lambda s, xs: get(s).ln2(xs), x)
+        m, a = self.mlp(get, h, dtype, aux)
+        return add(x, m), k, v, a
 
     def logits(self, params, x):
         """Each slot's f32 logits over its vocabulary shard (-1e9 on the
@@ -347,11 +575,13 @@ class ShardedLM:
             lg = mesh.all_gather(lg, PART._axes_of(ba), dim=0)
         return lg[mesh.slots[0]]
 
-    def loss(self, lg, tokens, ba):
+    def loss(self, lg, tokens, ba, extra=None):
         """Next-token cross entropy of each slot's rows (vocab-parallel
-        over 'model'), then the mean over the data slots (a psum over the
-        data axes; a batch replicated over data counts each copy, so the
-        mean is its loss). Returns the total on the first slot."""
+        over 'model'), plus ``extra`` (a slot's scalar: 0.01 × the moe
+        aux loss), then the sum over the data slots (a psum over the data
+        axes; a batch replicated over data counts each copy): the caller
+        divides by the data slots. Returns the total on the first
+        slot."""
         mesh = self.mesh
 
         def local(s, lg_, tok):
@@ -376,8 +606,9 @@ class ShardedLM:
             mask = torch.ones(gold_s.shape, dtype=torch.float32,
                               device=gold_s.device)
             z = torch.logsumexp(lse_s, dim=-1)
-            return ((z - gold_s) * mask).sum() / torch.clamp(mask.sum(),
-                                                             min=1.0)
+            out = ((z - gold_s) * mask).sum() / torch.clamp(mask.sum(),
+                                                            min=1.0)
+            return out if extra is None else out + extra[s]
 
         loss = mesh.map(nll, lse, gold)
         if self.data:
@@ -389,34 +620,45 @@ class ShardedLM:
     def cache_init(self, B: int, seq_len: int, window_override=None,
                    device=None, dtype=torch.bfloat16):
         """Each slot's empty serving cache under ``cache_specs`` (``pos``
-        0, K/V zeros in ``dtype``, ``kv_pos`` -1), on the slot's device
-        (``device`` where the mesh has none)."""
+        0, K/V zeros in ``dtype``, ``kv_pos`` -1; the audio family's
+        ``cross_k`` / ``cross_v`` zeros beside them and ``cross_pos`` =
+        arange(F), replicated), on the slot's device (``device`` where the
+        mesh has none)."""
         cfg, mesh = self.cfg, self.mesh
         full = serve_cache_init(cfg, B, seq_len, dtype=dtype,
                                 window_override=window_override, device=META)
         specs = PART.cache_specs(full, cfg, None, mesh)
         self.set_cache_spec(B, full["attn"]["k"].shape[2])
+
+        def make(name, t, spec, dev):
+            shp = PART.shard_shape(mesh, spec, t.shape)
+            if name == "kv_pos":
+                return torch.full(shp, -1, dtype=t.dtype, device=dev)
+            if name == "cross_pos":
+                return torch.arange(shp[0], dtype=t.dtype, device=dev)
+            return torch.zeros(shp, dtype=t.dtype, device=dev)
+
         out = {}
         for s in mesh.slots:
             dev = mesh.device(s) if mesh.devices is not None else device
-            attn = {}
-            for n, t in full["attn"].items():
-                shp = PART.shard_shape(mesh, specs["attn"][n], t.shape)
-                attn[n] = (torch.full(shp, -1, dtype=t.dtype, device=dev)
-                           if n == "kv_pos" else
-                           torch.zeros(shp, dtype=t.dtype, device=dev))
-            out[s] = {"pos": 0, "attn": attn}
+            out[s] = {"pos": 0, "attn": {
+                n: make(n, t, specs["attn"][n], dev)
+                for n, t in full["attn"].items()}}
+            out[s].update({n: make(n, full[n], specs[n], dev)
+                           for n in ("cross_k", "cross_v", "cross_pos")
+                           if n in full})
         return out
 
     def set_cache_spec(self, B: int, S: int):
-        """The K/V cache spec at B sequences of S slots."""
+        """The K/V cache spec at B sequences of S slots (the cross cache
+        splits as the self cache: the same heads and head dim)."""
         self.cache_spec = PART.kv_cache_spec(
             (self.cfg.n_layers, B, S, self.cfg.n_kv_heads, self.hd),
             self.mesh)
         if self.cache_spec[2] is not None:
             raise NotImplementedError(
                 "a cache split over its slots (neither Hkv nor hd divides "
-                "'model'): the dense configs never need it")
+                "'model'): no published config needs it")
 
     def cache_ranges(self, s):
         """(heads, head-dim range) of the slot's cache shard."""
@@ -460,28 +702,57 @@ def _batch_parts(lm: ShardedLM, batch):
     return PART.place(batch, specs, lm.mesh), lm.batch_spec(tok_spec)
 
 
-def _forward(lm: ShardedLM, params, tokens, ba, *, remat=False,
+def _remat_slots(slots, fn, ins, policy):
+    """``fn(*ins)`` (each a {slot: tensor}, returning a tuple of them)
+    checkpointed under ``policy`` as one function of the slots' tensors."""
+    n = len(slots)
+
+    def flat_fn(*ts):
+        outs = fn(*(dict(zip(slots, ts[i * n:(i + 1) * n]))
+                    for i in range(len(ins))))
+        return tuple(o[s] for o in outs for s in slots)
+
+    flat = MODEL._remat(policy)(flat_fn, *(d[s] for d in ins for s in slots))
+    return tuple(dict(zip(slots, flat[i * n:(i + 1) * n]))
+                 for i in range(len(flat) // n))
+
+
+def _forward(lm: ShardedLM, params, parts, ba, *, remat=False,
              policy="full"):
-    """Every slot's f32 vocab-shard logits of its rows (``forward``)."""
+    """Every slot's f32 vocab-shard logits of its rows (``forward``), and
+    for the moe family each slot's layer means of (moe_aux, moe_dropped)
+    (a (2,) tensor), else None."""
     cfg, mesh = lm.cfg, lm.mesh
     dtype = MODEL.compute_dtype(cfg)
-    x = lm.embed(params, tokens, dtype)
-    S = next(iter(x.values())).shape[1]
-    rope, rot_dim = params[mesh.slots[0]].rope(0, S)
-    attend = lm.prompt_attention(cfg.sliding_window)
-    remat = remat and torch.is_grad_enabled()
     slots = list(mesh.slots)
+    remat = remat and torch.is_grad_enabled()
+
+    def run(layer, ins, pol):
+        return (_remat_slots(slots, layer, ins, pol) if remat
+                else layer(*ins))
+
+    x = lm.embed_inputs(params, parts, dtype)
+    S = x[slots[0]].shape[1]
+    rope, rot_dim = params[slots[0]].rope(0, S)
+    enc = (lm.encode(params, parts, ba, dtype, run) if cfg.is_encdec
+           else None)
+    attend = lm.prompt_attention(cfg.sliding_window)
+    auxs = []
     for li in range(cfg.n_layers):
 
-        def layer(*xs, li=li):
-            out, _, _ = lm.block(params, li, dict(zip(slots, xs)), ba, rope,
-                                 rot_dim, attend)
-            return tuple(out[s] for s in slots)
+        def layer(xd, *ed, li=li):
+            cross = lm.cross_prompt(ed[0], ba) if ed else None
+            out = lm.block(lambda s: params[s].blocks[li], xd, ba, rope,
+                           rot_dim, attend, cross=cross, aux=cfg.is_moe)
+            return (out[0],) if out[3] is None else (out[0], out[3])
 
-        xs = tuple(x[s] for s in slots)
-        xs = MODEL._remat(policy)(layer, *xs) if remat else layer(*xs)
-        x = dict(zip(slots, xs))
-    return lm.logits(params, x)
+        out = run(layer, [x] + ([enc] if enc is not None else []), policy)
+        x = out[0]
+        if len(out) > 1:
+            auxs.append(out[1])
+    aux = ({s: torch.stack([a[s] for a in auxs]).mean(0) for s in slots}
+           if auxs else None)
+    return lm.logits(params, x), aux
 
 
 def _placed_tokens(parts):
@@ -512,56 +783,67 @@ class _TrainPlan:
         self.names = list(self.lm.pspecs)
 
     def grads(self, params, batch):
-        """The microbatch loop on every data slot, then the gradients
-        reduced onto the moment shards: (mean loss, {name: {slot: f32
-        gradient tile}}, global norm), each scalar on the first slot."""
+        """The microbatch loop (microbatch i the unsharded step's, placed
+        over the data slots), then the gradients reduced onto the moment
+        shards: (mean loss, {name: {slot: f32 gradient tile}}, global
+        norm, the moe family's mean moe_aux and moe_dropped), each scalar
+        on the first slot."""
         lm, mesh, tcfg = self.lm, self.mesh, self.tcfg
         M = tcfg.microbatches
-        parts, ba = _batch_parts(lm, batch)
-        rows = _placed_tokens(parts)[mesh.slots[0]].shape[0]
+        whole = batch if isinstance(batch, dict) else {"tokens": batch}
+        rows = whole["tokens"].shape[0]
         if rows % M:
-            raise ValueError(f"a slot's {rows} rows do not split into {M} "
-                             f"microbatches")
+            raise ValueError(f"batch of {rows} rows does not split into "
+                             f"{M} microbatches")
+        chunks = [_batch_parts(lm, {k: v[i * rows // M:(i + 1) * rows // M]
+                                    for k, v in whole.items()})
+                  for i in range(M)]
         mesh.fork()
         for s in mesh.slots:
             for p in params[s].parameters():
                 p.grad = None
-        total = None
-        for i in range(M):
-            chunk = {s: {k: v[i * rows // M:(i + 1) * rows // M]
-                         for k, v in p.items()} for s, p in parts.items()}
-            tok = _placed_tokens(chunk)
-            lg = _forward(lm, params, tok, ba, remat=tcfg.remat,
-                          policy=tcfg.remat_policy)
-            loss = lm.loss(lg, tok, ba)
+        total, aux_sum = None, None
+        for parts, ba in chunks:
+            lg, aux = _forward(lm, params, parts, ba, remat=tcfg.remat,
+                               policy=tcfg.remat_policy)
+            extra = (None if aux is None
+                     else {s: 0.01 * a[0] for s, a in aux.items()})
+            loss = lm.loss(lg, _placed_tokens(parts), ba, extra)
             del lg
             mesh.join()
             loss.backward()
             total = loss.detach() if total is None else total + loss.detach()
+            if aux is not None:
+                a = aux[mesh.slots[0]].detach()
+                aux_sum = a if aux_sum is None else aux_sum + a
         mesh.fork()
         with torch.no_grad():
             grads, norm = self._reduce(params, M)
-        return total / (M * lm.n_data), grads, norm
+        metrics = ({} if aux_sum is None else
+                   {"moe_aux": aux_sum[0] / M, "moe_dropped": aux_sum[1] / M})
+        return total / (M * lm.n_data), grads, norm, metrics
 
     def _reduce(self, params, M):
         """Sum the slots' gradients over 'model' where a parameter is
         replicated over it (and over 'pod'), reduce-scatter them over
         'data' onto the moment shards (all-reduce where a moment is not
-        split), scale by 1 / (microbatches × data slots); the global norm
-        counts each distinct shard once."""
+        split; an FSDP weight's gradient is its shard's already, summed
+        over 'data' by its gather's transpose), scale by 1 / (microbatches
+        × data slots); the global norm counts each distinct shard once."""
         lm, mesh = self.lm, self.mesh
         scale = 1.0 / (M * lm.n_data)
+        named = {s: dict(params[s].named_parameters()) for s in mesh.slots}
         grads = {}
         for n in self.names:
-            g = {s: dict(params[s].named_parameters())[n].grad
-                 for s in mesh.slots}
+            g = {s: named[s][n].grad for s in mesh.slots}
             if "model" not in lm.pspecs[n]:
                 g = mesh.psum(g, "model")
             if "pod" in mesh.shape:
                 g = mesh.psum(g, "pod")
             z = _zero1_dim(self.ospecs.mu[n])
-            g = (mesh.psum_scatter(g, "data", dim=z) if z is not None
-                 else mesh.psum(g, "data"))
+            if n not in lm.fsdp:
+                g = (mesh.psum_scatter(g, "data", dim=z) if z is not None
+                     else mesh.psum(g, "data"))
             grads[n] = mesh.map(lambda s, t: t * scale, g)
         for s in mesh.slots:
             for p in params[s].parameters():
@@ -584,20 +866,21 @@ class _TrainPlan:
 
     def update(self, params, opt_state, grads, norm):
         """Clip by the global norm, AdamW on each slot's shard, the
-        updated tiles all-gathered over 'data'. Returns the lr."""
-        mesh, tcfg = self.mesh, self.tcfg
+        updated tiles all-gathered over 'data' (an FSDP weight stays the
+        slot's shard). Returns the lr."""
+        mesh, tcfg, fsdp = self.mesh, self.tcfg, self.lm.fsdp
         lr = self.lr_fn(opt_state[mesh.slots[0]].step + 1)
+        named = {s: dict(params[s].named_parameters()) for s in mesh.slots}
         tiles = {}
         for s in mesh.slots:
             with mesh.on(s):
                 clip = torch.clamp(tcfg.grad_clip / torch.clamp(
                     norm[s], min=1e-9), max=1.0)
-                named = dict(params[s].named_parameters())
                 tile, gs = {}, {}
                 for n in self.names:
                     z = _zero1_dim(self.ospecs.mu[n])
-                    p = named[n]
-                    if z is not None:
+                    p = named[s][n]
+                    if z is not None and n not in fsdp:
                         size = p.shape[z] // mesh.axis_size("data")
                         p = p.narrow(z, mesh.coord(s, "data") * size, size)
                     tile[n] = p
@@ -606,13 +889,13 @@ class _TrainPlan:
                 tiles[s] = tile
         for n in self.names:
             z = _zero1_dim(self.ospecs.mu[n])
-            if z is None:
+            if z is None or n in fsdp:
                 continue
             full = mesh.all_gather({s: tiles[s][n] for s in mesh.slots},
                                    "data", dim=z)
             for s in mesh.slots:
                 with mesh.on(s):
-                    dict(params[s].named_parameters())[n].copy_(full[s])
+                    named[s][n].copy_(full[s])
         return lr
 
 
@@ -622,18 +905,19 @@ def make_sharded_train_step(cfg: ArchConfig, tcfg: TrainConfig, mesh):
     None))`` on ``mesh``. The step takes each slot's parameters (a
     ``CausalLM`` of its shards with gradient, ``place(params,
     param_specs)``), AdamW states (``place(opt, opt_specs)``) and the
-    whole batch (placed by ``batch_specs``), updates the parameters and
-    moments in place and returns (params, opt_state, metrics with loss,
-    grad_norm and lr on the first slot)."""
+    whole batch (each microbatch placed by ``batch_specs``), updates the
+    parameters and moments in place and returns (params, opt_state,
+    metrics with loss, grad_norm, lr and the moe family's moe_aux and
+    moe_dropped, on the first slot)."""
     plan = _TrainPlan(cfg, tcfg, mesh)
 
     def train_step(params, opt_state, batch):
         with use_mesh(mesh):
-            loss, grads, norm = plan.grads(params, batch)
+            loss, grads, norm, aux = plan.grads(params, batch)
             with torch.no_grad():
                 lr = plan.update(params, opt_state, grads, norm)
             mesh.join()
-        return params, opt_state, {"loss": loss,
+        return params, opt_state, {"loss": loss, **aux,
                                    "grad_norm": norm[mesh.slots[0]],
                                    "lr": lr}
 
@@ -649,7 +933,7 @@ def make_sharded_grads(cfg: ArchConfig, tcfg: TrainConfig, mesh):
 
     def grads_fn(params, batch):
         with use_mesh(mesh):
-            loss, grads, norm = plan.grads(params, batch)
+            loss, grads, norm, _ = plan.grads(params, batch)
             mesh.join()
             placed = {s: {n: grads[n][s] for n in plan.names}
                       for s in mesh.slots}
@@ -668,7 +952,9 @@ def make_sharded_prefill_step(cfg: ArchConfig, shape: InputShape, mesh,
     the compute dtype: bf16 for the published configs, as
     ``serve_cache_init`` makes it unsharded). The prompt
     attends with ``cfg.sliding_window``; ``window_override`` sizes the
-    cache, as unsharded."""
+    cache, as unsharded. A vlm prompt's image positions take cache slots
+    and count in ``pos``; an audio prompt's encoder output fills the
+    slots' cross caches."""
     lm = ShardedLM(cfg, mesh)
 
     @torch.no_grad()
@@ -676,18 +962,29 @@ def make_sharded_prefill_step(cfg: ArchConfig, shape: InputShape, mesh,
         with use_mesh(mesh):
             parts, ba = _batch_parts(lm, batch)
             tok = _placed_tokens(parts)
-            b, S = tok[mesh.slots[0]].shape
-            B = lm.B_of(ba, b)
-            mesh.fork()
-            dev = tok[mesh.slots[0]].device
+            s0 = mesh.slots[0]
+            B = lm.B_of(ba, tok[s0].shape[0])
             dtype = MODEL.compute_dtype(cfg)
             cache = lm.cache_init(B, shape.seq_len, window_override,
-                                  device=dev, dtype=dtype)
-            x = lm.embed(params, tok, dtype)
-            rope, rot_dim = params[mesh.slots[0]].rope(0, S)
+                                  device=tok[s0].device, dtype=dtype)
+            mesh.fork()
+            x = lm.embed_inputs(params, parts, dtype)
+            S = x[s0].shape[1]
+            rope, rot_dim = params[s0].rope(0, S)
             attend = lm.prompt_attention(cfg.sliding_window)
+            enc = (lm.encode(params, parts, ba, dtype) if cfg.is_encdec
+                   else None)
             for li in range(cfg.n_layers):
-                x, k, v = lm.block(params, li, x, ba, rope, rot_dim, attend)
+                cross = None
+                if enc is not None:
+                    def fill(k, v, li=li):
+                        def write(s, ks, vs):
+                            cache[s]["cross_k"][li].copy_(lm.cache_part(s, ks))
+                            cache[s]["cross_v"][li].copy_(lm.cache_part(s, vs))
+                        mesh.map(write, k, v)
+                    cross = lm.cross_prompt(enc, ba, fill)
+                x, k, v, _ = lm.block(lambda s: params[s].blocks[li], x, ba,
+                                      rope, rot_dim, attend, cross=cross)
                 mesh.map(lambda s, ks, vs: MODEL._fill_ring(
                     cache[s]["attn"], li, lm.cache_part(s, ks),
                     lm.cache_part(s, vs), S), k, v)
@@ -711,7 +1008,11 @@ def make_sharded_serve_step(cfg: ArchConfig, mesh,
     1, Vp) f32 on the first slot, the cache, updated in place). Each slot
     writes the token's K/V into its cache shard; where the cache splits
     the head dim, the layer's K/V are gathered over 'model' to whole
-    heads before L3."""
+    heads before L3. The audio decoder also runs L3 over each slot's
+    cross cache, and adds no position to the token, as the reference's
+    decode does not. A moe decode group is dropless (C = its size), so a
+    slot's local group size leaves the function as it is. An int8 cache
+    raises (ROADMAP A.21.2)."""
     lm = ShardedLM(cfg, mesh)
     window = (window_override if window_override is not None
               else cfg.sliding_window)
@@ -724,6 +1025,10 @@ def make_sharded_serve_step(cfg: ArchConfig, mesh,
             s0 = mesh.slots[0]
             pos = cache[s0]["pos"]
             ck0 = cache[s0]["attn"]["k"]
+            if ck0.dtype == torch.int8:
+                raise NotImplementedError(
+                    "the sharded decode of an int8 cache is queued in "
+                    "ROADMAP A.21.2")
             lm.set_cache_spec(lm.B_of(ba, ck0.shape[1]), ck0.shape[2])
             gather = lm.cache_spec[4] is not None
             mesh.fork()
@@ -731,11 +1036,25 @@ def make_sharded_serve_step(cfg: ArchConfig, mesh,
             x = lm.embed(params, tok, dtype)
             rope, rot_dim = params[s0].rope(pos, 1)
 
+            def held(s):
+                return ((0, cfg.n_kv_heads) if gather
+                        else lm.cache_ranges(s)[0])
+
+            def layer_kv(li, names):
+                """The slots' cache of layer ``li`` (``names``: the K and V
+                entries), gathered over 'model' to whole heads where the
+                cache splits the head dim."""
+                out = []
+                for n in names:
+                    c = {s: (cache[s]["attn"][n] if n in ("k", "v")
+                             else cache[s][n])[li] for s in mesh.slots}
+                    out.append(mesh.all_gather(c, "model", dim=3) if gather
+                               else c)
+                return out
+
             def decode_attention(li):
                 """``attend`` for one token at layer ``li``: the token's
-                K/V into each slot's cache shard, the layer gathered over
-                'model' to whole heads where the cache splits the head
-                dim, then L3 per slot."""
+                K/V into each slot's cache shard, then L3 per slot."""
                 def write(s, ks, vs):
                     c = cache[s]["attn"]
                     ring = window > 0 and c["k"].shape[2] <= window
@@ -744,26 +1063,38 @@ def make_sharded_serve_step(cfg: ArchConfig, mesh,
                                       lm.cache_part(s, vs), pos, ring)
 
                 def local(s, qs, ks, vs):
-                    held = ((0, cfg.n_kv_heads) if gather
-                            else lm.cache_ranges(s)[0])
-                    ks, vs = lm.kv_for_q(s, ks, vs, held)
+                    ks, vs = lm.kv_for_q(s, ks, vs, held(s))
                     return L.decode_attention(
                         qs[:, 0], ks, vs, cache[s]["attn"]["kv_pos"][li],
                         pos, window=window)[:, None]
 
                 def attend(q, k, v):
                     mesh.map(write, k, v)
-                    ck = {s: cache[s]["attn"]["k"][li] for s in mesh.slots}
-                    cv = {s: cache[s]["attn"]["v"][li] for s in mesh.slots}
-                    if gather:
-                        ck = mesh.all_gather(ck, "model", dim=3)
-                        cv = mesh.all_gather(cv, "model", dim=3)
-                    return mesh.map(local, q, ck, cv)
+                    return mesh.map(local, q, *layer_kv(li, ("k", "v")))
                 return attend
 
+            def cross_decode(li):
+                """``cross`` for one token at layer ``li``: L3 per slot
+                over its cross cache, every frame counted (query position
+                F − 1)."""
+                def cross(attn_of, h):
+                    q = lm.cross_q(attn_of, h, ba)
+
+                    def local(s, qs, ks, vs):
+                        ks, vs = lm.kv_for_q(s, ks, vs, held(s))
+                        return L.decode_attention(
+                            qs[:, 0], ks, vs, cache[s]["cross_pos"],
+                            ks.shape[1] - 1)[:, None]
+
+                    return mesh.map(local, q, *layer_kv(
+                        li, ("cross_k", "cross_v")))
+                return cross
+
             for li in range(cfg.n_layers):
-                x, _, _ = lm.block(params, li, x, ba, rope, rot_dim,
-                                   decode_attention(li))
+                x, _, _, _ = lm.block(
+                    lambda s, li=li: params[s].blocks[li], x, ba, rope,
+                    rot_dim, decode_attention(li),
+                    cross=cross_decode(li) if cfg.is_encdec else None)
             logits = lm.full_logits(lm.logits(params, x), ba)
             for s in mesh.slots:
                 cache[s]["pos"] = pos + 1

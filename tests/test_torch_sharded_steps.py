@@ -318,15 +318,31 @@ def test_reruns_are_bitwise():
                                   "rwkv6_7b", "whisper_medium",
                                   "internvl2_1b"])
 def test_other_families_raise(arch):
+    """The families still queued (hybrid, ssm: ROADMAP A.21.2) raise from
+    every sharded step factory, with no fall-back; the vlm, moe and audio
+    families build their steps (``tests/test_torch_sharded_families.py``
+    runs them), and their sharded decode of an int8 cache, queued there
+    too, raises."""
     cfg = TCB.get_config(arch).smoke_variant()
     mesh = TMESH.Mesh((2, 2), ("data", "model"), ("cpu",))
     shape = TCB.InputShape("p", 16, 2, "prefill")
-    for make in (lambda: TST.make_sharded_train_step(
-                     cfg, TCB.TrainConfig(), mesh),
-                 lambda: TST.make_sharded_prefill_step(cfg, shape, mesh),
-                 lambda: TST.make_sharded_serve_step(cfg, mesh)):
-        with pytest.raises(NotImplementedError, match="A.21"):
-            make()
+    makes = (lambda: TST.make_sharded_train_step(cfg, TCB.TrainConfig(),
+                                                 mesh),
+             lambda: TST.make_sharded_prefill_step(cfg, shape, mesh),
+             lambda: TST.make_sharded_serve_step(cfg, mesh))
+    if cfg.family in ("hybrid", "ssm"):
+        for make in makes:
+            with pytest.raises(NotImplementedError, match="A.21.2"):
+                make()
+        return
+    serve = [make() for make in makes][-1]
+    from repro_torch.models.sharded import ShardedLM
+    cache = ShardedLM(cfg, mesh).cache_init(2, 16, device="cpu")
+    for c in cache.values():
+        for n in ("k", "v"):
+            c["attn"][n] = c["attn"][n].to(torch.int8)
+    with pytest.raises(NotImplementedError, match="A.21.2"):
+        serve(None, cache, torch.zeros((2, 1), dtype=torch.int32))
 
 
 def test_gspmd_oracle_holds(_gspmd_proc):

@@ -28,7 +28,7 @@ from repro_torch.models import steps as TST
 from repro_torch.optim import adamw as TA
 from repro_torch.sharding import constraints as TC
 from repro_torch.sharding import partitioning as TP
-from torch_helpers import one_torch_thread  # noqa: F401
+from torch_helpers import KernelCount, one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -332,29 +332,6 @@ SMOKE_SHAPES = {"train": TCB.InputShape("t", 32, 8, "train"),
                 "decode": TCB.InputShape("d", 40, 8, "decode")}
 
 
-class _Count:
-    """Counts the attention kernel wrappers' CPU calls (every slot's)."""
-
-    def __init__(self, mp):
-        from repro_torch.kernels.flash_attention import ops as FA
-        from repro_torch.models import layers as LY
-        self.n = {"repro_torch::flash_attention": 0,
-                  "repro_torch::flash_attention_bwd": 0,
-                  "repro_torch::decode_attention": 0}
-        for mod, name, key in (
-                (FA, "flash_attention", "repro_torch::flash_attention"),
-                (LY, "flash_attention", "repro_torch::flash_attention"),
-                (FA, "flash_bwd", "repro_torch::flash_attention_bwd"),
-                (LY, "decode_attention", "repro_torch::decode_attention")):
-            mp.setattr(mod, name, self._wrap(getattr(mod, name), key))
-
-    def _wrap(self, fn, key):
-        def counted(*a, **k):
-            self.n[key] += 1
-            return fn(*a, **k)
-        return counted
-
-
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
 @pytest.mark.parametrize("dims", [(4, 2), (2, 4)])
 def test_plan_is_one_slot_of_the_cpu_run(kind, dims):
@@ -378,7 +355,7 @@ def test_plan_is_one_slot_of_the_cpu_run(kind, dims):
                             train=kind == "train")
     placed = TP.place(params, TP.param_specs(params, cfg, mesh), mesh)
     with pytest.MonkeyPatch.context() as mp:
-        count = _Count(mp)
+        count = KernelCount(mp)
         if kind == "train":
             opt = TA.init(dict(params.named_parameters()))
             o = TP.place(opt, TP.opt_specs(opt, params, cfg, mesh), mesh)
@@ -408,12 +385,13 @@ def test_plan_is_one_slot_of_the_cpu_run(kind, dims):
 
 def test_dryrun_cli_writes_its_json(tmp_path, capsys):
     """qwen3-4b's decode_32k on the 16 x 16 mesh planned on meta (nothing
-    allocated), a moe arch reads ``not_ported``, whisper's long_500k is
-    skipped; records land under ``--out``, replaced by key."""
+    allocated), an ssm arch (still queued) reads ``not_ported``,
+    whisper's long_500k is skipped; records land under ``--out``, replaced
+    by key."""
     out = tmp_path / "dry.json"
     assert DRY.main(["--arch", "qwen3_4b", "--shape", "decode_32k",
                      "--out", str(out)]) == 0
-    assert DRY.main(["--arch", "mixtral_8x7b", "--shape", "train_4k",
+    assert DRY.main(["--arch", "rwkv6_7b", "--shape", "train_4k",
                      "--mesh", "both", "--out", str(out)]) == 0
     assert DRY.main(["--arch", "whisper_medium", "--shape", "long_500k",
                      "--out", str(out)]) == 0
@@ -433,7 +411,7 @@ def test_dryrun_cli_writes_its_json(tmp_path, capsys):
                 "tokens_per_step", "params", "active_params"):
         assert key in ok
     for m in ("single", "multi"):
-        assert recs[("mixtral_8x7b", "train_4k", m, "")]["status"] == \
+        assert recs[("rwkv6_7b", "train_4k", m, "")]["status"] == \
             "not_ported"
     assert recs[("whisper_medium", "long_500k", "single", "")][
         "status"] == "skipped"

@@ -129,3 +129,26 @@ def np_tree(tree):
     """A JAX pytree as numpy arrays."""
     import jax
     return jax.tree.map(np.asarray, tree)
+
+
+class KernelCount:
+    """Counts the attention kernel wrappers' CPU calls (every slot's)."""
+
+    def __init__(self, mp):
+        from repro_torch.kernels.flash_attention import ops as FA
+        from repro_torch.models import layers as LY
+        self.n = {"repro_torch::flash_attention": 0,
+                  "repro_torch::flash_attention_bwd": 0,
+                  "repro_torch::decode_attention": 0}
+        for mod, name, key in (
+                (FA, "flash_attention", "repro_torch::flash_attention"),
+                (LY, "flash_attention", "repro_torch::flash_attention"),
+                (FA, "flash_bwd", "repro_torch::flash_attention_bwd"),
+                (LY, "decode_attention", "repro_torch::decode_attention")):
+            mp.setattr(mod, name, self._wrap(getattr(mod, name), key))
+
+    def _wrap(self, fn, key):
+        def counted(*a, **k):
+            self.n[key] += 1
+            return fn(*a, **k)
+        return counted
