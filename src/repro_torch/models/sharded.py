@@ -475,14 +475,18 @@ class ShardedLM:
                              self.expert_split, dtype)
         else:
             # the FSDP branch: the layer's experts gathered over 'data',
-            # tensor-parallel over d_ff
-            w = {n: mesh.map(lambda s: getattr(get(s).mlp, n).to(dtype))
+            # tensor-parallel over d_ff. The master shards are gathered and
+            # cast after, so that the gather's backward reduce-scatters
+            # their gradients over 'data' in f32, as ``_reduce`` sums every
+            # other parameter's
+            w = {n: mesh.map(lambda s: getattr(get(s).mlp, n))
                  for n in ("w_gate", "w_up", "w_down")}
             if self.expert_fsdp:
                 w = {n: mesh.all_gather(t, "data", dim=2 if n == "w_down"
                                         else 1) for n, t in w.items()}
 
             def local(s, hs, wg, wu, wd):
+                wg, wu, wd = (t.to(dtype) for t in (wg, wu, wd))
                 e_in, disp = MOE.dispatch(get(s).mlp.router, cfg, hs)
                 hid = MOE.expert_hidden(e_in, wg, wu)
                 return (mm_f32(hid, wd) if self.mlp_split

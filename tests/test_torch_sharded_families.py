@@ -24,8 +24,11 @@ and trains without remat (the same values); the port trains with it.
 Tolerances: loss, grad norm and ``moe_aux`` 1e-5 relative against the
 port's unsharded step at both steps and against the reference's first
 step (``moe_dropped`` too: it counts kept pairs, so it is exact up to
-f32 rounding); logits 1e-4 of the largest reference value, as
-``tests/test_torch_sharded_steps.py``. A rerun is bitwise the same.
+f32 rounding); the parameters and moments after the last step against
+the port's unsharded step, and the logits 1e-4 of the largest reference
+value, as ``tests/test_torch_sharded_steps.py`` holds them. A rerun is
+bitwise the same. In bf16, the FSDP branch reduce-scatters its expert
+gradients over 'data' in f32.
 The aux loss enters once: the sharded gradient of every layer's
 ``router`` is the unsharded one (1e-5 of its largest value), where an
 aux counted once per model slot would move it by 3 × the aux term's own
@@ -65,6 +68,13 @@ B, S, N_STEPS, MICRO = 8, 64, 2, 2
 PROMPT, MAX_LEN, N_DECODE = 24, 40, 4
 TRAIN_KW = dict(learning_rate=1e-3, warmup_steps=2, total_steps=10)
 METRICS = ("loss", "grad_norm", "moe_aux", "moe_dropped")
+# the parameters and moments after the last step against the port's
+# unsharded step, as tests/test_torch_sharded_steps.py holds them: every
+# parameter within 2 × the summed lr, at most FLIP_FRACTION of the entries
+# off by more than 1e-3 of it (an AdamW update of a near-zero gradient
+# can turn on f32 rounding), and of each moment at most FLIP_FRACTION off
+# by more than MOMENT_RTOL of its largest value
+MOMENT_RTOL, FLIP_FRACTION = 2e-4, 2e-4
 
 
 def _mesh(dims):
@@ -160,14 +170,21 @@ class _Reference:
     @property
     def port_metrics(self):
         """The port's unsharded train steps' metrics."""
+        return self.port_run[0]
+
+    @property
+    def port_run(self):
+        """The port's unsharded train steps: (metrics of each step, the
+        parameters and AdamW state after the last)."""
         if self._port is None:
             params = self.port_params(train=True)
             popt = TA.init(dict(params.named_parameters()))
             pstep = TST.make_train_step(self.cfg, self.tcfg)
-            self._port = []
+            metrics = []
             for b in self.batches:
                 params, popt, m = pstep(params, popt, _torch(b))
-                self._port.append({k: float(v) for k, v in m.items()})
+                metrics.append({k: float(v) for k, v in m.items()})
+            self._port = (metrics, params, popt)
         return self._port
 
     @property
@@ -303,6 +320,23 @@ def test_sharded_train_steps_match(variant, dims):
                 np.testing.assert_allclose(got[k], want[k], rtol=1e-5,
                                            err_msg=(i, k))
         np.testing.assert_allclose(got["lr"], want["lr"], rtol=1e-6)
+    _, port_params, port_opt = ref.port_run
+    lr_sum = sum(m["lr"] for m in ref.port_metrics)
+    n_flip = n_all = 0
+    got = dict(run.params[-1].named_parameters())
+    for n, w in port_params.named_parameters():
+        d = (got[n] - w).detach().abs()
+        assert float(d.max()) <= 2 * lr_sum + 1e-6, n
+        n_flip += int((d > 1e-6 + 1e-3 * lr_sum).sum())
+        n_all += d.numel()
+    assert n_flip <= FLIP_FRACTION * n_all, (n_flip, n_all)
+    for name in ("mu", "nu"):
+        n_off = 0
+        for n, w in getattr(port_opt, name).items():
+            g = getattr(run.opt[-1], name)[n]
+            n_off += int(((g - w).abs() > MOMENT_RTOL * float(
+                w.abs().max())).sum())
+        assert n_off <= FLIP_FRACTION * n_all, (name, n_off, n_all)
     first = ref.metrics
     assert set(metrics[0]) == set(first)
     for k in METRICS:
@@ -390,6 +424,55 @@ def test_moe_aux_enters_the_loss_once():
         scale = float(w.abs().max())
         assert float((got[n] - w).abs().max()) <= 1e-5 * scale, n
         assert 3 * float(aux_grads[n].abs().max()) > 100 * 1e-5 * scale, n
+
+
+def test_fsdp_expert_gradients_reduce_in_f32():
+    """The FSDP branch in bf16 (the published dtype) on (2, 4), one
+    microbatch of batch 0: the expert weights are gathered over 'data' as
+    their f32 master shards and cast after, so the gather's transpose
+    reduce-scatters their gradients in f32, as ``_reduce`` sums every
+    other parameter's (a bf16 gather would add the data slots' partials
+    in bf16). Their gradients are held to the unsharded bf16 step's: the
+    two differ by the bf16 rounding of their forwards (~0.05 relative
+    here, beside ~0.18 between either and the f32 gradients), so the
+    limits are 0.1 from the unsharded ones and at most 1.5 × the
+    unsharded step's distance from the f32 gradients, and the
+    reduce-scatters' dtype is what tells the f32 sum from a bf16 one."""
+    ref = reference("granite_e6")
+    cfg = dataclasses.replace(ref.cfg, dtype="bfloat16")
+    tcfg = dataclasses.replace(ref.tcfg, microbatches=1)
+    batch = _torch(ref.batches[0])
+    params = ref.port_params(train=True)
+    want = {}
+    for c in (cfg, ref.cfg):
+        TST.loss_fn(params, c, batch)[0].backward()
+        want[c.dtype] = {n: p.grad for n, p in params.named_parameters()}
+        params.zero_grad(set_to_none=True)
+    mesh = _mesh((2, 4))
+    placed = TP.place(params, TP.param_specs(params, cfg, mesh), mesh)
+    with record_collectives() as calls:
+        _, got, _ = TST.make_sharded_grads(cfg, tcfg, mesh)(placed, batch)
+    lm, mlp = ShardedLM(cfg, mesh), params.blocks[0].mlp
+    shapes = {TP.shard_shape(mesh, tuple(
+        None if e == "data" else e for e in lm.pspecs[f"blocks.0.mlp.{n}"]),
+        tuple(getattr(mlp, n).shape)) for n in ("w_gate", "w_up", "w_down")}
+    scatters = [c for c in calls if c.op == "psum_scatter"
+                and c.shapes[0] in shapes]
+    # each layer's three expert weights, gathered once by each of the 2
+    # data rows' 4 model groups in the remat recompute
+    assert len(scatters) == 3 * cfg.n_layers * mesh.axis_size("model")
+    assert all(set(c.dtypes) == {"float32"} for c in scatters)
+    experts = [n for n in got if n.rsplit(".", 1)[-1] in
+               ("w_gate", "w_up", "w_down")]
+    assert len(experts) == 3 * cfg.n_layers
+
+    def dist(a, b):
+        return (sum(float((a[n] - b[n]).square().sum()) for n in experts)
+                / sum(float(b[n].square().sum()) for n in experts)) ** 0.5
+
+    assert dist(got, want["bfloat16"]) <= 0.1
+    assert dist(got, want["float32"]) <= 1.5 * dist(want["bfloat16"],
+                                                     want["float32"])
 
 
 def test_fsdp_plan_gathers_experts_over_data():
