@@ -9,7 +9,9 @@ heads), its products on the tensor cores (bf16 operands split hi + lo),
 so a layer is one launch. Bound on the H100: bytes (see the source).
 
 On a CUDA tensor ``ssd_scan`` launches the kernel or raises; on a CPU
-tensor it runs the plain chunked version (``ref.ssd_chunked``). The
+tensor it runs the plain chunked version (``ref.ssd_chunked``); on
+``meta`` tensors (a dry run's plan) it makes outputs of their shapes and
+records the launch (``optrace.note_kernel``), nothing computed. The
 reference kernel has no VJP, and neither has this one: on a CUDA tensor
 that needs a gradient it raises. Training takes the reference's route
 instead, the chunked scan under autograd (``models.mamba2.ssd_scan_train``),
@@ -21,6 +23,7 @@ import ctypes
 
 import torch
 
+from repro_torch.analysis import optrace as OPT
 from repro_torch.kernels import build as BUILD
 from repro_torch.kernels.bmf_precision.ops import check_cuda_operands
 from repro_torch.kernels.ssd_chunk.ref import CHUNK, ssd_chunked
@@ -55,6 +58,14 @@ def ssd_scan(xdt, a, B_, C_, state0):
         raise ValueError(f"S = {S} is not a multiple of {CHUNK}")
     if xdt.device.type == "cpu":
         return ssd_chunked(xdt, a, B_, C_, state0)
+    if xdt.device.type == "meta":
+        # a dry run's plan: the outputs' shapes and a record of the launch,
+        # nothing computed and no launch counted
+        y, state = torch.empty_like(xdt), torch.empty_like(state0)
+        OPT.note_kernel("repro_torch::ssd_chunk",
+                        dict(xdt=xdt, a=a, B=B_, C=C_, state0=state0),
+                        dict(y=y, state=state))
+        return y, state
     return _launch(xdt, a, B_, C_, state0)
 
 

@@ -10,7 +10,9 @@ on the tensor cores (bf16 hi + lo operands, the next chunk's inputs in
 flight while this one multiplies; see the source).
 
 On a CUDA tensor ``wkv6`` launches the kernel or raises; on a CPU tensor
-it runs the plain chunked version (``ref.wkv_chunked``). The reference
+it runs the plain chunked version (``ref.wkv_chunked``); on ``meta``
+tensors (a dry run's plan) it makes outputs of their shapes and records
+the launch (``optrace.note_kernel``), nothing computed. The reference
 kernel has no VJP, and neither has this one: on a CUDA tensor that needs
 a gradient it raises. Training takes the reference's route instead, the
 chunked scan under autograd (``models.rwkv6.wkv_scan_train``), which the
@@ -22,6 +24,7 @@ import ctypes
 
 import torch
 
+from repro_torch.analysis import optrace as OPT
 from repro_torch.kernels import build as BUILD
 from repro_torch.kernels.bmf_precision.ops import check_cuda_operands
 from repro_torch.kernels.wkv6.ref import CHUNK, wkv_chunked
@@ -56,6 +59,14 @@ def wkv6(r, k, v, logw, u, state0):
         raise ValueError(f"S = {S} is not a multiple of {CHUNK}")
     if r.device.type == "cpu":
         return wkv_chunked(r, k, v, logw, u, state0)
+    if r.device.type == "meta":
+        # a dry run's plan: the outputs' shapes and a record of the launch,
+        # nothing computed and no launch counted
+        y, state = torch.empty_like(r), torch.empty_like(state0)
+        OPT.note_kernel("repro_torch::wkv6",
+                        dict(r=r, k=k, v=v, logw=logw, u=u, state0=state0),
+                        dict(y=y, state=state))
+        return y, state
     return _launch(r, k, v, logw, u, state0)
 
 

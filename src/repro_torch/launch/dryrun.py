@@ -22,11 +22,10 @@ program is every slot's. The plan records
 
 Serving plans take the serving layout of the weights (``model.serve_dtype``,
 what the card serves), training plans the f32 master weights and AdamW
-state. The dense, vlm, moe and audio families are planned; the hybrid
-and ssm families, which have no sharded step yet, and a ``--kv-quant``
-decode (the int8 cache's sharded decode) get ``status: "not_ported"``
-(ROADMAP A.21.2); ``shape_supported``'s skips are recorded as in the
-reference.
+state. Every family is planned; a ``--kv-quant`` decode plans the int8
+cache's sharded decode, and is skipped, with a note, for a family that
+has no int8 cache (``kvcache.QUANT_FAMILIES``). ``shape_supported``'s
+skips are recorded as in the reference.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3_4b --shape train_4k \\
@@ -52,6 +51,7 @@ from repro_torch.configs.base import (ARCH_IDS, INPUT_SHAPES, InputShape,
 from repro_torch.core.topology import record_collectives
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models import model as MODEL
+from repro_torch.models.kvcache import QUANT_FAMILIES
 from repro_torch.models import sharded as SHARDED
 from repro_torch.models import steps as STEPS
 from repro_torch.optim import adamw
@@ -109,11 +109,13 @@ def _tensors_specs(batch, specs):
 
 def plan(cfg, shape: InputShape, mesh: Mesh, kind: str,
          tcfg: Optional[TrainConfig] = None,
-         window_override: Optional[int] = None, n_steps: int = 1) -> Dict:
+         window_override: Optional[int] = None, n_steps: int = 1,
+         kv_quant: bool = False) -> Dict:
     """One slot's program of the sharded step of ``kind`` ("train",
-    "prefill" or "decode": ``n_steps`` decode steps from an empty cache)
-    for ``shape`` on ``mesh``, traced on ``meta``: the record's measured
-    parts (roofline terms per slot, collectives, launches, memory)."""
+    "prefill" or "decode": ``n_steps`` decode steps from an empty cache,
+    an int8 one with ``kv_quant``) for ``shape`` on ``mesh``, traced on
+    ``meta``: the record's measured parts (roofline terms per slot,
+    collectives, launches, memory)."""
     view = mesh.view()
     t0 = time.time()
     if kind == "train":
@@ -146,7 +148,8 @@ def plan(cfg, shape: InputShape, mesh: Mesh, kind: str,
         else:
             batch = STEPS.decode_token_specs(shape)
             cache = lm.cache_init(shape.global_batch, shape.seq_len,
-                                  window_override, device=META)
+                                  window_override, device=META,
+                                  kv_quant=kv_quant)
             step = SHARDED.make_sharded_serve_step(cfg, view,
                                                    window_override)
             args = (p_loc, cache)
@@ -202,14 +205,13 @@ def lower_one(arch_id: str, shape_name: str, multi_pod: bool,
     ok, note = shape_supported(cfg, shape)
     if not ok:
         return {**head, "status": "skipped", "note": note}
-    kv_quant = bool(extra_tags and extra_tags.get("kv_quant"))
-    if cfg.family not in SHARDED.SHARDED_FAMILIES or (
-            kv_quant and shape.kind == "decode"):
-        what = ("the int8 cache" if cfg.family in SHARDED.SHARDED_FAMILIES
-                else f"the {cfg.family} family")
-        rec = {**head, "status": "not_ported",
-               "note": f"no sharded step for {what} yet (ROADMAP "
-                       f"A.21.2)"}
+    kv_quant = bool(extra_tags and extra_tags.get("kv_quant")) and \
+        shape.kind == "decode"
+    if kv_quant and cfg.family not in QUANT_FAMILIES:
+        rec = {**head, "status": "skipped",
+               "note": f"the {cfg.family} family has no int8 cache (its "
+                       f"reference decode reads one only for the "
+                       f"{', '.join(QUANT_FAMILIES)} families)"}
         if extra_tags:
             rec.update(extra_tags)
         return rec
@@ -218,7 +220,7 @@ def lower_one(arch_id: str, shape_name: str, multi_pod: bool,
     mesh = production_mesh(multi_pod)
     win = STEPS.long_context_window(cfg, shape)
     kind = shape.kind
-    p = plan(cfg, shape, mesh, kind, tcfg, win)
+    p = plan(cfg, shape, mesh, kind, tcfg, win, kv_quant=kv_quant)
     tokens = shape.global_batch * (1 if kind == "decode" else shape.seq_len)
     n_active = cfg.active_param_count()
     mf = ROOF.model_flops_per_step(n_active, tokens, kind) / mesh.size

@@ -77,6 +77,12 @@ def quantize_kv(x):
     return q.to(torch.int8), scale
 
 
+def cache_slot(max_len: int, pos: int, ring: bool) -> int:
+    """The slot position ``pos`` is written to: ``pos % max_len`` in a
+    ring, else ``pos`` clamped to the last slot."""
+    return pos % max_len if ring else min(pos, max_len - 1)
+
+
 def attn_cache_update(cache_layer_k, cache_layer_v, kv_pos, k_new, v_new,
                       pos: int, ring: bool, k_scale=None, v_scale=None):
     """Write one token (k_new/v_new: (B, 1, Hkv, hd)) of one layer at
@@ -85,8 +91,7 @@ def attn_cache_update(cache_layer_k, cache_layer_v, kv_pos, k_new, v_new,
     as the reference's ``dynamic_update_slice`` clamps it. An int8 cache
     takes ``quantize_kv``'s values, and its scales go to ``k_scale`` /
     ``v_scale`` (B, max_len, Hkv) at the same slot."""
-    max_len = cache_layer_k.shape[1]
-    slot = pos % max_len if ring else min(pos, max_len - 1)
+    slot = cache_slot(cache_layer_k.shape[1], pos, ring)
     if cache_layer_k.dtype == torch.int8:
         for c, sc, new in ((cache_layer_k, k_scale, k_new),
                            (cache_layer_v, v_scale, v_new)):

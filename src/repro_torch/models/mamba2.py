@@ -95,9 +95,19 @@ class Mamba2Mixer(nn.Module):
         """x: (B, S, d); state: dict of conv_x / conv_B / conv_C histories
         (B, W-1, ·) and ssm (B, H, P, N) f32. Returns (out (B, S, d), the
         new state as a dict of new tensors)."""
-        cfg = self.cfg
+        y, z, new = self.mix(x, state)
+        y = self.gate(self.norm(y), z)
+        return y @ self.out_proj.to(x.dtype), new
+
+    def mix(self, x, state) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
+        """The mixer up to its gated norm, over the heads its parameters
+        hold (``A_log``'s length: all H, or a model slot's share, whose
+        ``w_z`` / ``w_x`` / ``conv_x`` columns are those heads' channels;
+        ``B`` and ``C`` are whole on every slot): the projections, the
+        causal convolutions, the scan and the D skip. Returns (y (B, S,
+        heads · P) in x's dtype, z, the new state)."""
         Bb, S, _ = x.shape
-        d_in, H, N, P = mamba2_dims(cfg)
+        H, P = self.A_log.shape[0], self.cfg.ssm_head_dim
         z = x @ self.w_z.to(x.dtype)
         xin = x @ self.w_x.to(x.dtype)
         B_ = x @ self.w_B.to(x.dtype)
@@ -136,11 +146,13 @@ class Mamba2Mixer(nn.Module):
                                   Cp.contiguous(), state["ssm"].contiguous())
             y = y[:, :S]
         y = y + self.D.float()[None, None, :, None] * xh
-        y = self.norm(y.reshape(Bb, S, d_in).to(x.dtype))
-        y = y * F.silu(z.float()).to(x.dtype)
-        out = y @ self.out_proj.to(x.dtype)
-        return out, {"conv_x": st_x, "conv_B": st_B, "conv_C": st_C,
-                     "ssm": ssm}
+        return (y.reshape(Bb, S, H * P).to(x.dtype), z,
+                {"conv_x": st_x, "conv_B": st_B, "conv_C": st_C, "ssm": ssm})
+
+    @staticmethod
+    def gate(y, z):
+        """The normed y times silu(z), in y's dtype."""
+        return y * F.silu(z.float()).to(y.dtype)
 
 
 def mamba2_state_init(cfg: ArchConfig, batch: int, dtype, device,

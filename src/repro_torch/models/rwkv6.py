@@ -72,9 +72,21 @@ class TimeMix(nn.Module):
     def forward(self, x, x_prev, state):
         """x: (B, S, d); x_prev: (B, d); state: (B, H, N, N) f32. Returns
         (out (B, S, d), x's last token, the new state)."""
+        y, g, state = self.mix(x, x_prev, state)
+        y = self.gate(self.ln_out(y), g)
+        return y @ self.wo.to(x.dtype), x[:, -1], state
+
+    def mix(self, x, x_prev, state, cols=None):
+        """The time-mix up to ``ln_out``, over the WKV heads whose columns
+        ``wr`` / ``wk`` / ``wv`` / ``wg`` hold (all of them, or a model
+        slot's share: columns ``cols`` = (first, end) of d, whose columns
+        of ``logw`` and ``u`` it computes from the replicated decay and
+        bonus): the token shift and the five mixes of the whole x, the
+        projections, the decay and the scan. Returns (y (B, S, columns)
+        f32, g in x's dtype, the new state)."""
         Bb, S, d = x.shape
         N = self.cfg.wkv_head_dim
-        H = d // N
+        H = self.wr.shape[1] // N
         shifted = token_shift(x, x_prev)
         mix = self.mix_base.to(x.dtype)                       # (5, d)
         xs = [x + mix[i] * (shifted - x) for i in range(5)]
@@ -82,10 +94,14 @@ class TimeMix(nn.Module):
         k = xs[1] @ self.wk.to(x.dtype)
         v = xs[2] @ self.wv.to(x.dtype)
         g = xs[3] @ self.wg.to(x.dtype)
+        w0, dB, u = self.decay_w0, self.decay_B, self.bonus_u
+        if cols is not None:
+            w0, dB, u = w0[cols[0]:cols[1]], dB[:, cols[0]:cols[1]], \
+                u[cols[0]:cols[1]]
         lora = torch.tanh(xs[4].float() @ self.decay_A.float()
-                          ) @ self.decay_B.float()
-        logw = -torch.exp(self.decay_w0.float() + lora)       # (B, S, d) < 0
-        u = self.bonus_u.float().reshape(H, N)
+                          ) @ dB.float()
+        logw = -torch.exp(w0.float() + lora)                  # (B, S, ·) < 0
+        u = u.float().reshape(H, N)
 
         rf, kf, vf, wf = (t.float().reshape(Bb, S, H, N)
                           for t in (r, k, v, logw))
@@ -105,9 +121,12 @@ class TimeMix(nn.Module):
                             wf.contiguous(), u.contiguous(),
                             state.contiguous())
             y = y[:, :S]
-        y = self.ln_out(y.reshape(Bb, S, d))                  # f32
-        y = y.to(x.dtype) * F.silu(g.float()).to(x.dtype)
-        return y @ self.wo.to(x.dtype), x[:, -1], state
+        return y.reshape(Bb, S, H * N), g, state
+
+    @staticmethod
+    def gate(y, g):
+        """The normed f32 y in g's dtype times silu(g)."""
+        return y.to(g.dtype) * F.silu(g.float()).to(g.dtype)
 
 
 class ChannelMix(nn.Module):
@@ -119,8 +138,14 @@ class ChannelMix(nn.Module):
     def forward(self, x, x_prev):
         """Squared-ReLU MLP on the token-shifted mix. Returns (out, x's
         last token)."""
+        h, last = self.hidden(x, x_prev)
+        return h @ self.w_out.to(x.dtype), last
+
+    def hidden(self, x, x_prev):
+        """relu(xk @ w_in)² of the token-shifted mix (what ``w_out``
+        takes, all of d_ff or a model slot's columns), and x's last
+        token."""
         shifted = token_shift(x, x_prev)
         xk = x + self.mix_base.to(x.dtype)[0] * (shifted - x)
         h = xk @ self.w_in.to(x.dtype)
-        h = torch.square(F.relu(h.float())).to(x.dtype)
-        return h @ self.w_out.to(x.dtype), x[:, -1]
+        return torch.square(F.relu(h.float())).to(x.dtype), x[:, -1]

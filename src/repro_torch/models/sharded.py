@@ -1,8 +1,8 @@
-"""The train, prefill and decode steps of the dense, vlm, moe and audio
-families as SPMD programs over a ('data', 'model') mesh (the counterpart
-of the reference's sharded steps: ``jax.jit(step, in_shardings=...,
-out_shardings=...)`` under the dry-run mesh, the program GSPMD derives
-from ``sharding.partitioning``'s specs).
+"""The train, prefill and decode steps of every family (dense, vlm, moe,
+audio, hybrid, ssm) as SPMD programs over a ('data', 'model') mesh (the
+counterpart of the reference's sharded steps: ``jax.jit(step,
+in_shardings=..., out_shardings=...)`` under the dry-run mesh, the
+program GSPMD derives from ``sharding.partitioning``'s specs).
 
 The port is single-controller: one process drives every slot of a
 ``launch.mesh.Mesh`` in lockstep, each slot's work on its own CUDA stream
@@ -11,19 +11,22 @@ axes. Each slot holds its shards (``partitioning.place``) as a
 ``CausalLM`` of the shards, and runs the model's own modules on them:
 the norms, the projections (``Attention.columns``, ``norm_rope``,
 ``SwiGLU.hidden``, ``GeluMLP.hidden``, ``layers.unembed``), the MoE's
-stages (``moe.dispatch``, ``expert_hidden``, ``combine``), and the
-kernels L1 (prompt and training forward), L2 (training backward) and L3
-(decode) on its heads. Only the block's order (norm, attention,
-residual, [norm, cross-attention, residual,] norm, MLP, residual) is
-spelt out again here, since collectives fall between its pieces. The
-batch stays where ``batch_specs`` puts it, which is where the
-reference's carry constraint keeps it (``ShardedLM.batch_spec`` checks
-it), so a block boundary moves nothing. Where the placement demands it:
+stages (``moe.dispatch``, ``expert_hidden``, ``combine``), the mixers'
+``Mamba2Mixer.mix`` / ``TimeMix.mix`` / ``ChannelMix.hidden``, and the
+kernels L1 (prompt and training forward), L2 (training backward), L3
+(decode), L4 and L5 (a prompt's scans) on its heads. Only the block's
+order (norm, attention or mixer, residual, [norm, cross-attention,
+residual,] norm, MLP, residual) is spelt out again here, since
+collectives fall between its pieces. The batch stays where
+``batch_specs`` puts it, which is where the reference's carry constraint
+keeps it (``ShardedLM.batch_spec`` checks it), so a block boundary moves
+nothing. Where the placement demands it:
 
-  - row-parallel outputs: ``wo``, ``mlp/w_down`` and ``mlp/w_out`` give
-    f32 partial products, summed over 'model' (``psum``) in f32 and cast
-    once, as the unsharded product rounds once; a row-parallel bias
-    (whisper's ``mlp/b_out``, replicated) is added once, after the sum;
+  - row-parallel outputs: ``wo``, ``mlp/w_down``, ``mlp/w_out``,
+    ``mixer/out_proj``, ``att/wo`` and ``ffn/w_out`` give f32 partial
+    products, summed over 'model' (``psum``) in f32 and cast once, as the
+    unsharded product rounds once; a row-parallel bias (whisper's
+    ``mlp/b_out``, replicated) is added once, after the sum;
   - vocab-parallel embedding: ``table`` is split over 'model' by rows, so
     a slot looks up the tokens in its rows (zeros elsewhere) and the
     partials are summed; tied embeddings unembed by the shard's
@@ -39,6 +42,14 @@ it), so a block boundary moves nothing. Where the placement demands it:
     (``constraints.constrain`` on a ``Sharded`` value). A decode cache
     follows ``cache_specs``: by heads, else by head dim, in which case a
     layer's K/V are gathered over 'model' to whole heads before L3;
+  - the int8 cache (dense, moe, vlm): each slot quantizes the token's K/V
+    of the whole heads it holds (``quantize_kv``: one scale per head, the
+    amax over the whole head dim, also where the cache keeps only part of
+    it) and writes its part of the values and of the scales (by heads
+    where Hkv divides 'model', else replicated); the layer's int8 K/V are
+    gathered over 'model' like bf16 ones and read by the plain
+    ``layers.flash_attend``, as unsharded. As unsharded, only decode
+    fills it: the sharded prefill refuses one;
   - vlm: each slot puts its rows' ``image_embeds`` before their token
     embeddings; positions count the image prefix, the loss the text;
   - audio: every slot runs the encoder over its rows' ``audio_embeds``
@@ -64,6 +75,29 @@ it), so a block boundary moves nothing. Where the placement demands it:
     enters the loss once (through the first model slot of each data row,
     as the cross entropy does), so the router's gradient, summed over
     'model' with the other replicated parameters', counts it once;
+  - hybrid (Mamba2 layers and the shared attention block): a slot holds
+    H / M of the SSD heads (``w_z``, ``w_x``, ``w_dt``, ``conv_x`` and its
+    bias, ``A_log``, ``D``, ``dt_bias`` and the gated norm's scale by
+    columns or heads) and the whole ``B`` / ``C`` projections and
+    convolutions (replicated), and runs L4 (a prompt), ``ssd_step`` (one
+    token) or the training scan on its heads; the shared block is the
+    dense path's, attending with the ring's size as its window in
+    prefill and decode. The decode cache splits the ``conv_B`` /
+    ``conv_C`` histories on N, where every slot convolves the whole B and
+    C: they are gathered over 'model' before the layer, and each slot
+    writes back its part; ``conv_x`` and ``ssm`` line up with its heads;
+  - ssm (RWKV6): ``att/wr|wk|wv|wg`` and ``ffn/w_in`` column-parallel
+    (whole WKV heads per slot, L5, ``wkv_step`` or the training scan on
+    them), the decay, bonus and mixes replicated (a slot computes its
+    columns of ``logw`` and ``u``); the token shift and the five mixes act
+    on the whole replicated residual, so decode gathers the cache's
+    ``shift_att`` / ``shift_ffn`` (split on d) over 'model', and each
+    slot stores its part of the new ones; ``wkv`` splits by heads;
+  - norms over a split dimension (the Mamba2 gated norm over d_inner,
+    RWKV6's ``ln_out`` over d): each slot's f32 Σ y² over its columns is
+    summed over 'model' (``psum``, whose autograd transpose sums the
+    cotangents) and divided by the whole dimension, as the unsharded norm
+    takes its mean;
   - data parallelism and ZeRO-1: microbatch i is the unsharded step's
     (rows i·B/M … (i + 1)·B/M − 1 of the batch), placed over the data
     slots; the f32 gradients are summed over 'model' where a parameter is
@@ -74,9 +108,9 @@ it), so a block boundary moves nothing. Where the placement demands it:
     The global gradient norm counts each distinct shard once.
 
 Collectives add in slot order (``core.topology.Group``), so a rerun is
-bitwise the same. The hybrid and ssm families raise
-``NotImplementedError`` (ROADMAP A.21.2), with no fall-back to the
-unsharded step.
+bitwise the same. A placement the port does not run (a head split
+inside, a cache split over its slots) raises ``NotImplementedError``,
+with no fall-back to the unsharded step.
 """
 from __future__ import annotations
 
@@ -88,22 +122,15 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig, InputShape, TrainConfig
 from repro_torch.models import layers as L
 from repro_torch.models import model as MODEL
+from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
-from repro_torch.models.kvcache import attn_cache_update, serve_cache_init
+from repro_torch.models.kvcache import (attn_cache_update, cache_slot,
+                                        quantize_kv, serve_cache_init)
 from repro_torch.optim import adamw, schedules
 from repro_torch.sharding import partitioning as PART
 from repro_torch.sharding.constraints import batch_axes, constrain, use_mesh
 
-SHARDED_FAMILIES = ("dense", "vlm", "moe", "audio")
 META = torch.device("meta")
-
-
-def check_family(cfg: ArchConfig):
-    if cfg.family not in SHARDED_FAMILIES:
-        raise NotImplementedError(
-            f"the sharded steps cover the {', '.join(SHARDED_FAMILIES)} "
-            f"families; {cfg.name} ({cfg.family}) is queued in ROADMAP "
-            f"A.21.2")
 
 
 # ---------------------------------------------------------------------------
@@ -185,7 +212,6 @@ class ShardedLM:
     ``get(slot)`` -> that slot's block module."""
 
     def __init__(self, cfg: ArchConfig, mesh):
-        check_family(cfg)
         from repro_torch.models import steps as STEPS
         self.cfg, self.mesh = cfg, mesh
         self.meta_params = STEPS.params_specs(cfg)
@@ -198,30 +224,67 @@ class ShardedLM:
             raise NotImplementedError("only the moe family's expert weights "
                                       "shard a dim over 'data'")
         self.M = mesh.axis_size("model")
-        self.hd = cfg.resolved_head_dim
         self.data = tuple(a for a in ("pod", "data") if a in mesh.shape)
         self.n_data = mesh.axis_size(self.data)
         sp = self.pspecs
-        attn = "blocks.0.self_attn." if cfg.is_encdec else "blocks.0.attn."
-        self.q_cols = sp[attn + "wq"][1] == "model"
-        self.kv_cols = sp[attn + "wk"][1] == "model"
-        self.wo_rows = sp[attn + "wo"][0] == "model"
-        self.expert_split = self.expert_fsdp = False
-        if cfg.is_moe:
-            wg = sp["blocks.0.mlp.w_gate"]
-            self.expert_split = wg[0] == "model"     # expert-parallel
-            self.expert_fsdp = wg[1] == "data"
-            self.mlp_split = wg[2] == "model"        # d_ff over 'model'
-        elif cfg.is_encdec:
-            self.mlp_split = sp["blocks.0.mlp.w_out"][0] == "model"
-        else:
-            self.mlp_split = sp["blocks.0.mlp.w_down"][0] == "model"
         self.table_split = sp["table"][0] == "model"
         self.unembed_split = (self.table_split if cfg.tie_embeddings
                               else sp["unembed"][1] == "model")
+        self.expert_split = self.expert_fsdp = False
+        self.mixer_split = self.time_split = self.ffn_split = False
+        if cfg.family in ("hybrid", "ssm"):
+            self._recurrent_layout()
+        if cfg.family == "ssm":       # attention-free
+            self.hd = 0
+            return
+        self.hd = cfg.resolved_head_dim
+        # the attention and MLP of the first block that has them (the
+        # hybrid family's: the shared block)
+        first = {"audio": "blocks.0.self_attn.",
+                 "hybrid": "shared_attn.attn."}.get(cfg.family,
+                                                    "blocks.0.attn.")
+        mlp = ("shared_attn.mlp." if cfg.family == "hybrid"
+               else "blocks.0.mlp.")
+        self.q_cols = sp[first + "wq"][1] == "model"
+        self.kv_cols = sp[first + "wk"][1] == "model"
+        self.wo_rows = sp[first + "wo"][0] == "model"
+        if cfg.is_moe:
+            wg = sp[mlp + "w_gate"]
+            self.expert_split = wg[0] == "model"     # expert-parallel
+            self.expert_fsdp = wg[1] == "data"
+            self.mlp_split = wg[2] == "model"        # d_ff over 'model'
+        else:
+            self.mlp_split = sp[mlp + ("w_out" if cfg.is_encdec
+                                       else "w_down")][0] == "model"
         H, Hkv = cfg.n_heads, cfg.n_kv_heads
         self.q_split = self.q_cols and H % self.M == 0
         self.kv_split = self.kv_cols and Hkv % self.M == 0
+
+    def _recurrent_layout(self):
+        """The hybrid mixers' and the ssm time-mix's split, from the
+        parameter specs: a slot runs whole heads, whose columns and cache
+        states (split by the same rule) line up; the B / C histories
+        (hybrid) and the token shifts (ssm), which every slot needs whole,
+        the cache may split all the same (``bc_split``,
+        ``shift_split``)."""
+        cfg, sp, M = self.cfg, self.pspecs, self.M
+        cspec = PART.cache_specs(serve_cache_init(cfg, 1, 1, device=META),
+                                 cfg, None, self.mesh)
+        if cfg.family == "hybrid":
+            d_in, H, _, _ = M2.mamba2_dims(cfg)
+            self.mixer_split = split = sp["blocks.0.mixer.w_x"][1] == "model"
+            self.bc_split = cspec["mamba"]["conv_B"][3] == "model"
+            what = f"d_inner ({d_in})", f"the {H} SSD heads"
+        else:
+            d, H = cfg.d_model, cfg.d_model // cfg.wkv_head_dim
+            self.time_split = split = sp["blocks.0.att.wr"][1] == "model"
+            self.ffn_split = sp["blocks.0.ffn.w_out"][0] == "model"
+            self.shift_split = cspec["shift_att"][2] == "model"
+            what = f"d ({d})", f"the {H} WKV heads"
+        if split and H % M:
+            raise NotImplementedError(
+                f"'model' = {M} divides {what[0]} but not {what[1]}: a "
+                f"slot would hold part of a head")
 
     # -- where a slot's shards lie ------------------------------------------
 
@@ -386,15 +449,16 @@ class ShardedLM:
                 fill(k, v)
 
             def local(s, qs, ks, vs):
-                ks, vs = self.kv_for_q(s, ks, vs, self.kv_heads(s))
+                ks, vs = self.kv_for_q(s, (ks, vs), self.kv_heads(s))
                 return L._prompt_attention(qs, ks, vs, causal=False)
 
             return self.mesh.map(local, q, k, v)
         return cross
 
-    def kv_for_q(self, s, k, v, held):
+    def kv_for_q(self, s, ts, held):
         """The K/V heads the slot's q heads attend to, out of the heads
-        ``held`` = (first, end) that k/v (b, S, ·, hd) hold: a slice where
+        ``held`` = (first, end) that each of ``ts`` (k and v (b, S, ·, hd),
+        and an int8 cache's scales (b, S, ·)) holds on dim 2: a slice where
         the q heads' groups line up with it, else one K/V head per q head
         (group 1)."""
         G = self.cfg.n_heads // self.cfg.n_kv_heads
@@ -402,11 +466,11 @@ class ShardedLM:
         lo, hi = qa // G, -(-qb // G)
         if hi - lo == 1 or (qa % G == 0 and qb % G == 0):
             if (lo, hi) == held:
-                return k, v
-            return (k[:, :, lo - held[0]:hi - held[0]].contiguous(),
-                    v[:, :, lo - held[0]:hi - held[0]].contiguous())
-        idx = torch.arange(qa, qb, device=k.device) // G - held[0]
-        return k.index_select(2, idx), v.index_select(2, idx)
+                return ts
+            return tuple(t[:, :, lo - held[0]:hi - held[0]].contiguous()
+                         for t in ts)
+        idx = torch.arange(qa, qb, device=ts[0].device) // G - held[0]
+        return tuple(t.index_select(2, idx) for t in ts)
 
     def out_proj(self, attn_of, o, dtype):
         """Each slot's attention output (b, S, heads·hd, its q heads'
@@ -518,7 +582,7 @@ class ShardedLM:
         autograd Function) over their K/V heads."""
         def attend(q, k, v):
             def local(s, qs, ks, vs):
-                ks, vs = self.kv_for_q(s, ks, vs, self.kv_heads(s))
+                ks, vs = self.kv_for_q(s, (ks, vs), self.kv_heads(s))
                 return L._prompt_attention(qs, ks, vs, causal, window)
             return self.mesh.map(local, q, k, v)
         return attend
@@ -557,6 +621,171 @@ class ShardedLM:
         h = mesh.map(lambda s, xs: get(s).ln2(xs), x)
         m, a = self.mlp(get, h, dtype, aux)
         return add(x, m), k, v, a
+
+    # -- the recurrent families ----------------------------------------------
+
+    def cols(self, s, n: int, split: bool):
+        """The slot's (first, end) columns of a dimension of ``n`` split
+        over 'model' (all of them where ``split`` is false)."""
+        return _range(self.m(s), n, self.M) if split else (0, n)
+
+    def mamba(self, get, x, states):
+        """The Mamba2 layer ``get(slot)`` (a ``MambaBlock``) on every
+        slot: x + the mixer of its normed x over the slot's heads
+        (``Mamba2Mixer.mix``, from ``states``: each slot's conv_x and ssm
+        of its heads, the whole conv_B / conv_C histories), the gated norm
+        over the whole d_inner, the row-parallel ``out_proj``. Returns (x,
+        each slot's new state) per slot."""
+        mesh = self.mesh
+        dtype = next(iter(x.values())).dtype
+        out = mesh.map(lambda s, xs, st: get(s).mixer.mix(get(s).ln(xs), st),
+                       x, states)
+        y = self._norm_split({s: o[0] for s, o in out.items()},
+                             lambda s: get(s).mixer.norm, self.mixer_split,
+                             M2.mamba2_dims(self.cfg)[0])
+
+        def proj(s, ys, o):
+            m = get(s).mixer
+            g = m.gate(ys, o[1])
+            return (mm_f32(g, m.out_proj.to(dtype)) if self.mixer_split
+                    else g @ m.out_proj.to(dtype))
+
+        a = self._reduce(mesh.map(proj, y, out), self.mixer_split, dtype)
+        return (mesh.map(lambda s, t, u: t + u, x, a),
+                {s: o[2] for s, o in out.items()})
+
+    def rwkv(self, get, x, wkv, shift_att, shift_ffn):
+        """The RWKV6 layer ``get(slot)`` (an ``RwkvBlock``) on every slot:
+        the time-mix of its normed x over the slot's heads (``TimeMix.mix``
+        with its columns of the decay and bonus; ``wkv`` each slot's state
+        of its heads, ``shift_att`` / ``shift_ffn`` the whole (b, d)
+        previous tokens), ``ln_out`` over the whole d, the row-parallel
+        ``wo``, then the channel-mix (``w_in`` column-, ``w_out``
+        row-parallel), each with a residual. Returns (x, (wkv, the
+        time-mix's last normed token, the channel-mix's), per slot)."""
+        mesh, d = self.mesh, self.cfg.d_model
+        dtype = next(iter(x.values())).dtype
+
+        def att(s, xs, w, sa):
+            blk = get(s)
+            h = blk.ln1(xs)
+            cols = self.cols(s, d, True) if self.time_split else None
+            return blk.att.mix(h, sa, w, cols) + (h[:, -1],)
+
+        out = mesh.map(att, x, wkv, shift_att)
+
+        # ln_out's scale is replicated: a slot takes its columns
+        y = self._norm_split({s: o[0] for s, o in out.items()},
+                             lambda s: get(s).att.ln_out, self.time_split,
+                             d, sliced=True)
+
+        def wo(s, ys, o):
+            t = get(s).att
+            g = t.gate(ys, o[1])
+            return (mm_f32(g, t.wo.to(dtype)) if self.time_split
+                    else g @ t.wo.to(dtype))
+
+        x = mesh.map(lambda s, t, u: t + u, x,
+                     self._reduce(mesh.map(wo, y, out), self.time_split,
+                                  dtype))
+
+        def ffn(s, xs, sf):
+            blk = get(s)
+            h = blk.ln2(xs)
+            hid, last = blk.ffn.hidden(h, sf)
+            w = blk.ffn.w_out.to(dtype)
+            return (mm_f32(hid, w) if self.ffn_split else hid @ w), last
+
+        f = mesh.map(ffn, x, shift_ffn)
+        x = mesh.map(lambda s, t, u: t + u, x, self._reduce(
+            {s: o[0] for s, o in f.items()}, self.ffn_split, dtype))
+        return x, {s: (out[s][2], out[s][3], f[s][1]) for s in mesh.slots}
+
+    def _norm_split(self, y, norm_of, split, n, sliced=False):
+        """``norm_of(slot)`` (an ``RMSNorm``) of each slot's y: where
+        ``split``, y holds the slot's columns of a dimension of ``n``, and
+        the norm is taken over the whole of it (``rmsnorm_over_model``)
+        with the slot's columns of the scale (the scale itself, or with
+        ``sliced`` its slice of a replicated one); else the module
+        itself."""
+        if not split:
+            return self.mesh.map(lambda s, t: norm_of(s)(t), y)
+
+        def scale(s):
+            sc = norm_of(s).scale
+            if not sliced:
+                return sc
+            a, b = self.cols(s, n, True)
+            return sc[a:b]
+
+        return rmsnorm_over_model(self.mesh, y, {
+            s: scale(s) for s in self.mesh.slots}, n, self.cfg.norm_eps)
+
+    def mamba_states(self, b: int, dtype, device):
+        """Each slot's zero Mamba2 state at ``b`` rows: conv_x and ssm of
+        its heads, the whole conv_B / conv_C histories."""
+        d_in, H, N, P = M2.mamba2_dims(self.cfg)
+        W, k = self.cfg.ssm_conv_width, (self.M if self.mixer_split else 1)
+
+        def zeros(*shape, dt=dtype):
+            return torch.zeros(shape, dtype=dt, device=device)
+
+        return {s: {"conv_x": zeros(b, W - 1, d_in // k),
+                    "conv_B": zeros(b, W - 1, N), "conv_C": zeros(b, W - 1, N),
+                    "ssm": zeros(b, H // k, P, N, dt=torch.float32)}
+                for s in self.mesh.slots}
+
+    def mamba_cached(self, get, x, cache, li):
+        """The Mamba2 layer ``get(slot)`` over each slot's cache state of
+        layer ``li``, updated in place: the conv_B / conv_C histories
+        gathered over 'model' where the cache splits them on N, and each
+        slot's part of the new ones written back."""
+        mesh, N = self.mesh, self.cfg.ssm_state
+        st = {s: {n: t[li] for n, t in cache[s]["mamba"].items()}
+              for s in mesh.slots}
+        if self.bc_split:
+            for n in ("conv_B", "conv_C"):
+                whole = mesh.all_gather({s: st[s][n] for s in mesh.slots},
+                                        "model", dim=2)
+                for s in mesh.slots:
+                    st[s][n] = whole[s]
+        x, new = self.mamba(get, x, st)
+
+        def write(s, nw):
+            a, b = self.cols(s, N, self.bc_split)
+            for n, t in cache[s]["mamba"].items():
+                t[li].copy_(nw[n][..., a:b] if n in ("conv_B", "conv_C")
+                            else nw[n])
+
+        mesh.map(write, new)
+        return x
+
+    def rwkv_cached(self, get, x, cache, li, shifts: bool):
+        """The RWKV6 layer ``get(slot)`` over each slot's ``wkv`` state of
+        layer ``li`` and, with ``shifts``, the cache's token shifts
+        (gathered over 'model' where the cache splits them on d; without,
+        zeros: a prompt starts from them, as unsharded), updated in place
+        (each slot writes its part of the new shifts)."""
+        mesh, d = self.mesh, self.cfg.d_model
+        wkv = {s: cache[s]["wkv"][li] for s in mesh.slots}
+        prev = []
+        for n in ("shift_att", "shift_ffn"):
+            t = {s: cache[s][n][li] for s in mesh.slots}
+            if not shifts:
+                t = mesh.map(lambda s, u: u.new_zeros(u.shape[0], d), t)
+            elif self.shift_split:
+                t = mesh.all_gather(t, "model", dim=1)
+            prev.append(t)
+        x, new = self.rwkv(get, x, wkv, *prev)
+
+        def write(s, nw):
+            a, b = self.cols(s, d, self.shift_split)
+            cache[s]["wkv"][li].copy_(nw[0])
+            cache[s]["shift_att"][li].copy_(nw[1][:, a:b])
+            cache[s]["shift_ffn"][li].copy_(nw[2][:, a:b])
+
+        mesh.map(write, new)
+        return x
 
     def logits(self, params, x):
         """Each slot's f32 logits over its vocabulary shard (-1e9 on the
@@ -622,19 +851,26 @@ class ShardedLM:
     # -- caches --------------------------------------------------------------
 
     def cache_init(self, B: int, seq_len: int, window_override=None,
-                   device=None, dtype=torch.bfloat16):
+                   device=None, dtype=torch.bfloat16, kv_quant=False):
         """Each slot's empty serving cache under ``cache_specs`` (``pos``
-        0, K/V zeros in ``dtype``, ``kv_pos`` -1; the audio family's
-        ``cross_k`` / ``cross_v`` zeros beside them and ``cross_pos`` =
-        arange(F), replicated), on the slot's device (``device`` where the
-        mesh has none)."""
+        0, K/V and recurrent states zeros in ``dtype`` (the ssm and WKV
+        states f32), ``kv_pos`` -1; the audio family's ``cross_k`` /
+        ``cross_v`` zeros beside them and ``cross_pos`` = arange(F),
+        replicated; with ``kv_quant`` the int8 K/V and their f32 scales),
+        on the slot's device (``device`` where the mesh has none)."""
         cfg, mesh = self.cfg, self.mesh
         full = serve_cache_init(cfg, B, seq_len, dtype=dtype,
-                                window_override=window_override, device=META)
+                                window_override=window_override, device=META,
+                                kv_quant=kv_quant)
         specs = PART.cache_specs(full, cfg, None, mesh)
-        self.set_cache_spec(B, full["attn"]["k"].shape[2])
+        if "attn" in full:
+            self.set_cache_spec(B, full["attn"]["k"].shape[2])
 
         def make(name, t, spec, dev):
+            if isinstance(t, dict):
+                return {n: make(n, u, spec[n], dev) for n, u in t.items()}
+            if not isinstance(t, torch.Tensor):      # pos
+                return t
             shp = PART.shard_shape(mesh, spec, t.shape)
             if name == "kv_pos":
                 return torch.full(shp, -1, dtype=t.dtype, device=dev)
@@ -642,16 +878,9 @@ class ShardedLM:
                 return torch.arange(shp[0], dtype=t.dtype, device=dev)
             return torch.zeros(shp, dtype=t.dtype, device=dev)
 
-        out = {}
-        for s in mesh.slots:
-            dev = mesh.device(s) if mesh.devices is not None else device
-            out[s] = {"pos": 0, "attn": {
-                n: make(n, t, specs["attn"][n], dev)
-                for n, t in full["attn"].items()}}
-            out[s].update({n: make(n, full[n], specs[n], dev)
-                           for n in ("cross_k", "cross_v", "cross_pos")
-                           if n in full})
-        return out
+        return {s: make("", full, specs, mesh.device(s)
+                        if mesh.devices is not None else device)
+                for s in mesh.slots}
 
     def set_cache_spec(self, B: int, S: int):
         """The K/V cache spec at B sequences of S slots (the cross cache
@@ -681,6 +910,27 @@ class ShardedLM:
         if (cb - ca, hb - ha) == tuple(t.shape[2:]):
             return t
         return t[:, :, ca - ka:cb - ka, ha:hb]
+
+    def scale_part(self, s, sc):
+        """The part of an int8 cache's scales (b, held heads) in the
+        slot's scale shard: its heads where the cache splits heads, else
+        every head (replicated)."""
+        (ca, cb), _ = self.cache_ranges(s)
+        ka = self.kv_heads(s)[0]
+        return sc if cb - ca == sc.shape[1] else sc[:, ca - ka:cb - ka]
+
+
+def rmsnorm_over_model(mesh, parts, scales, n: int, eps: float):
+    """RMSNorm over a dimension of ``n`` whose columns are split over
+    'model' (``layers.rmsnorm`` of the whole): each slot's f32 Σ x² over
+    its columns, summed over 'model' (``Mesh.psum``, whose autograd
+    transpose sums the cotangents), divided by ``n``; x times its rsqrt
+    and the slot's ``scales`` columns, in x's dtype."""
+    ss = mesh.psum(mesh.map(lambda s, t: t.float().square().sum(
+        -1, keepdim=True), parts), "model")
+    return mesh.map(lambda s, t, q: (t.float() * torch.rsqrt(q / n + eps)
+                                     * scales[s].float()).to(t.dtype),
+                    parts, ss)
 
 
 def constraint_batch(mesh, B: int):
@@ -725,7 +975,9 @@ def _forward(lm: ShardedLM, params, parts, ba, *, remat=False,
              policy="full"):
     """Every slot's f32 vocab-shard logits of its rows (``forward``), and
     for the moe family each slot's layer means of (moe_aux, moe_dropped)
-    (a (2,) tensor), else None."""
+    (a (2,) tensor), else None. The recurrent families start from zero
+    states, and the hybrid shared block attends with
+    ``cfg.sliding_window``, as unsharded."""
     cfg, mesh = lm.cfg, lm.mesh
     dtype = MODEL.compute_dtype(cfg)
     slots = list(mesh.slots)
@@ -736,11 +988,41 @@ def _forward(lm: ShardedLM, params, parts, ba, *, remat=False,
                 else layer(*ins))
 
     x = lm.embed_inputs(params, parts, dtype)
-    S = x[slots[0]].shape[1]
+    b, S = x[slots[0]].shape[:2]
+    dev = x[slots[0]].device
+    if cfg.family == "ssm":
+        N, d = cfg.wkv_head_dim, cfg.d_model
+        H = (d // lm.M if lm.time_split else d) // N
+        for li in range(cfg.n_layers):
+
+            def layer(xd, li=li):
+                wkv = {s: torch.zeros((b, H, N, N), dtype=torch.float32,
+                                      device=dev) for s in slots}
+                prev = {s: torch.zeros((b, d), dtype=dtype, device=dev)
+                        for s in slots}
+                return (lm.rwkv(lambda s: params[s].blocks[li], xd, wkv,
+                                prev, prev)[0],)
+
+            x = run(layer, [x], policy)[0]
+        return lm.logits(params, x), None
     rope, rot_dim = params[slots[0]].rope(0, S)
+    attend = lm.prompt_attention(cfg.sliding_window)
+    if cfg.family == "hybrid":
+        for lo, hi, full in MODEL.hybrid_groups(cfg):
+            for li in range(lo, hi):
+
+                def layer(xd, li=li):
+                    return (lm.mamba(lambda s: params[s].blocks[li], xd,
+                                     lm.mamba_states(b, dtype, dev))[0],)
+
+                x = run(layer, [x], policy)[0]
+            if full:
+                x = run(lambda xd: (lm.block(
+                    lambda s: params[s].shared_attn, xd, ba, rope, rot_dim,
+                    attend)[0],), [x], policy)[0]
+        return lm.logits(params, x), None
     enc = (lm.encode(params, parts, ba, dtype, run) if cfg.is_encdec
            else None)
-    attend = lm.prompt_attention(cfg.sliding_window)
     auxs = []
     for li in range(cfg.n_layers):
 
@@ -868,6 +1150,13 @@ class _TrainPlan:
         norm = mesh.map(lambda s, t: torch.sqrt(t), norm2)
         return grads, norm
 
+    def whole(self, grads):
+        """The gradients' moment-shard tiles gathered to whole tensors by
+        name (on the first slot's device)."""
+        mesh = self.mesh
+        placed = {s: {n: grads[n][s] for n in self.names} for s in mesh.slots}
+        return PART.gather(placed, dict(self.ospecs.mu), mesh)
+
     def update(self, params, opt_state, grads, norm):
         """Clip by the global norm, AdamW on each slot's shard, the
         updated tiles all-gathered over 'data' (an FSDP weight stays the
@@ -912,12 +1201,18 @@ def make_sharded_train_step(cfg: ArchConfig, tcfg: TrainConfig, mesh):
     whole batch (each microbatch placed by ``batch_specs``), updates the
     parameters and moments in place and returns (params, opt_state,
     metrics with loss, grad_norm, lr and the moe family's moe_aux and
-    moe_dropped, on the first slot)."""
+    moe_dropped, on the first slot). With ``grads_out`` (a dict) it also
+    puts there the step's whole f32 gradients by name, gathered from the
+    moment shards before the clipping and the update, for holding the
+    SPMD program's gradients against the unsharded ones."""
     plan = _TrainPlan(cfg, tcfg, mesh)
 
-    def train_step(params, opt_state, batch):
+    def train_step(params, opt_state, batch, grads_out=None):
         with use_mesh(mesh):
             loss, grads, norm, aux = plan.grads(params, batch)
+            if grads_out is not None:
+                mesh.join()
+                grads_out.update(plan.whole(grads))
             with torch.no_grad():
                 lr = plan.update(params, opt_state, grads, norm)
             mesh.join()
@@ -928,45 +1223,33 @@ def make_sharded_train_step(cfg: ArchConfig, tcfg: TrainConfig, mesh):
     return train_step
 
 
-def make_sharded_grads(cfg: ArchConfig, tcfg: TrainConfig, mesh):
-    """The sharded step's loss and gradients, without the update:
-    ``grads_fn(params, batch)`` -> (mean loss, {name: whole f32 gradient}
-    gathered from the moment shards, global norm), for holding the SPMD
-    program's gradients against the unsharded ones."""
-    plan = _TrainPlan(cfg, tcfg, mesh)
-
-    def grads_fn(params, batch):
-        with use_mesh(mesh):
-            loss, grads, norm, _ = plan.grads(params, batch)
-            mesh.join()
-            placed = {s: {n: grads[n][s] for n in plan.names}
-                      for s in mesh.slots}
-            whole = PART.gather(placed, dict(plan.ospecs.mu), mesh)
-        return loss, whole, norm[mesh.slots[0]]
-
-    return grads_fn
-
-
 def make_sharded_prefill_step(cfg: ArchConfig, shape: InputShape, mesh,
                               window_override: Optional[int] = None):
     """The counterpart of ``jax.jit(make_prefill_step(cfg, shape,
     window_override), in_shardings=(params, batch))`` on ``mesh``:
-    ``prefill_step(params, batch)`` -> (the last position's logits (B, 1,
-    Vp) f32 on the first slot, each slot's cache under ``cache_specs``, in
-    the compute dtype: bf16 for the published configs, as
-    ``serve_cache_init`` makes it unsharded). The prompt
-    attends with ``cfg.sliding_window``; ``window_override`` sizes the
-    cache, as unsharded. A vlm prompt's image positions take cache slots
-    and count in ``pos``; an audio prompt's encoder output fills the
-    slots' cross caches."""
+    ``prefill_step(params, batch)`` -> (the last position's logits (B,
+    1, Vp) f32 on the first slot, each slot's cache under
+    ``cache_specs``). The step makes its own cache
+    (``ShardedLM.cache_init``) in the compute dtype: bf16 for the
+    published configs, as ``serve_cache_init`` makes it unsharded. It
+    takes no cache, so it never fills an int8 one: that cache is filled
+    by the decode step from empty, the reference's int8 route (the
+    unsharded ``model.prefill`` refuses one). The prompt attends with
+    ``cfg.sliding_window`` (the hybrid shared block: with the ring's
+    size); ``window_override`` sizes the cache, as unsharded. A vlm
+    prompt's image positions take cache slots and count in ``pos``; an
+    audio prompt's encoder output fills the slots' cross caches; the
+    hybrid and ssm layers start from the empty cache's zero states (an
+    ssm prompt from zero token shifts, as unsharded) and store the final
+    ones."""
     lm = ShardedLM(cfg, mesh)
 
     @torch.no_grad()
     def prefill_step(params, batch):
         with use_mesh(mesh):
+            s0 = mesh.slots[0]
             parts, ba = _batch_parts(lm, batch)
             tok = _placed_tokens(parts)
-            s0 = mesh.slots[0]
             B = lm.B_of(ba, tok[s0].shape[0])
             dtype = MODEL.compute_dtype(cfg)
             cache = lm.cache_init(B, shape.seq_len, window_override,
@@ -974,24 +1257,50 @@ def make_sharded_prefill_step(cfg: ArchConfig, shape: InputShape, mesh,
             mesh.fork()
             x = lm.embed_inputs(params, parts, dtype)
             S = x[s0].shape[1]
-            rope, rot_dim = params[s0].rope(0, S)
-            attend = lm.prompt_attention(cfg.sliding_window)
-            enc = (lm.encode(params, parts, ba, dtype) if cfg.is_encdec
-                   else None)
-            for li in range(cfg.n_layers):
-                cross = None
-                if enc is not None:
-                    def fill(k, v, li=li):
-                        def write(s, ks, vs):
-                            cache[s]["cross_k"][li].copy_(lm.cache_part(s, ks))
-                            cache[s]["cross_v"][li].copy_(lm.cache_part(s, vs))
-                        mesh.map(write, k, v)
-                    cross = lm.cross_prompt(enc, ba, fill)
-                x, k, v, _ = lm.block(lambda s: params[s].blocks[li], x, ba,
-                                      rope, rot_dim, attend, cross=cross)
-                mesh.map(lambda s, ks, vs: MODEL._fill_ring(
-                    cache[s]["attn"], li, lm.cache_part(s, ks),
-                    lm.cache_part(s, vs), S), k, v)
+            if cfg.family == "ssm":
+                for li in range(cfg.n_layers):
+                    x = lm.rwkv_cached(lambda s, li=li: params[s].blocks[li],
+                                       x, cache, li, shifts=False)
+            else:
+                rope, rot_dim = params[s0].rope(0, S)
+
+                def fill(g, k, v):
+                    mesh.map(lambda s, ks, vs: MODEL._fill_ring(
+                        cache[s]["attn"], g, lm.cache_part(s, ks),
+                        lm.cache_part(s, vs), S), k, v)
+
+            if cfg.family == "hybrid":
+                attend = lm.prompt_attention(
+                    cache[s0]["attn"]["k"].shape[2])
+                for g, (lo, hi, full) in enumerate(MODEL.hybrid_groups(cfg)):
+                    for li in range(lo, hi):
+                        x = lm.mamba_cached(
+                            lambda s, li=li: params[s].blocks[li], x, cache,
+                            li)
+                    if full:
+                        x, k, v, _ = lm.block(
+                            lambda s: params[s].shared_attn, x, ba, rope,
+                            rot_dim, attend)
+                        fill(g, k, v)
+            elif cfg.family != "ssm":
+                attend = lm.prompt_attention(cfg.sliding_window)
+                enc = (lm.encode(params, parts, ba, dtype) if cfg.is_encdec
+                       else None)
+                for li in range(cfg.n_layers):
+                    cross = None
+                    if enc is not None:
+                        def write(k, v, li=li):
+                            def one(s, ks, vs):
+                                cache[s]["cross_k"][li].copy_(
+                                    lm.cache_part(s, ks))
+                                cache[s]["cross_v"][li].copy_(
+                                    lm.cache_part(s, vs))
+                            mesh.map(one, k, v)
+                        cross = lm.cross_prompt(enc, ba, write)
+                    x, k, v, _ = lm.block(lambda s: params[s].blocks[li], x,
+                                          ba, rope, rot_dim, attend,
+                                          cross=cross)
+                    fill(li, k, v)
             last = mesh.map(lambda s, xs: xs[:, -1:], x)
             logits = lm.full_logits(lm.logits(params, last), ba)
             for s in mesh.slots:
@@ -1010,13 +1319,16 @@ def make_sharded_serve_step(cfg: ArchConfig, mesh,
     cache, tokens)`` with each slot's cache (from the sharded prefill, or
     ``ShardedLM.cache_init``) and the whole (B, 1) tokens -> (logits (B,
     1, Vp) f32 on the first slot, the cache, updated in place). Each slot
-    writes the token's K/V into its cache shard; where the cache splits
-    the head dim, the layer's K/V are gathered over 'model' to whole
-    heads before L3. The audio decoder also runs L3 over each slot's
-    cross cache, and adds no position to the token, as the reference's
-    decode does not. A moe decode group is dropless (C = its size), so a
-    slot's local group size leaves the function as it is. An int8 cache
-    raises (ROADMAP A.21.2)."""
+    writes the token's K/V into its cache shard (an int8 cache: the
+    quantized values and their scales); where the cache splits the head
+    dim, the layer's K/V are gathered over 'model' to whole heads before
+    L3 (an int8 cache: ``layers.flash_attend``). The audio decoder also
+    runs L3 over each slot's cross cache, and adds no position to the
+    token, as the reference's decode does not. A moe decode group is
+    dropless (C = its size), so a slot's local group size leaves the
+    function as it is. The hybrid family's shared block attends over its
+    ring with the ring's size as its window; its Mamba2 layers and the
+    ssm family's layers step their states (``ssd_step``, ``wkv_step``)."""
     lm = ShardedLM(cfg, mesh)
     window = (window_override if window_override is not None
               else cfg.sliding_window)
@@ -1028,77 +1340,16 @@ def make_sharded_serve_step(cfg: ArchConfig, mesh,
             tok = _placed_tokens(parts)
             s0 = mesh.slots[0]
             pos = cache[s0]["pos"]
-            ck0 = cache[s0]["attn"]["k"]
-            if ck0.dtype == torch.int8:
-                raise NotImplementedError(
-                    "the sharded decode of an int8 cache is queued in "
-                    "ROADMAP A.21.2")
-            lm.set_cache_spec(lm.B_of(ba, ck0.shape[1]), ck0.shape[2])
-            gather = lm.cache_spec[4] is not None
             mesh.fork()
             dtype = MODEL.compute_dtype(cfg)
             x = lm.embed(params, tok, dtype)
-            rope, rot_dim = params[s0].rope(pos, 1)
-
-            def held(s):
-                return ((0, cfg.n_kv_heads) if gather
-                        else lm.cache_ranges(s)[0])
-
-            def layer_kv(li, names):
-                """The slots' cache of layer ``li`` (``names``: the K and V
-                entries), gathered over 'model' to whole heads where the
-                cache splits the head dim."""
-                out = []
-                for n in names:
-                    c = {s: (cache[s]["attn"][n] if n in ("k", "v")
-                             else cache[s][n])[li] for s in mesh.slots}
-                    out.append(mesh.all_gather(c, "model", dim=3) if gather
-                               else c)
-                return out
-
-            def decode_attention(li):
-                """``attend`` for one token at layer ``li``: the token's
-                K/V into each slot's cache shard, then L3 per slot."""
-                def write(s, ks, vs):
-                    c = cache[s]["attn"]
-                    ring = window > 0 and c["k"].shape[2] <= window
-                    attn_cache_update(c["k"][li], c["v"][li],
-                                      c["kv_pos"][li], lm.cache_part(s, ks),
-                                      lm.cache_part(s, vs), pos, ring)
-
-                def local(s, qs, ks, vs):
-                    ks, vs = lm.kv_for_q(s, ks, vs, held(s))
-                    return L.decode_attention(
-                        qs[:, 0], ks, vs, cache[s]["attn"]["kv_pos"][li],
-                        pos, window=window)[:, None]
-
-                def attend(q, k, v):
-                    mesh.map(write, k, v)
-                    return mesh.map(local, q, *layer_kv(li, ("k", "v")))
-                return attend
-
-            def cross_decode(li):
-                """``cross`` for one token at layer ``li``: L3 per slot
-                over its cross cache, every frame counted (query position
-                F − 1)."""
-                def cross(attn_of, h):
-                    q = lm.cross_q(attn_of, h, ba)
-
-                    def local(s, qs, ks, vs):
-                        ks, vs = lm.kv_for_q(s, ks, vs, held(s))
-                        return L.decode_attention(
-                            qs[:, 0], ks, vs, cache[s]["cross_pos"],
-                            ks.shape[1] - 1)[:, None]
-
-                    return mesh.map(local, q, *layer_kv(
-                        li, ("cross_k", "cross_v")))
-                return cross
-
-            for li in range(cfg.n_layers):
-                x, _, _, _ = lm.block(
-                    lambda s, li=li: params[s].blocks[li], x, ba, rope,
-                    rot_dim, decode_attention(li),
-                    cross=cross_decode(li) if cfg.is_encdec else None)
+            if cfg.family == "ssm":
+                for li in range(cfg.n_layers):
+                    x = lm.rwkv_cached(lambda s, li=li: params[s].blocks[li],
+                                       x, cache, li, shifts=True)
+            else:
+                x = _decode_attention_layers(lm, params, cache, x, ba, pos,
+                                             window)
             logits = lm.full_logits(lm.logits(params, x), ba)
             for s in mesh.slots:
                 cache[s]["pos"] = pos + 1
@@ -1106,3 +1357,105 @@ def make_sharded_serve_step(cfg: ArchConfig, mesh,
         return logits, cache
 
     return serve_step
+
+
+def _decode_attention_layers(lm: ShardedLM, params, cache, x, ba, pos: int,
+                             window: int):
+    """One token through the layers of an attention family (and the
+    hybrid family's Mamba2 layers between its shared block's
+    applications), each slot's cache updated in place."""
+    cfg, mesh = lm.cfg, lm.mesh
+    s0 = mesh.slots[0]
+    ck0 = cache[s0]["attn"]["k"]
+    quant = ck0.dtype == torch.int8
+    if cfg.family == "hybrid":
+        window = ck0.shape[2]
+    lm.set_cache_spec(lm.B_of(ba, ck0.shape[1]), ck0.shape[2])
+    gather = lm.cache_spec[4] is not None
+    rope, rot_dim = params[s0].rope(pos, 1)
+
+    def held(s):
+        return ((0, cfg.n_kv_heads) if gather
+                else lm.cache_ranges(s)[0])
+
+    def layer_kv(li, names):
+        """The slots' cache of layer ``li`` (``names``: the K and V
+        entries, and an int8 cache's scales), K/V gathered over 'model' to
+        whole heads where the cache splits the head dim (the scales are
+        then replicated)."""
+        out = []
+        for n in names:
+            c = {s: (cache[s]["attn"][n] if n in cache[s]["attn"]
+                     else cache[s][n])[li] for s in mesh.slots}
+            out.append(mesh.all_gather(c, "model", dim=3)
+                       if gather and n in ("k", "v", "cross_k", "cross_v")
+                       else c)
+        return out
+
+    def decode_attention(li):
+        """``attend`` for one token at layer ``li``: the token's K/V into
+        each slot's cache shard, then L3 per slot (an int8 cache: the
+        plain ``flash_attend``)."""
+        def write(s, ks, vs):
+            c = cache[s]["attn"]
+            ring = window > 0 and c["k"].shape[2] <= window
+            if not quant:
+                attn_cache_update(c["k"][li], c["v"][li], c["kv_pos"][li],
+                                  lm.cache_part(s, ks), lm.cache_part(s, vs),
+                                  pos, ring)
+                return
+            slot = cache_slot(c["k"].shape[2], pos, ring)
+            for n, t in (("k", ks), ("v", vs)):
+                # the whole held heads' scales (the amax over all of hd),
+                # then the slot's part of the values and of the scales
+                q, scale = quantize_kv(t)
+                c[n][li][:, slot].copy_(lm.cache_part(s, q)[:, 0])
+                c[n + "_scale"][li][:, slot].copy_(
+                    lm.scale_part(s, scale[:, 0]))
+            c["kv_pos"][li][slot] = pos
+
+        def local(s, qs, *kv):
+            kv_pos = cache[s]["attn"]["kv_pos"][li]
+            kv = lm.kv_for_q(s, kv, held(s))
+            if quant:
+                return L.flash_attend(qs, *kv, window=window, q_offset=pos,
+                                      kv_positions=kv_pos,
+                                      kv_valid=kv_pos >= 0)
+            return L.decode_attention(qs[:, 0], *kv, kv_pos, pos,
+                                      window=window)[:, None]
+
+        def attend(q, k, v):
+            mesh.map(write, k, v)
+            names = ("k", "v") + (("k_scale", "v_scale") if quant else ())
+            return mesh.map(local, q, *layer_kv(li, names))
+        return attend
+
+    def cross_decode(li):
+        """``cross`` for one token at layer ``li``: L3 per slot over its
+        cross cache, every frame counted (query position F − 1)."""
+        def cross(attn_of, h):
+            q = lm.cross_q(attn_of, h, ba)
+
+            def local(s, qs, ks, vs):
+                ks, vs = lm.kv_for_q(s, (ks, vs), held(s))
+                return L.decode_attention(
+                    qs[:, 0], ks, vs, cache[s]["cross_pos"],
+                    ks.shape[1] - 1)[:, None]
+
+            return mesh.map(local, q, *layer_kv(li, ("cross_k", "cross_v")))
+        return cross
+
+    if cfg.family == "hybrid":
+        for g, (lo, hi, full) in enumerate(MODEL.hybrid_groups(cfg)):
+            for li in range(lo, hi):
+                x = lm.mamba_cached(lambda s, li=li: params[s].blocks[li],
+                                    x, cache, li)
+            if full:
+                x = lm.block(lambda s: params[s].shared_attn, x, ba, rope,
+                             rot_dim, decode_attention(g))[0]
+        return x
+    for li in range(cfg.n_layers):
+        x = lm.block(lambda s, li=li: params[s].blocks[li], x, ba, rope,
+                     rot_dim, decode_attention(li),
+                     cross=cross_decode(li) if cfg.is_encdec else None)[0]
+    return x

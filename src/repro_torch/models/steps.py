@@ -1,8 +1,8 @@
 """Step functions (port of ``repro/models/steps.py``): the loss and the
-train step of every family, and the serving steps of every family; and,
-for the dense family, the same steps as SPMD programs over a ('data',
-'model') mesh (``make_sharded_*``, ``models.sharded``: the counterparts
-of the reference's steps jitted with its shardings).
+train step of every family, and the serving steps of every family; and
+the same steps as SPMD programs over a ('data', 'model') mesh
+(``make_sharded_*``, ``models.sharded``: the counterparts of the
+reference's steps jitted with its shardings).
 
 The factories close over the configs, as the reference's do, so a caller
 holds only params, optimizer state, batch and cache. ``make_train_step``'s
@@ -28,7 +28,7 @@ from repro_torch.configs.base import ArchConfig, InputShape, TrainConfig
 from repro_torch.models import model as MODEL
 from repro_torch.models.kvcache import serve_cache_init
 from repro_torch.models.sharded import (  # noqa: F401  (the SPMD steps)
-    make_sharded_grads, make_sharded_prefill_step, make_sharded_serve_step,
+    make_sharded_prefill_step, make_sharded_serve_step,
     make_sharded_train_step)
 from repro_torch.optim import adamw, schedules
 
@@ -83,13 +83,15 @@ def loss_fn(params, cfg: ArchConfig, batch, *, remat=True,
 def make_train_step(cfg: ArchConfig, tcfg: TrainConfig):
     lr_fn = schedules.warmup_cosine(tcfg)
 
-    def train_step(params, opt_state: adamw.AdamWState, batch):
+    def train_step(params, opt_state: adamw.AdamWState, batch,
+                   grads_out=None):
         """One AdamW update from ``batch`` (every entry split into
         ``tcfg.microbatches`` equal row chunks whose f32 gradients are
         summed, then averaged, as the reference's scan does), with global
         clipping and the 1-based lr step. Returns (params, opt_state,
         metrics with loss, grad_norm, lr and any aux, as 0-dim
-        tensors)."""
+        tensors). With ``grads_out`` (a dict) it also puts there a copy
+        of the averaged gradients by name, before the clipping."""
         M = tcfg.microbatches
         rows = batch["tokens"].shape[0]
         if rows % M:
@@ -114,6 +116,8 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig):
             for g in grads.values():
                 g.div_(M)
             metrics = {k: v / M for k, v in metrics.items()}
+        if grads_out is not None:
+            grads_out.update({n: g.clone() for n, g in grads.items()})
         grads, gnorm = adamw.clip_by_global_norm(grads, tcfg.grad_clip)
         lr = lr_fn(opt_state.step + 1)   # 1-based so warmup never yields 0
         opt_state = adamw.apply(named, grads, opt_state, tcfg, lr)

@@ -19,8 +19,9 @@ record. The rules are ``jaxpr_cost``'s:
     ``bytes_min``: fused away in the ideal).
 
 A hand-written kernel's launch (a ``note_kernel`` record of B1, B2, or of
-the attention kernels L1, L2 and L3, ``attention_kernel_cost``) is the
-counterpart of the reference's ``pallas_call`` branch:
+the attention kernels L1, L2, L3 and the scans L4, L5,
+``shape_kernel_cost``) is the counterpart of the reference's
+``pallas_call`` branch:
 
   - its flops are those of the kernel's PLAIN version at the same shapes
     (``ref.precision_accum_plain``, ``ref.sweep_ref_padded``), counted by
@@ -231,21 +232,35 @@ def _plain_l3(t):
     decode_attention_ref(t["q"], t["k"], t["v"], t["kv_pos"], 0)
 
 
-# the attention kernels (L1, L2, L3): kernel record name -> plain version
-# on named meta tensors; their cost depends on the shapes only
-ATTENTION_KERNELS = {
+def _plain_l4(t):
+    from repro_torch.kernels.ssd_chunk.ref import ssd_chunked
+    ssd_chunked(t["xdt"], t["a"], t["B"], t["C"], t["state0"])
+
+
+def _plain_l5(t):
+    from repro_torch.kernels.wkv6.ref import wkv_chunked
+    wkv_chunked(t["r"], t["k"], t["v"], t["logw"], t["u"], t["state0"])
+
+
+# the attention kernels (L1, L2, L3) and the scans (L4, L5): kernel record
+# name -> plain version on named meta tensors; their cost depends on the
+# shapes only
+SHAPE_KERNELS = {
     "repro_torch::flash_attention": _plain_l1,
     "repro_torch::flash_attention_bwd": _plain_l2,
     "repro_torch::decode_attention": _plain_l3,
+    "repro_torch::ssd_chunk": _plain_l4,
+    "repro_torch::wkv6": _plain_l5,
 }
 
 
-def attention_kernel_cost(rec: OPT.OpRecord) -> Dict[str, float]:
-    """Cost of one L1/L2/L3 launch record: the flops of the kernel's plain
+def shape_kernel_cost(rec: OPT.OpRecord) -> Dict[str, float]:
+    """Cost of one L1-L5 launch record: the flops of the kernel's plain
     version at the record's shapes (traced on ``meta``, cached), the
     matrix products at the bf16 tensor-core rate when q is bf16 (the sm90
-    kernels; L3 reads a bf16 cache with f32 products on the CUDA cores),
-    and its operands read once and its outputs written once."""
+    kernels; L3 reads a bf16 cache with f32 products on the CUDA cores;
+    L4 and L5 take f32 operands, counted at the f32 rate), and its
+    operands read once and its outputs written once."""
     key = (rec.op, tuple((t.name, t.dtype, t.shape) for t in rec.operands),
            tuple((t.name, t.dtype, t.shape) for t in rec.outputs))
     if key not in _PLAIN_CACHE:
@@ -253,11 +268,11 @@ def attention_kernel_cost(rec: OPT.OpRecord) -> Dict[str, float]:
                                  device="meta")
              for x in rec.operands + rec.outputs}
         with OPT.record() as tr:
-            ATTENTION_KERNELS[rec.op](t)
+            SHAPE_KERNELS[rec.op](t)
         c = op_cost(tr.ops)
         io = sum(_nbytes(x) for x in rec.operands + rec.outputs)
         c["bytes"] = c["bytes_min"] = float(io)
-        q = next(x for x in rec.operands if x.name == "q")
+        q = rec.operands[0]
         c["tf32_flops"] = c["bf16_flops"] = 0.0
         if q.dtype == "bfloat16" and rec.op != "repro_torch::decode_attention":
             c["fp32_flops"] = c["flops"] - c["dot_flops"]
@@ -271,13 +286,14 @@ def attention_kernel_cost(rec: OPT.OpRecord) -> Dict[str, float]:
 def kernel_cost(rec: OPT.OpRecord,
                 live_slots: Optional[float] = None) -> Dict[str, float]:
     """Cost of one B1/B2 launch record (module docstring); an attention
-    kernel's record goes to ``attention_kernel_cost``. ``live_slots``:
+    kernel's or a scan's record goes to ``shape_kernel_cost``.
+    ``live_slots``:
     the live CSR slots the launch reads (data-dependent; a caller holding
     the planes counts them, ``int(live.sum())``), default every slot. The
     plain version's flops are taken at the mean live row length,
     interpolated between the two whole lengths around it."""
-    if rec.op in ATTENTION_KERNELS:
-        return attention_kernel_cost(rec)
+    if rec.op in SHAPE_KERNELS:
+        return shape_kernel_cost(rec)
     if rec.op not in KERNELS:
         raise KeyError(f"no cost rule for kernel {rec.op!r} "
                        f"(known: {sorted(KERNELS)})")

@@ -548,19 +548,40 @@ def test_group_dead_continue_on_survivors(conf_run, one_group, name):
     _assert_same_numbers(res, one_group[name])
 
 
+# how long the straggler of test_group_slow_speculative_winner_deterministic
+# waits for its twin before it resolves anyway (then the test fails on
+# n_speculations)
+SPECULATE_WAIT_S = 30.0
+
+
 @pytest.mark.parametrize("name", OVERLAPPED)
 def test_group_slow_speculative_winner_deterministic(conf_run, one_group,
                                                      name):
     """A straggling group's dispatches are twinned on the idle group with
     the same attempt-0 noise; the canonical-group winner is committed and
     the loser never is, so two runs commit the same numbers, bitwise the
-    one-group run, with one resolve per block."""
+    one-group run, with one resolve per block. The straggler (group 1) is
+    held until the first speculation is recorded (``FaultPlan.
+    group_release``), with SPECULATE_WAIT_S as the timeout: a fixed delay
+    raced the host's speed, and under load no twin was launched."""
     import collections
+    import threading
     pol = TENG.FaultPolicy(timeout_floor_s=60.0, timeout_slack=0.0,
                            speculate_at=2.0)
-    plan = TENG.FaultPlan(group_slow_at={1: (0, 0.5)})
     for _ in range(2):
         ex = _grouped(name, record_trace=True)
+        twinned = threading.Event()
+        record = ex._record
+
+        def record_speculation(event, *args, record=record,
+                               twinned=twinned):
+            if event == "speculate":
+                twinned.set()
+            return record(event, *args)
+
+        ex._record = record_speculation
+        plan = TENG.FaultPlan(group_slow_at={1: (0, SPECULATE_WAIT_S)},
+                              group_release=twinned)
         res = _run(conf_run, ex, fault_plan=plan, fault_policy=pol)
         assert res.group_stats["n_speculations"] >= 1, res.group_stats
         assert res.group_stats["n_cancels"] == \

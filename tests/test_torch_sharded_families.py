@@ -263,6 +263,18 @@ def _train(ref, dims, n_steps=N_STEPS, cached=True):
     return run
 
 
+def _sharded_grads(cfg, tcfg, mesh, params, batch):
+    """The whole f32 gradients of one sharded train step from ``params``
+    on ``batch``, gathered before its update (``grads_out``)."""
+    opt = TA.init(dict(params.named_parameters()))
+    p = TP.place(params, TP.param_specs(params, cfg, mesh), mesh)
+    o = TP.place(opt, TP.opt_specs(opt, params, cfg, mesh), mesh)
+    grads = {}
+    TST.make_sharded_train_step(cfg, tcfg, mesh)(p, o, batch,
+                                                 grads_out=grads)
+    return grads
+
+
 def _serve(ref, dims):
     mesh = _mesh(dims)
     params = ref.port_params(train=False)
@@ -416,9 +428,7 @@ def test_moe_aux_enters_the_loss_once():
             aux_grads[n] = aux_grads[n] + gi
         (loss / MICRO).backward()
     want = {n: p.grad for n, p in routers.items()}
-    mesh = _mesh((2, 4))
-    placed = TP.place(params, TP.param_specs(params, cfg, mesh), mesh)
-    _, got, _ = TST.make_sharded_grads(cfg, tcfg, mesh)(placed, batch)
+    got = _sharded_grads(cfg, tcfg, _mesh((2, 4)), params, batch)
     assert len(want) == cfg.n_layers
     for n, w in want.items():
         scale = float(w.abs().max())
@@ -449,9 +459,8 @@ def test_fsdp_expert_gradients_reduce_in_f32():
         want[c.dtype] = {n: p.grad for n, p in params.named_parameters()}
         params.zero_grad(set_to_none=True)
     mesh = _mesh((2, 4))
-    placed = TP.place(params, TP.param_specs(params, cfg, mesh), mesh)
     with record_collectives() as calls:
-        _, got, _ = TST.make_sharded_grads(cfg, tcfg, mesh)(placed, batch)
+        got = _sharded_grads(cfg, tcfg, mesh, params, batch)
     lm, mlp = ShardedLM(cfg, mesh), params.blocks[0].mlp
     shapes = {TP.shard_shape(mesh, tuple(
         None if e == "data" else e for e in lm.pspecs[f"blocks.0.mlp.{n}"]),
@@ -504,22 +513,57 @@ def test_fsdp_plan_gathers_experts_over_data():
             == [(c.op, c.shapes, c.dtypes) for c in run.calls])
 
 
-def test_int8_sharded_decode_raises():
-    """The sharded decode of an int8 cache is queued (ROADMAP A.21.2):
-    it raises, with no fall-back."""
+def test_int8_sharded_decode_matches():
+    """The sharded decode of granite-moe's int8 cache (its 4 KV heads
+    split over 'model' = 2, and with them the scales) from the empty
+    cache, 8 steps, against the port's unsharded int8 decode: every
+    logit 1e-4 of the largest unsharded one where the two caches' int8
+    entries agree so far, 1e-3 where one was rounded the other way
+    (``tests/test_torch_sharded_recurrent.py``'s int8 limits), at most
+    1e-3 of the entries off by one and none by more, the scales within
+    1e-5 relative; and no kernel launched."""
+    from repro_torch.models.kvcache import serve_cache_init
     cfg = dataclasses.replace(
         TCB.get_config("granite_moe_1b_a400m").smoke_variant(),
         dtype="float32")
+    n_tok = 8
     mesh = TMESH.Mesh((2, 2), ("data", "model"), ("cpu",))
     params = TM.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     p = TP.place(params, TP.param_specs(params, cfg, mesh), mesh)
-    cache = ShardedLM(cfg, mesh).cache_init(4, 16, device="cpu")
-    for c in cache.values():
-        c["attn"]["k"] = c["attn"]["k"].to(torch.int8)
-        c["attn"]["v"] = c["attn"]["v"].to(torch.int8)
-    with pytest.raises(NotImplementedError, match="A.21.2"):
-        TST.make_sharded_serve_step(cfg, mesh)(
-            p, cache, torch.zeros((4, 1), dtype=torch.int32))
+    cache = ShardedLM(cfg, mesh).cache_init(4, n_tok, device="cpu",
+                                            dtype=torch.float32,
+                                            kv_quant=True)
+    want = serve_cache_init(cfg, 4, n_tok, dtype=torch.float32, device="cpu",
+                            kv_quant=True)
+    tok = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, n_tok)).astype(np.int32))
+    serve = TST.make_sharded_serve_step(cfg, mesh)
+    got, ref = [], []
+    with pytest.MonkeyPatch.context() as mp:
+        count = KernelCount(mp)
+        for i in range(n_tok):
+            lg, cache = serve(p, cache, tok[:, i:i + 1])
+            got.append(lg)
+            lw, want = TM.decode_step(params, cfg, want, tok[:, i:i + 1])
+            ref.append(lw)
+    assert not any(count.n.values())
+    whole = TP.gather(cache, TP.cache_specs(want, cfg, None, mesh), mesh)
+    a, w = whole["attn"], want["attn"]
+    assert tuple(cache[(0, 0)]["attn"]["k_scale"].shape) == (
+        cfg.n_layers, 2, n_tok, cfg.n_kv_heads // 2)
+    assert torch.equal(a["kv_pos"], w["kv_pos"])
+    agree = torch.ones((4, n_tok), dtype=torch.bool)
+    for n in ("k", "v"):
+        d = (a[n].int() - w[n].int()).abs()
+        assert int(d.max()) <= 1 and int((d > 0).sum()) <= 1e-3 * d.numel()
+        agree &= torch.cumprod((d == 0).all(dim=4).all(dim=3).all(dim=0),
+                               dim=1).bool()
+        torch.testing.assert_close(a[n + "_scale"], w[n + "_scale"],
+                                   rtol=1e-5, atol=0)
+    for i, (g, x) in enumerate(zip(got, ref)):
+        gap = (g - x).abs().amax(dim=(1, 2)) / max(float(x.abs().max()), 1.0)
+        assert bool((gap[agree[:, i]] <= 1e-4).all()), (i, gap)
+        assert bool((gap <= 1e-3).all()), (i, gap)
 
 
 @pytest.mark.parametrize("experts", [False, True])

@@ -40,6 +40,7 @@ weights where the port reduces activations), so the port's are only
 required to exist.
 """
 import dataclasses
+import inspect
 import json
 import os
 import subprocess
@@ -318,31 +319,33 @@ def test_reruns_are_bitwise():
                                   "rwkv6_7b", "whisper_medium",
                                   "internvl2_1b"])
 def test_other_families_raise(arch):
-    """The families still queued (hybrid, ssm: ROADMAP A.21.2) raise from
-    every sharded step factory, with no fall-back; the vlm, moe and audio
-    families build their steps (``tests/test_torch_sharded_families.py``
-    runs them), and their sharded decode of an int8 cache, queued there
-    too, raises."""
+    """Every family builds its sharded step factories (this file runs the
+    dense family's, ``tests/test_torch_sharded_families.py`` the vlm, moe
+    and audio families' and ``tests/test_torch_sharded_recurrent.py`` the
+    hybrid and ssm families' and the int8 decode). The sharded prefill
+    takes no cache, so it cannot fill an int8 one (as unsharded: only
+    decode fills one), though the int8 cache builds; an int8 cache for a
+    family that has none raises."""
+    from repro_torch.models.kvcache import QUANT_FAMILIES
+    from repro_torch.models.sharded import ShardedLM
     cfg = TCB.get_config(arch).smoke_variant()
     mesh = TMESH.Mesh((2, 2), ("data", "model"), ("cpu",))
     shape = TCB.InputShape("p", 16, 2, "prefill")
-    makes = (lambda: TST.make_sharded_train_step(cfg, TCB.TrainConfig(),
-                                                 mesh),
-             lambda: TST.make_sharded_prefill_step(cfg, shape, mesh),
-             lambda: TST.make_sharded_serve_step(cfg, mesh))
-    if cfg.family in ("hybrid", "ssm"):
-        for make in makes:
-            with pytest.raises(NotImplementedError, match="A.21.2"):
-                make()
+    TST.make_sharded_train_step(cfg, TCB.TrainConfig(), mesh)
+    TST.make_sharded_serve_step(cfg, mesh)
+    prefill = TST.make_sharded_prefill_step(cfg, shape, mesh)
+    lm = ShardedLM(cfg, mesh)
+    if cfg.family not in QUANT_FAMILIES:
+        with pytest.raises(NotImplementedError, match="no int8 cache"):
+            lm.cache_init(2, 16, device="cpu", kv_quant=True)
         return
-    serve = [make() for make in makes][-1]
-    from repro_torch.models.sharded import ShardedLM
-    cache = ShardedLM(cfg, mesh).cache_init(2, 16, device="cpu")
-    for c in cache.values():
-        for n in ("k", "v"):
-            c["attn"][n] = c["attn"][n].to(torch.int8)
-    with pytest.raises(NotImplementedError, match="A.21.2"):
-        serve(None, cache, torch.zeros((2, 1), dtype=torch.int32))
+    cache = lm.cache_init(2, 16, device="cpu", kv_quant=True)
+    assert cache[(0, 0)]["attn"]["k"].dtype == torch.int8
+    assert list(inspect.signature(prefill).parameters) == ["params",
+                                                           "batch"]
+    with pytest.raises(TypeError):
+        prefill(None, {"tokens": torch.zeros((2, 16), dtype=torch.int32)},
+                cache)
 
 
 def test_gspmd_oracle_holds(_gspmd_proc):

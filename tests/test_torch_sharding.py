@@ -385,18 +385,20 @@ def test_plan_is_one_slot_of_the_cpu_run(kind, dims):
 
 def test_dryrun_cli_writes_its_json(tmp_path, capsys):
     """qwen3-4b's decode_32k on the 16 x 16 mesh planned on meta (nothing
-    allocated), an ssm arch (still queued) reads ``not_ported``,
-    whisper's long_500k is skipped; records land under ``--out``, replaced
-    by key."""
+    allocated), rwkv6's decode_32k on both meshes, granite-moe's
+    long_500k with the int8 cache (``--kv-quant``: its 8,192-slot window,
+    a cheaper plan than decode_32k's 32,768 slots), whisper's long_500k
+    skipped; records land under ``--out``, replaced by key."""
     out = tmp_path / "dry.json"
     assert DRY.main(["--arch", "qwen3_4b", "--shape", "decode_32k",
                      "--out", str(out)]) == 0
-    assert DRY.main(["--arch", "rwkv6_7b", "--shape", "train_4k",
+    assert DRY.main(["--arch", "rwkv6_7b", "--shape", "decode_32k",
                      "--mesh", "both", "--out", str(out)]) == 0
     assert DRY.main(["--arch", "whisper_medium", "--shape", "long_500k",
                      "--out", str(out)]) == 0
-    assert DRY.main(["--arch", "qwen3_4b", "--shape", "decode_32k",
-                     "--out", str(out), "--kv-quant", "--tag", "q"]) == 0
+    assert DRY.main(["--arch", "granite_moe_1b_a400m", "--shape",
+                     "long_500k", "--out", str(out), "--kv-quant", "--tag",
+                     "q"]) == 0
     recs = {(r["arch"], r["shape"], r["mesh"], r.get("tag", "")): r
             for r in json.loads(out.read_text())}
     assert len(recs) == 5
@@ -410,11 +412,61 @@ def test_dryrun_cli_writes_its_json(tmp_path, capsys):
     for key in ("roofline", "model_flops_per_chip", "useful_flops_ratio",
                 "tokens_per_step", "params", "active_params"):
         assert key in ok
-    for m in ("single", "multi"):
-        assert recs[("rwkv6_7b", "train_4k", m, "")]["status"] == \
-            "not_ported"
+    for m, n_chips in (("single", 256), ("multi", 512)):
+        rec = recs[("rwkv6_7b", "decode_32k", m, "")]
+        assert rec["status"] == "ok" and rec["n_chips"] == n_chips
+        # no attention; its token shifts gathered over 'model' per layer
+        assert rec["kernel_launches"] == {}
+        assert rec["collectives"]["n_all-gather"] >= 2 * 32
     assert recs[("whisper_medium", "long_500k", "single", "")][
         "status"] == "skipped"
-    assert recs[("qwen3_4b", "decode_32k", "single", "q")]["status"] == \
-        "not_ported"
+    q = recs[("granite_moe_1b_a400m", "long_500k", "single", "q")]
+    assert q["status"] == "ok" and q["kv_quant"] and q["swa_variant"]
+    # the int8 cache is read by the plain flash_attend: no kernel; its 8
+    # KV heads on 16 model slots split hd, so its int8 K / V are gathered
+    # over 'model' like bf16 ones
+    assert q["kernel_launches"] == {}
+    assert q["collectives"]["n_all-gather"] >= 2 * 24
     assert "-> " in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", TCB.ARCH_IDS)
+def test_every_family_runs_sharded(arch):
+    """Every config's smoke variant (f32) runs the three sharded steps on
+    a (2, 2) CPU mesh: one train step of 4 x 32 tokens in 2 microbatches,
+    whose loss is the port's unsharded loss within 1e-5 relative, a
+    16-token prompt and one decode step, with finite logits of the
+    vocabulary's width and every slot's cache at position 17 (a vlm
+    prompt's image positions counted)."""
+    from repro_torch.data.tokens import synthetic_token_batches
+    cfg = dataclasses.replace(TCB.get_config(arch).smoke_variant(),
+                              dtype="float32")
+    mesh = TMESH.Mesh((2, 2), ("data", "model"), ("cpu",))
+    batch = next(synthetic_token_batches(cfg, 4, 32, seed=0, device="cpu"))
+    batch = {k: v.float() if v.is_floating_point() else v
+             for k, v in batch.items()}
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                            train=True)
+    rows = 2
+    with torch.no_grad():
+        want = sum(float(TST.loss_fn(params, cfg, {
+            k: v[i * rows:(i + 1) * rows] for k, v in batch.items()})[0])
+            for i in range(2)) / 2
+    opt = TA.init(dict(params.named_parameters()))
+    p = TP.place(params, TP.param_specs(params, cfg, mesh), mesh)
+    o = TP.place(opt, TP.opt_specs(opt, params, cfg, mesh), mesh)
+    _, _, m = TST.make_sharded_train_step(
+        cfg, TCB.TrainConfig(microbatches=2), mesh)(p, o, batch)
+    np.testing.assert_allclose(float(m["loss"]), want, rtol=1e-5)
+    serve = TM.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    placed = TP.place(serve, TP.param_specs(serve, cfg, mesh), mesh)
+    prompt = {k: (v[:, :16] if k == "tokens" else v)
+              for k, v in batch.items()}
+    _, cache = TST.make_sharded_prefill_step(
+        cfg, TCB.InputShape("p", 48, 4, "prefill"), mesh)(placed, prompt)
+    logits, cache = TST.make_sharded_serve_step(cfg, mesh)(
+        placed, cache, batch["tokens"][:, 16:17])
+    assert tuple(logits.shape) == (4, 1, cfg.padded_vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    n_img = cfg.n_image_tokens if cfg.family == "vlm" else 0
+    assert all(c["pos"] == n_img + 17 for c in cache.values())

@@ -132,19 +132,26 @@ def np_tree(tree):
 
 
 class KernelCount:
-    """Counts the attention kernel wrappers' CPU calls (every slot's)."""
+    """Counts the attention and scan kernel wrappers' CPU calls (every
+    slot's)."""
 
     def __init__(self, mp):
         from repro_torch.kernels.flash_attention import ops as FA
         from repro_torch.models import layers as LY
+        from repro_torch.models import mamba2 as M2
+        from repro_torch.models import rwkv6 as R6
         self.n = {"repro_torch::flash_attention": 0,
                   "repro_torch::flash_attention_bwd": 0,
-                  "repro_torch::decode_attention": 0}
+                  "repro_torch::decode_attention": 0,
+                  "repro_torch::ssd_chunk": 0,
+                  "repro_torch::wkv6": 0}
         for mod, name, key in (
                 (FA, "flash_attention", "repro_torch::flash_attention"),
                 (LY, "flash_attention", "repro_torch::flash_attention"),
                 (FA, "flash_bwd", "repro_torch::flash_attention_bwd"),
-                (LY, "decode_attention", "repro_torch::decode_attention")):
+                (LY, "decode_attention", "repro_torch::decode_attention"),
+                (M2, "ssd_scan", "repro_torch::ssd_chunk"),
+                (R6, "wkv6", "repro_torch::wkv6")):
             mp.setattr(mod, name, self._wrap(getattr(mod, name), key))
 
     def _wrap(self, fn, key):
