@@ -14,8 +14,8 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
   1. card and build: the card's name and power limit, then the CUDA
      kernels built from ``src/repro_torch/csrc`` (one nvcc per source, in
      parallel), with the build seconds and ptxas's register report; the
-     bf16 tensor-core variants of L1 and L2 (``*_sm90``), B1, B2, L3, L4
-     and L5 must not spill;
+     bf16 tensor-core variants of L1 and L2 (``*_sm90``), their 3xTF32 f32
+     variants, B1, B2, L3, L4 and L5 must not spill;
   2. kernel parity: each kernel (B1 bmf_precision, B2 bmf_sweep) against
      its plain PyTorch version, fp32 and bf16, at the phase-c bucket shape
      of phase 4's data (which holds all-padding tiles and empty rows),
@@ -962,9 +962,10 @@ SM90 = {"flash_attention_sm90": "flash_attention",
         "flash_attention_bwd_sm90": "flash_attention_bwd"}
 # sources whose ptxas report must show no spill besides the sm90 ones: B1
 # and B2 (a row's Λ in one thread's registers; B1's Gram accumulators), the
+# 3xTF32 L1 and L2 (q fragments, dq / dk / dv in mma accumulators), the
 # pipelined split-KV L3 and the tensor-core L4 and L5
-NO_SPILL = ("bmf_precision", "bmf_sweep", "decode_attention", "ssd_chunk",
-            "wkv6")
+NO_SPILL = ("bmf_precision", "bmf_sweep", "flash_attention",
+            "flash_attention_bwd", "decode_attention", "ssd_chunk", "wkv6")
 
 
 def reset_counts():
@@ -1970,16 +1971,29 @@ def _sdpa_ms(q, k, v, reps, **kw):
     return ms
 
 
+def _attn_bound(n_bytes, flops, dtype):
+    """L1's or L2's bound as the kernels run their products: bf16 on the
+    tensor cores; f32 as 3xTF32 (3 x flops at the TF32 peak, as
+    ``roofline.op_cost`` costs them), with the bound on the CUDA cores
+    (flops at the f32 peak) beside it. Returns (bound, extra fields)."""
+    if dtype == "bf16":
+        return bound(n_bytes, flops, "bf16"), {}
+    return (bound(n_bytes, 3 * flops, "tf32"),
+            dict(cuda_core_bound_ms=bound(n_bytes, flops, "fp32")[0]))
+
+
 def _attn_line(name, case, dtype, err, scale, tol, ms, pms, bd, lib,
                n_bytes, tag="llm-parity", note="", **extra):
     ok = err <= tol * scale
-    variant = (f" ({'sm90' if dtype == 'bf16' else 'f32'} kernel)"
+    variant = (f" ({'sm90' if dtype == 'bf16' else '3xTF32 f32'} kernel)"
                if name.startswith("flash_attention") else "")
+    cc = (f", CUDA-core bound {extra['cuda_core_bound_ms']:.4f} ms"
+          if "cuda_core_bound_ms" in extra else "")
     log(f"[{tag}] {name}{variant} {case} {dtype}: max_abs_err {err:.3e} "
         f"(tolerance {tol:.3g} x {scale:.3g} = {tol * scale:.3e}) "
         f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms "
         f"({n_bytes / ms / 1e9:.3f} TB/s), plain {pms:.3f} ms, "
-        f"bound {bd[0]:.4f} ms ({bd[1]}), library (SDPA"
+        f"bound {bd[0]:.4f} ms ({bd[1]}){cc}, library (SDPA"
         f"{' backward' if name == 'flash_attention_bwd' else ''}) "
         f"{lib:.4f} ms{note}")
     if not ok:
@@ -2034,11 +2048,12 @@ def _l1_case(g, dev, case, B, S, H, Hkv, hd, causal, window, dtype,
         lib = _sdpa_ms(q, k, v, 3, is_causal=causal)
     elt = q.element_size()
     n_bytes = elt * (2 * q.numel() + k.numel() + v.numel())
-    bd = bound(n_bytes, 4 * B * H * hd * pairs, dtype)
+    bd, extra = _attn_bound(n_bytes, 4 * B * H * hd * pairs, dtype)
     del q, k, v, mask
     torch.cuda.empty_cache()
     return _attn_line("flash_attention", case, dtype, err, scale,
-                      ATTN_TOL[dtype], ms, pms, bd, lib, n_bytes, tag=tag)
+                      ATTN_TOL[dtype], ms, pms, bd, lib, n_bytes, tag=tag,
+                      **extra)
 
 
 def _l3_case(g, dev, case, B, S, H, Hkv, hd, window, dtype,
@@ -2156,13 +2171,14 @@ def _l1_long_case(g, dev, case, S, H, Hkv, hd, dtype, check_rows,
     pairs = S * (S + 1) // 2
     elt = q.element_size()
     n_bytes = elt * (2 * q.numel() + k.numel() + v.numel())
-    bd = bound(n_bytes, 4 * H * hd * pairs, dtype)
+    bd, extra = _attn_bound(n_bytes, 4 * H * hd * pairs, dtype)
     del q, k, v
     torch.cuda.empty_cache()
     return _attn_line("flash_attention", case, dtype, err, scale,
                       ATTN_TOL[dtype], ms, pms, bd, lib, n_bytes, tag=tag,
                       note=f" (held and plain-timed on the last "
-                           f"{check_rows} query rows; {pairs} causal pairs)")
+                           f"{check_rows} query rows; {pairs} causal pairs)",
+                      **extra)
 
 
 def _l3_split_sweep(q, k, v, kv_pos, q_pos, n_plan, case, tag):
@@ -2276,7 +2292,9 @@ def phase_whisper_parity(dev):
     4,000-token prompt and its cross-attention (4,000 queries over 1,500
     frames); L3 over a full 4,096-slot self cache and the 1,500-slot cross
     cache (every slot counts); L2 at B = 2 over the encoder's frames and
-    the cross-attention of 4,096 queries over 1,500 frames."""
+    the cross-attention of 4,096 queries over 1,500 frames. The f32
+    kernels of L1 and L2 also run the encoder's frames: their only case
+    at hd 64 and group 1 with a ragged edge on both axes."""
     import torch
     from repro_torch.configs.base import get_config
     cfg = get_config(WHISPER_ARCH)
@@ -2293,6 +2311,10 @@ def phase_whisper_parity(dev):
         results["flash_attention"].append(_l1_case(
             g, dev, f"{pre}-{case}", LLM_BATCH, S, H, Hkv, hd, causal, 0,
             "bf16", tag=tag, Skv=Skv))
+    encoder = f"{pre}-encoder-noncausal-{F}"
+    results["flash_attention"].append(_l1_case(
+        g, dev, encoder, LLM_BATCH, F, H, Hkv, hd, False, 0, "fp32",
+        tag=tag))
     for case, S in ((f"self-full-{LLM_CONTEXT}", LLM_CONTEXT),
                     (f"cross-full-{F}", F)):
         results["decode_attention"].append(_l3_case(
@@ -2303,6 +2325,8 @@ def phase_whisper_parity(dev):
         results["flash_attention_bwd"].append(_l2_case(
             g, dev, f"{pre}-{case}", L2_BATCH, S, H, Hkv, hd, False, 0,
             "bf16", tag=tag, Skv=Skv))
+    results["flash_attention_bwd"].append(_l2_case(
+        g, dev, encoder, L2_BATCH, F, H, Hkv, hd, False, 0, "fp32", tag=tag))
     torch.cuda.empty_cache()
     return results
 
@@ -3465,12 +3489,12 @@ def _l2_case(g, dev, case, B, S, H, Hkv, hd, causal, window, dtype,
     # flops per unmasked pair and q-head (five products)
     n_bytes = (elt * (3 * q.numel() + 2 * k.numel()) + 2 * 4 * lse.numel()
                + elt * (q.numel() + 2 * k.numel()))
-    bd = bound(n_bytes, 10 * hd * H * B * pairs, dtype)
+    bd, extra = _attn_bound(n_bytes, 10 * hd * H * B * pairs, dtype)
     tol = _limit(L2_TOL[dtype], scale, dtype) / scale
     del q, k, v, o, do, lse, mask
     torch.cuda.empty_cache()
     return _attn_line("flash_attention_bwd", case, dtype, err, scale, tol,
-                      ms, pms, bd, lib, n_bytes, tag=tag)
+                      ms, pms, bd, lib, n_bytes, tag=tag, **extra)
 
 
 def phase_l2_parity(dev):
@@ -4692,10 +4716,27 @@ def main(argv):
         "flash_attention": dict(
             source="src/repro_torch/csrc/flash_attention_sm90.cu",
             f32_source="src/repro_torch/csrc/flash_attention.cu",
+            f32_design="3xTF32 mma.sync m16n8k8 (x = hi + lo; lo.hi + hi.lo "
+                       "+ hi.hi) in partials of at most 4 depth steps added "
+                       "in f32: 8 warps x 16 query rows, q raw in shared "
+                       "memory, 32-key K/V tiles by cp.async into a raw "
+                       "stage and split once per tile into shared planes, "
+                       "online softmax on the accumulators, P fed to P V "
+                       "from its accumulators (permuted depth slots), one "
+                       "block an SM",
             replaces="src/repro/kernels/flash_attention/kernel.py:90"),
         "flash_attention_bwd": dict(
             source="src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
             f32_source="src/repro_torch/csrc/flash_attention_bwd.cu",
+            f32_design="3xTF32 mma.sync m16n8k8 in partials added in f32, "
+                       "two passes of 8 warps, no atomics: dq pass (128 "
+                       "query rows, q and do raw in shared memory, D formed) "
+                       "over 16-key tiles; dk/dv pass (64 keys, K and V raw "
+                       "in shared memory, the GQA sum inside) over the "
+                       "group's 16-query tiles, a warp pair per 16 keys (dv "
+                       "warp: s, p, p^T do; dk warp: dp, ds, ds^T q, p^T "
+                       "through shared memory); streamed tiles by cp.async, "
+                       "split once into row and pair planes",
             replaces="src/repro/kernels/flash_attention/kernel_bwd.py:108"),
         "decode_attention": dict(
             source="src/repro_torch/csrc/decode_attention.cu",
@@ -4745,10 +4786,12 @@ def main(argv):
                      launches_by_path=sm90_by_path,
                      **{k: main_case[k] for k in timed}),
                 dict(variant="f32", dtype="fp32", source=m["f32_source"],
+                     design=m["f32_design"],
                      launches=launches[name] - launches[f"{name}_sm90"],
                      launches_by_path={
                          path: n - sm90_by_path[path]
                          for path, n in by_path[name].items()},
+                     cuda_core_bound_ms=f32["cuda_core_bound_ms"],
                      **{k: f32[k] for k in timed})]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)

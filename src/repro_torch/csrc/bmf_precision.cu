@@ -311,24 +311,6 @@ __device__ __forceinline__ uint64_t l2_evict_last() {
   return pol;
 }
 
-// x = hi + lo: hi is x rounded to TF32 (to nearest, ties away: what
-// cvt.rna.tf32.f32 gives, in two integer operations on the full-rate
-// pipe), lo = x - hi exactly in f32, of which the tensor core reads the
-// TF32 part (it ignores an operand's low 13 bits)
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   const uint32_t b[2] = {b0, b1};

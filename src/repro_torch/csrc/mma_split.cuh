@@ -1,12 +1,17 @@
-// Shared device code of the tensor-core scans L4 (ssd_chunk.cu) and L5
-// (wkv6.cu): cp.async copies, the bf16 hi + lo split of f32 operands,
-// mma.sync m16n8k16 fragments and ldmatrix loads.
+// Shared device code of the tensor-core kernels that take f32 operands:
+// the scans L4 (ssd_chunk.cu) and L5 (wkv6.cu), B1's Gram kernel
+// (bmf_precision.cu) and the f32 attention kernels L1 and L2
+// (flash_attention.cu, flash_attention_bwd.cu): cp.async copies, the bf16
+// and TF32 hi + lo splits of f32 operands, mma.sync fragments and
+// ldmatrix loads.
 //
-// Their inputs are f32 and their parity limit is 1e-4 of the largest
-// value, which one bf16 rounding does not hold. So each operand is split
-// as x = hi + lo, both bf16 (round to nearest even), and each product is
-// hi.hi + hi.lo + lo.hi with f32 accumulators (about 16 bits; the lo.lo
-// term is dropped).
+// L4 and L5 hold 1e-4 of the largest value, which one bf16 rounding does
+// not. So each operand is split as x = hi + lo, both bf16 (round to
+// nearest even), and each product is hi.hi + hi.lo + lo.hi with f32
+// accumulators (about 16 bits; the lo.lo term is dropped). B1, L1 and L2
+// hold 1e-5 (1e-4 for L2's gradients), which needs 3xTF32: x = hi + lo
+// with hi rounded to TF32 (`split_tf32`) and each product lo.hi + hi.lo +
+// hi.hi on m16n8k8 TF32 tensor cores (`mma_tf32`, ~2^-22 relative).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -138,4 +143,26 @@ __device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1])
                : "r"(s));
+}
+
+// x = hi + lo: hi is x rounded to TF32 (to nearest, ties away: what
+// cvt.rna.tf32.f32 gives, in two integer operations on the full-rate
+// pipe), lo = x - hi exactly in f32, of which the tensor core reads the
+// TF32 part (it ignores an operand's low 13 bits)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += a b, m16n8k8 TF32 (PTX), lane = 4 g + t. A (16 x 8, rows r, depth
+// k): registers (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4). B (8 x 8):
+// (t, g), (t + 4, g). The accumulator: (g, 2t), (g, 2t + 1), (g + 8, 2t),
+// (g + 8, 2t + 1).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }

@@ -5,10 +5,12 @@ Function that joins them for training.
 Each kernel has two CUDA variants, chosen by dtype and by nothing else:
 bf16 goes to the Hopper tensor-core kernels (``csrc/flash_attention_sm90.cu``
 and ``csrc/flash_attention_bwd_sm90.cu``: wgmma fed by TMA), f32 to the
-f32 kernels on the CUDA cores (``csrc/flash_attention.cu`` and
-``csrc/flash_attention_bwd.cu``), since the tensor cores have no f32
-product that keeps the f32 results to 1e-5. Each wrapper counts all its
-launches in ``launches`` and the bf16 ones in ``sm90_launches``.
+3xTF32 tensor-core kernels (``csrc/flash_attention.cu`` and
+``csrc/flash_attention_bwd.cu``: mma.sync fed by cp.async, each f32
+product as three TF32 products of split operands x = hi + lo, which keep
+the f32 results to 1e-5 where one TF32 product would not). Each wrapper
+counts all its launches in ``launches`` and the bf16 ones in
+``sm90_launches``.
 
 L1 replaces the TPU kernel ``src/repro/kernels/flash_attention/kernel.py``
 (``flash_attention_padded``, body ``_kernel``, with ``return_lse``) and its
@@ -49,7 +51,7 @@ def _lib():
     fn = BUILD.load("flash_attention").flash_attention_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p] * 5 + [i] * 8 + [p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -178,8 +180,7 @@ def _launch(q, k, v, causal, window, return_lse):
                     "flash_attention_sm90_launch")
         flash_attention.sm90_launches += 1
     else:
-        BUILD.check(_lib()(*ptrs, 0, *dims, stream),
-                    "flash_attention_launch")
+        BUILD.check(_lib()(*ptrs, *dims, stream), "flash_attention_launch")
     flash_attention.launches += 1
     _note(q, k, v, o, lse)
     return (o, lse) if return_lse else o

@@ -32,9 +32,9 @@ the attention kernels L1, L2, L3 and the scans L4, L5,
     outputs written once (``PERF.md``'s bounds), the padded-CSR planes
     (idx, val, mask) at the live slots where the caller knows them
     (``live_slots``), else at every slot;
-  - B1's Gram kernel above K = 16 runs its products on the tensor cores:
-    its matmul flops go to ``tf32_flops`` three times over (fp32 factors,
-    hi + lo split) or to ``bf16_flops`` (bf16 factors).
+  - B1's Gram kernel above K = 16, L1 and L2 run their products on the
+    tensor cores: their matmul flops go to ``tf32_flops`` three times over
+    (f32 operands, hi + lo split) or to ``bf16_flops`` (bf16 operands).
 
 Besides the reference's keys (``flops``, ``bytes``, ``bytes_min``,
 ``dot_flops``, ``elem_flops``) a cost holds ``fp32_flops``,
@@ -254,13 +254,21 @@ SHAPE_KERNELS = {
 }
 
 
+# the attention kernels whose products run on the tensor cores in either
+# dtype (L1, L2)
+_TENSOR_CORE_KERNELS = ("repro_torch::flash_attention",
+                        "repro_torch::flash_attention_bwd")
+
+
 def shape_kernel_cost(rec: OPT.OpRecord) -> Dict[str, float]:
     """Cost of one L1-L5 launch record: the flops of the kernel's plain
     version at the record's shapes (traced on ``meta``, cached), the
-    matrix products at the bf16 tensor-core rate when q is bf16 (the sm90
-    kernels; L3 reads a bf16 cache with f32 products on the CUDA cores;
-    L4 and L5 take f32 operands, counted at the f32 rate), and its
-    operands read once and its outputs written once."""
+    matrix products of L1 and L2 on the tensor cores (bf16 q: one bf16
+    product each, the sm90 kernels; f32 q: three TF32 products each, the
+    3xTF32 kernels, as B1's Gram kernel), L3's (a bf16 cache read into
+    f32 products on the CUDA cores) and L4's and L5's (f32 operands) at
+    the f32 rate, and its operands read once and its outputs written
+    once."""
     key = (rec.op, tuple((t.name, t.dtype, t.shape) for t in rec.operands),
            tuple((t.name, t.dtype, t.shape) for t in rec.outputs))
     if key not in _PLAIN_CACHE:
@@ -274,9 +282,12 @@ def shape_kernel_cost(rec: OPT.OpRecord) -> Dict[str, float]:
         c["bytes"] = c["bytes_min"] = float(io)
         q = rec.operands[0]
         c["tf32_flops"] = c["bf16_flops"] = 0.0
-        if q.dtype == "bfloat16" and rec.op != "repro_torch::decode_attention":
+        if rec.op in _TENSOR_CORE_KERNELS:
             c["fp32_flops"] = c["flops"] - c["dot_flops"]
-            c["bf16_flops"] = c["dot_flops"]
+            if q.dtype == "bfloat16":
+                c["bf16_flops"] = c["dot_flops"]
+            else:
+                c["tf32_flops"] = 3 * c["dot_flops"]
         else:
             c["fp32_flops"] = c["flops"]
         _PLAIN_CACHE[key] = c

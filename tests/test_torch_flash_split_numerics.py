@@ -358,10 +358,8 @@ def test_forward_dispatch_by_dtype(stub_libs, dtype, hd):
     sm90, simt = stub_libs["_lib_sm90"].calls, stub_libs["_lib"].calls
     assert (len(sm90), len(simt)) == ((1, 0) if bf16 else (0, 1))
     args = (sm90 or simt)[0]
-    # sm90: 5 pointers, then B, Sq, Skv, H, Hkv, hd, causal, window;
-    # f32: the same with is_bf16 = 0 after the pointers
-    assert args[5:] == ((1, 40, 40, 4, 2, hd, 1, 0, 0) if bf16
-                        else (0, 1, 40, 40, 4, 2, hd, 1, 0, 0))
+    # both: 5 pointers, then B, Sq, Skv, H, Hkv, hd, causal, window
+    assert args[5:] == (1, 40, 40, 4, 2, hd, 1, 0, 0)
     assert FA.flash_attention.launches == 1
     assert FA.flash_attention.sm90_launches == int(bf16)
 

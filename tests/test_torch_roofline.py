@@ -243,12 +243,58 @@ def _launch(kernel, B, n, m, d, k, dtype=torch.float32):
     return recs[0]
 
 
+def _attention_launch(kernel, dtype):
+    """One L1 (with lse), L2 or L3 launch record on ``meta`` operands
+    through the wrapper, at a small GQA shape."""
+    from repro_torch.kernels.decode_attention import ops as DA
+    from repro_torch.kernels.flash_attention import ops as FA
+    B, S, H, Hkv, hd = 2, 48, 4, 2, 32
+
+    def e(*s, dt=dtype):
+        return torch.empty(s, dtype=dt, device="meta")
+
+    q, k, v = e(B, S, H, hd), e(B, S, Hkv, hd), e(B, S, Hkv, hd)
+    with OPT.record() as tr:
+        if kernel == "l1":
+            FA.flash_attention(q, k, v, causal=True, return_lse=True)
+        elif kernel == "l2":
+            FA.flash_bwd(q, k, v, q, q, e(B, S, H, dt=torch.float32))
+        else:
+            DA.decode_attention(e(B, H, hd), k, v,
+                                e(S, dt=torch.int32), S - 1)
+    recs = [o for o in tr.ops if o.kernel]
+    assert len(recs) == 1
+    return recs[0]
+
+
 @pytest.mark.parametrize("case", ["b1-k10", "b1-k40-fp32", "b1-k40-bf16",
-                                  "b2-k10"])
+                                  "b2-k10", "l1-fp32", "l1-bf16", "l2-fp32",
+                                  "l2-bf16", "l3-fp32", "l3-bf16"])
 def test_kernel_cost_rules(case):
     """A launch's bytes are its operands read once (planes at the live
     slots) and outputs written once; its flops the plain version's at the
-    mean live length; B1 above K = 16 on the tensor cores."""
+    mean live length; B1 above K = 16 on the tensor cores. L1 and L2 run
+    their products on the tensor cores in either dtype (f32: 3xTF32, as
+    B1), L3 on the CUDA cores."""
+    if case.startswith("l"):
+        kernel, name = case.split("-")
+        dtype = torch.bfloat16 if name == "bf16" else torch.float32
+        rec = _attention_launch(kernel, dtype)
+        c = COST.kernel_cost(rec)
+        assert c["bytes_min"] == c["bytes"] == sum(
+            COST._nbytes(x) for x in rec.operands + rec.outputs)
+        assert c["dot_flops"] > 0
+        if kernel == "l3":
+            assert c["fp32_flops"] == c["flops"]
+            assert c["tf32_flops"] == c["bf16_flops"] == 0
+            return
+        assert c["fp32_flops"] == c["flops"] - c["dot_flops"]
+        if dtype == torch.bfloat16:
+            assert c["bf16_flops"] == c["dot_flops"] and c["tf32_flops"] == 0
+        else:
+            assert c["tf32_flops"] == 3 * c["dot_flops"]
+            assert c["bf16_flops"] == 0
+        return
     kernel, k = case.split("-")[0], int(case.split("-")[1][1:])
     dtype = torch.bfloat16 if case.endswith("bf16") else torch.float32
     B, n, m, d = 2, 20, 12, 30
