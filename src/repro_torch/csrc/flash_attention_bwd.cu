@@ -73,7 +73,7 @@ using namespace tf32att;
 constexpr int kRows = 128;   // query rows a dq block keeps: 8 warps x 16
 constexpr int kPairs = 4;    // warp pairs of a dk/dv block
 constexpr int kKeys = 16 * kPairs;   // key rows a dk/dv block keeps
-constexpr int kTile = 16;    // rows of a streamed tile: keys (dq), queries
+constexpr int kTile = 16;    // streamed tile rows: keys (dq), queries (dk/dv)
 constexpr int kThreads = 256;
 
 template <int HD>
@@ -92,6 +92,29 @@ constexpr int dkv_smem_floats() {
 // the two warps of pair i meet (named barrier i + 1; __syncthreads is 0)
 __device__ __forceinline__ void pair_sync(int i) {
   asm volatile("bar.sync %0, 64;\n" ::"r"(i + 1) : "memory");
+}
+
+// sum += a m for a tile: a is kTile / 8 accumulators (16 rows x kTile
+// columns, the depth of the product), m a pair plane (kTile x HD); a fresh
+// partial per column tile of sum
+template <int HD>
+__device__ __forceinline__ void tile_rows(float (&sum)[HD / 8][4],
+                                          const float (&a)[kTile / 8][4],
+                                          const float* m, int g, int t) {
+  constexpr int NT = kTile / 8;
+  Frag f[NT];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) frag_acc(f[j], a[j]);
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+    float part[4];
+    mma3_tf32_first(part, f[0], frag_pair<HD>(m, 8 * n, 0, g, t));
+#pragma unroll
+    for (int j = 1; j < NT; ++j)
+      mma3_tf32(part, f[j], frag_pair<HD>(m, 8 * n, j, g, t));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sum[n][e] += part[e];
+  }
 }
 
 // dq pass, and D = rowsum(do * o). Grid (H, query tiles, B); query tiles
@@ -222,26 +245,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const float p = ok ? expf(s[j][e] - lr[r]) : 0.f;
         s[j][e] = p * (dp[j][e] - Dr[r]);   // ds
       }
-    // the tile's ds k as fresh partials, all column tiles at once (their
-    // chains are independent)
-    float part[NK][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      Frag df;
-      frag_acc(df, s[j]);
-#pragma unroll
-      for (int n = 0; n < NK; ++n) {
-        const float4 b = frag_pair<HD>(kt, 8 * n, j, g, t);
-        if (j == 0)
-          mma3_tf32_first(part[n], df, b);
-        else
-          mma3_tf32(part[n], df, b);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < NK; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
+    tile_rows<HD>(acc, s, kt, g, t);   // dq += ds k
   }
 
 #pragma unroll
@@ -253,29 +257,6 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int n = 0; n < NK; ++n)
       *reinterpret_cast<float2*>(row + 8 * n) =
           make_float2(acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
-  }
-}
-
-// sum += a m for a tile: a is kTile / 8 accumulators (16 rows x kTile
-// columns, the depth of the product), m a pair plane (kTile x HD); a fresh
-// partial per column tile of sum
-template <int HD>
-__device__ __forceinline__ void tile_rows(float (&sum)[HD / 8][4],
-                                          const float (&a)[kTile / 8][4],
-                                          const float* m, int g, int t) {
-  constexpr int NT = kTile / 8;
-  Frag f[NT];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) frag_acc(f[j], a[j]);
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
-    float part[4];
-    mma3_tf32_first(part, f[0], frag_pair<HD>(m, 8 * n, 0, g, t));
-#pragma unroll
-    for (int j = 1; j < NT; ++j)
-      mma3_tf32(part, f[j], frag_pair<HD>(m, 8 * n, j, g, t));
-#pragma unroll
-    for (int e = 0; e < 4; ++e) sum[n][e] += part[e];
   }
 }
 

@@ -211,21 +211,6 @@ def test_single_tf32_product_breaks_the_forward_limit():
     assert errs[0] > limit >= errs[1], (errs, limit)
 
 
-def test_tiles_follow_the_online_softmax():
-    """The 32-key online softmax gives the one-pass softmax over all keys
-    (the same 3xTF32 scores) within float rounding."""
-    _, B, Sq, Skv, H, Hkv, hd, causal, window = FWD_CASES[4]
-    q, k, v = _inputs(B, Sq, Skv, H, Hkv, hd, seed=3)
-    o, lse = emulate_fwd(q, k, v, causal, window)
-    s = mm3(_heads(q, Hkv) / math.sqrt(hd), _kv(k).transpose(-1, -2))
-    s = s.masked_fill(~attention_mask(Sq, Skv, causal, window, "cpu"),
-                      -math.inf)
-    full = mm3(torch.softmax(s, -1), _kv(v))
-    assert_rel_close(o.numpy(), _unheads(full).numpy(), 1e-6)
-    assert_rel_close(lse.numpy(), _unheads(torch.logsumexp(s, -1)[..., None])
-                     [..., 0].numpy(), 1e-6)
-
-
 # (id, B, Sq, Skv, H, Hkv, hd, causal, window): the head sizes L2 takes,
 # GQA groups 1 and 4; Pallas-aligned shapes against the reference's two
 # backward kernels on the same (o, lse), ragged ones against jax.vjp of
